@@ -4,34 +4,56 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit and builds the CUDA kernels of
-   ``csrc/`` with nvcc (one process per library, started together);
+   ``csrc/`` with nvcc (one process per library, started together): the
+   megakernel for ``--nee-bound`` 1, 4, 8 and 10 and the closest-hit
+   kernel, each with its ptxas line (registers, spills);
 2. holds the path-tracing kernel (K1, with the triangle tester K2
    inlined) against its plain PyTorch version on the card, from one
-   65,536-lane state of the showcase scene, in five cases: parity to
+   65,536-lane state of the showcase scene, in six cases: parity to
    termination, counter with one iteration on part of the blocks, ld from
-   Sobol dimension 2, TIR kill with the analytic direct term, and an
-   opaque/media partitioned grid. rng, depth and alive must be equal on
-   all lanes but the flip lanes (those whose depth or alive differ), at
-   most 1e-3 of the lanes; rad, thr, org and dir within atol 1e-4 and
-   rtol 1e-4 on the other lanes;
-3. drives the main path: a default render of scenes/showcase.obj at
-   512x512 with 16 samples per pixel (parity RNG) through ``Renderer``,
-   timed after one warm-up, with the kernel's launch count; then the
-   64x64 at 32 spp render against tests/golden/showcase_gate.npz under the
-   flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels with
-   |diff| > 1e-2);
-4. times the kernel with CUDA events at the main path's widest launch
-   (65,536 fresh lanes, one bounce), times the plain version on the same
-   input, and computes the bound from that input: a plain pass over the
-   same state finds, for each ray set the bounce needs, the clusters whose
-   box the ray meets before its final hit (or its own bound), and counts
-   their real slots and boxes at the f32 operations of the CUDA tests;
-5. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
+   Sobol dimension 2, TIR kill with the analytic direct term, an
+   opaque/media partitioned grid, and ``--nee-bound 10``. rng, depth and
+   alive must be equal on all lanes but the flip lanes (those whose depth
+   or alive differ), at most 1e-3 of the lanes; rad, thr, org and dir
+   within atol 1e-4 and rtol 1e-4 on the other lanes;
+3. holds the closest-hit kernel (K3) against its plain version on the
+   card: 65,536 showcase primary rays and 65,536 bounce-like rays (random
+   directions from the primary hits, a third of the lanes parked, a
+   per-lane t_max), on the default, the quads-off and the partitioned
+   grid. Slot and material must be equal on every lane and the floats
+   within atol 1e-6 (the worst error is printed; both round every
+   operation once, in the same order). Against the BVH walk of the same
+   rays on the quads-off grid (a merged quad slot reports one of its two
+   triangles), prim must be equal on all but 1e-3 of the lanes (K3's
+   additive far-edge epsilon admits hits up to 2e-6 past an edge);
+4. drives the main path: a default (megakernel) render of
+   scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
+   through ``Renderer``, timed after one warm-up, with K1's launch count;
+   then the 64x64 at 32 spp render against tests/golden/showcase_gate.npz
+   under the flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels
+   with |diff| > 1e-2);
+5. drives the wavefront path: the same showcase render with ``--engine
+   wavefront`` after a small warm-up, timed, with K3's launch count, held
+   against the megakernel image (non-flip RMSE <= 1e-3, flip pixels at most
+   0.6% of the image: the golden budget of 24 of 4,096, scaled); the
+   showcase_gate golden through the wavefront engine; the depth, normal
+   and topology AOVs of showcase at 512x512 through K3 against the same
+   passes through its plain version on the card (equal); and
+   scenes/isobox.obj at 64x64 with 2 spp through ``--backend bvh --engine
+   wavefront`` on the card against tests/golden/isobox.npz (the gate);
+6. times K1 and K3 with CUDA events at their widest launches on the main
+   paths (65,536 fresh lanes: K1 one bounce, K3 the closest trace of the
+   primary rays), times the plain versions on the same inputs, and
+   computes each bound from its input: a plain pass finds, for each ray
+   set, the clusters whose box the ray meets before its final hit (or its
+   own bound), and counts their real slots and boxes at the f32
+   operations of the CUDA tests;
+7. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
-after the first kernel comparison; ``--profile`` adds a torch.profiler
-breakdown of one main-path pass.
+after the first kernel comparisons; ``--profile`` adds a torch.profiler
+breakdown of one main-path pass of each engine.
 """
 
 from __future__ import annotations
@@ -70,10 +92,19 @@ RAY_OPS = 30 + 14 + 2
 # depth (int32) and alive (bool) once and writes them once.
 STATE_BYTES = 12 * 4 + 8 + 4 + 1
 
+# K3 moves 7 f32 per ray in (origin, direction, t_max) and 11 out (t,
+# slot, u, v, normal, material, position).
+K3_RAY_BYTES = (7 + 11) * 4
+
 BAND_ROWS = 128  # rows of 512 pixels in one main-path pass: 65,536 lanes
 FLIP_FRAC = 1e-3
 ATOL = 1e-4
 RTOL = 1e-4
+K3_ATOL = 1e-6
+WAVEFRONT_FLIP_FRAC = 24 / 4096  # the golden gate's flip budget, per pixel
+# Device sleep queued ahead of each timed launch: about 10 ms at the H100's
+# clock, far longer than a wrapper's host work.
+SLEEP_CYCLES = 20_000_000
 
 
 def fail(msg: str) -> None:
@@ -83,6 +114,15 @@ def fail(msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def reset_launch_counts() -> None:
+    """Set the launch count of every kernel wrapper to 0."""
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    mk.trace_paths_mega.launches = 0
+    ctr.trace_core.launches = 0
 
 
 def nvidia_smi_line() -> str:
@@ -95,11 +135,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def showcase_options(width, height, spp, **kw):
+def showcase_options(width, height, spp, obj="showcase", **kw):
     from complex_materials_renderer_tpu_torch.config import RenderOptions
     from complex_materials_renderer_tpu_torch.scene import load_scene
 
-    obj = os.path.join(REPO, "scenes", "showcase.obj")
+    obj = os.path.join(REPO, "scenes", f"{obj}.obj")
     base = dict(width=width, height=height, num_samples=spp, rng="parity", device="cuda")
     base.update(kw)
     scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
@@ -156,7 +196,7 @@ def compare_states(name, a, b):
 
 
 def kernel_vs_plain(r, r_part, quick):
-    """Phase 2: the kernel against its plain version on the card."""
+    """K1 against its plain version on the card."""
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
@@ -170,12 +210,13 @@ def kernel_vs_plain(r, r_part, quick):
     base = dict(background=opt.background, max_depth=opt.max_depth, rr_depth=opt.rr_depth,
                 nee_max_media=opt.nee_max_media)
     cases = [
-        ("parity, max_iters=max_depth", r.grid, "parity", dict()),
-        ("counter, max_iters=1, live_blocks=5/8 of the blocks", r.grid, "counter",
+        ("parity, max_iters=max_depth", r.accel, "parity", dict()),
+        ("counter, max_iters=1, live_blocks=5/8 of the blocks", r.accel, "counter",
          dict(max_iters=1, live_blocks=BAND_ROWS * 512 // mk.BLOCK * 5 // 8)),
-        ("ld, dim0=2", r.grid, "ld", dict(ld=True, dim0=2)),
-        ("tir_kill + analytic_direct", r.grid, "parity", dict(tir_kill=True, analytic_direct=True)),
-        ("partitioned grid", r_part.grid, "parity", dict()),
+        ("ld, dim0=2", r.accel, "ld", dict(ld=True, dim0=2)),
+        ("tir_kill + analytic_direct", r.accel, "parity", dict(tir_kill=True, analytic_direct=True)),
+        ("partitioned grid", r_part.accel, "parity", dict()),
+        ("nee_max_media=10", r.accel, "parity", dict(nee_max_media=10)),
     ]
     if quick:
         cases = cases[:1]
@@ -184,10 +225,10 @@ def kernel_vs_plain(r, r_part, quick):
         st = band_state(r, rng_mode)
         a, b = clone_state(st), clone_state(st)
         launches = mk.trace_paths_mega.launches
-        trace_paths_mega(grid, media9, misc, a, **base, **kw)
+        trace_paths_mega(grid, media9, misc, a, **{**base, **kw})
         torch.cuda.synchronize()
         mk.trace_paths_mega.launches = launches  # comparison launches do not count
-        trace_paths_mega_plain(grid, media9, misc, b, **base, **kw)
+        trace_paths_mega_plain(grid, media9, misc, b, **{**base, **kw})
         torch.cuda.synchronize()
         _, err = compare_states(name, a, b)
         worst = max(worst, err)
@@ -200,7 +241,7 @@ def kernel_vs_plain(r, r_part, quick):
 
 
 def main_path(r_opts):
-    """Phase 3: the showcase render at 512x512, 16 spp, and the gate."""
+    """Phase 4: the showcase render at 512x512, 16 spp."""
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
@@ -210,12 +251,12 @@ def main_path(r_opts):
     t0 = time.perf_counter()
     r = Renderer(scene, opt)
     print(f"   accel build + upload {time.perf_counter() - t0:.3f} s; clusters "
-          f"{r.grid.num_clusters}, supers {r.grid.num_supers}, width {r.grid.width}", flush=True)
+          f"{r.accel.num_clusters}, supers {r.accel.num_supers}, width {r.accel.width}", flush=True)
     t0 = time.perf_counter()
     r.render()  # warm-up
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    mk.trace_paths_mega.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = r.render()
@@ -231,24 +272,68 @@ def main_path(r_opts):
         fail("the main path launched the megakernel no time")
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         fail("main-path image is not finite or has the wrong shape")
-    return r, launches, dt, paths
+    return r, launches, img
 
 
-def golden_gate():
+def flip_gate(img, ref):
+    """(non-flip RMSE, flip pixels): pixels with |diff| > 1e-2 are flips."""
+    img, ref = np.asarray(img, np.float64), np.asarray(ref, np.float64)
+    flip = np.abs(img - ref).max(-1) > 1e-2
+    nonflip = float(np.sqrt(((img - ref) ** 2)[~flip].mean()))
+    return nonflip, int(flip.sum())
+
+
+def golden_gate(name="showcase", golden="showcase_gate", size=64, spp=32, **kw):
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
-    img = Renderer(*showcase_options(64, 64, 32, shard="none")).render()
-    with np.load(os.path.join(REPO, "tests", "golden", "showcase_gate.npz")) as z:
+    img = Renderer(*showcase_options(size, size, spp, shard="none", obj=name, **kw)).render()
+    with np.load(os.path.join(REPO, "tests", "golden", f"{golden}.npz")) as z:
         ref = np.asarray(z["img"], np.float64)
-    diff = np.abs(img.astype(np.float64) - ref).max(-1)
-    flip = diff > 1e-2
-    err2 = (img.astype(np.float64) - ref) ** 2
-    nonflip = float(np.sqrt(err2[~flip].mean()))
-    flips = int(flip.sum())
-    print(f"   showcase_gate 64x64@32 parity: non-flip RMSE {nonflip:.3e} (limit 1e-3), "
-          f"flip pixels {flips} (budget 24)", flush=True)
+    nonflip, flips = flip_gate(img, ref)
+    print(f"   {golden} {size}x{size}@{spp} parity {kw or ''}: non-flip RMSE {nonflip:.3e} "
+          f"(limit 1e-3), flip pixels {flips} (budget 24)", flush=True)
     if not (nonflip <= 1e-3 and flips <= 24):
-        fail("showcase_gate golden gate failed")
+        fail(f"{golden} golden gate failed ({kw})")
+
+
+def grid_counts(g):
+    """(real slots per cluster, clusters per super) as float64 tensors."""
+    import torch
+
+    real = (g.tri_index.reshape(g.num_clusters, -1) >= 0).sum(1).to(torch.float64)
+    sf, S, C = g.super_factor, g.num_supers, g.num_clusters
+    per_super = torch.tensor([min(sf, C - s * sf) for s in range(S)], dtype=torch.float64,
+                             device=real.device)
+    return real, per_super
+
+
+def boxes_met(g, rays, tmax, bound, chunk=8192):
+    """(needs the set, supers met, clusters met) of rays (OX, OY, OZ, DX,
+    DY, DZ) with bound ``tmax``: the boxes each ray meets within
+    [T_MIN, its final ``bound``], in chunks of lanes."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    owner = torch.arange(g.num_clusters, device=tmax.device) // g.super_factor
+    O = torch.stack(rays[:3], 1)
+    INV = torch.stack([mk._safe_inv(d) for d in rays[3:]], 1)
+    need = tmax > mk.T_MIN
+
+    def hits(boxes, o, inv, b, nd):
+        t0 = (boxes[None, :, 0:3] - o[:, None]) * inv[:, None]
+        t1 = (boxes[None, :, 3:6] - o[:, None]) * inv[:, None]
+        tn = torch.minimum(t0, t1).amax(-1).clamp(min=mk.T_MIN)
+        tf = torch.minimum(torch.maximum(t0, t1).amin(-1), b[:, None])
+        return (tn <= tf) & nd[:, None]
+
+    sups, clus = [], []
+    for lo in range(0, O.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        sup = hits(g.super_bounds, O[sl], INV[sl], bound[sl], need[sl])
+        sups.append(sup)
+        clus.append(hits(g.bounds, O[sl], INV[sl], bound[sl], need[sl]) & sup[:, owner])
+    return need, torch.cat(sups), torch.cat(clus)
 
 
 def needed_work(r, media9, misc, state, kw):
@@ -265,7 +350,7 @@ def needed_work(r, media9, misc, state, kw):
     from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
 
-    g = r.grid
+    g = r.accel
     records = []
     plain_trace = mk._subset_trace
 
@@ -280,27 +365,11 @@ def needed_work(r, media9, misc, state, kw):
     finally:
         mk._subset_trace = plain_trace
 
-    real = (g.tri_index.reshape(g.num_clusters, -1) >= 0).sum(1).to(torch.float64)
-    sf, S, C = g.super_factor, g.num_supers, g.num_clusters
-    per_super = torch.tensor([min(sf, C - s * sf) for s in range(S)], dtype=torch.float64,
-                             device=real.device)
-    owner = torch.arange(C, device=real.device) // sf
+    real, per_super = grid_counts(g)
+    S = g.num_supers
 
     def met(rays, tmax, bound):
-        """(needs the set, supers met, clusters met) within the final bound."""
-        O = torch.stack(rays[:3], 1)
-        INV = torch.stack([mk._safe_inv(d) for d in rays[3:]], 1)
-        need = tmax > mk.T_MIN
-
-        def hits(boxes):
-            t0 = (boxes[None, :, 0:3] - O[:, None]) * INV[:, None]
-            t1 = (boxes[None, :, 3:6] - O[:, None]) * INV[:, None]
-            tn = torch.minimum(t0, t1).amax(-1).clamp(min=mk.T_MIN)
-            tf = torch.minimum(torch.maximum(t0, t1).amin(-1), bound[:, None])
-            return (tn <= tf) & need[:, None]
-
-        sup = hits(g.super_bounds)
-        return need, sup, hits(g.bounds) & sup[:, owner]
+        return boxes_met(g, rays, tmax, bound)
 
     slabs = slots_ops = 0.0
     i = 0
@@ -324,7 +393,7 @@ def needed_work(r, media9, misc, state, kw):
 
 
 def time_kernel(r, media9, misc, base):
-    """Phase 4: K1 per launch at the main path's widest shape, the plain
+    """K1 per launch at the main path's widest shape, the plain
     version on the same input, and the bound from the work that input
     needs."""
     import torch
@@ -333,7 +402,7 @@ def time_kernel(r, media9, misc, base):
 
     st = band_state(r, "parity")
     kw = dict(base, max_iters=1)
-    g = r.grid
+    g = r.accel
     slabs, slots_ops = needed_work(r, media9, misc, clone_state(st), kw)
     ops = slabs * SLAB_OPS + slots_ops
     lanes = st.org.shape[0]
@@ -345,16 +414,7 @@ def time_kernel(r, media9, misc, base):
 
     def timed(fn, reps):
         copies = [clone_state(st) for _ in range(reps)]
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        total = 0.0
-        for c in copies:
-            e0.record()
-            fn(c)
-            e1.record()
-            torch.cuda.synchronize()
-            total += e0.elapsed_time(e1)
-        return total / reps
+        return cuda_time(lambda i: fn(copies[i]), reps)
 
     before = mk.trace_paths_mega.launches
     kern = lambda s: mk.trace_paths_mega(g, media9, misc, s, **kw)  # noqa: E731
@@ -371,21 +431,239 @@ def time_kernel(r, media9, misc, base):
     return ms, plain_ms, bound_ms, bound_by
 
 
-def profile_pass(r):
-    """Optional: torch.profiler over one 65,536-lane, 16-sample pass."""
+def primary_rays(r):
+    """The camera rays of the main path's first pass (65,536 lanes)."""
+    st = band_state(r, "parity")
+    return st.org.contiguous(), st.dir.contiguous()
+
+
+def bounce_rays(r, o, d, seed=7):
+    """Bounce-like rays: random directions from the primary rays' hit
+    points (misses start at the origin), a third of the lanes parked and a
+    per-lane t_max in [0.05, 20)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+
+    n = o.shape[0]
+    hit = ctr.trace_shaded_clusters(o, d, r.accel, 1e-4, 1e4)
+    gen = torch.Generator(device=o.device).manual_seed(seed)
+    dirs = torch.randn((n, 3), generator=gen, device=o.device)
+    dirs = dirs / torch.linalg.vector_norm(dirs, dim=1, keepdim=True)
+    org = torch.where(hit.hit[:, None], hit.position, o).contiguous()
+    active = torch.rand((n,), generator=gen, device=o.device) >= 1.0 / 3.0
+    t_max = 0.05 + 19.95 * torch.rand((n,), generator=gen, device=o.device)
+    return org, dirs.contiguous(), t_max, active
+
+
+def k3_vs_plain(r, r_quads_off, r_part):
+    """K3 against its plain version and against the BVH walk."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.accel import build_bvh
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.kernels import traverse
+
+    o, d = primary_rays(r)
+    ob, db, tb, ab = bounce_rays(r, o, d)
+    tri = r.triangles
+    bvh = traverse.device_bvh(build_bvh(tri, 4), tri, 4, r.device)
+    n = o.shape[0]
+    ones = torch.ones((n,), dtype=torch.bool, device=o.device)
+    worst = 0.0
+    saved = ctr.trace_core.launches
+    for gname, rr in (("default grid", r), ("quads off", r_quads_off), ("partitioned", r_part)):
+        for rname, (oo, dd, tm, act) in (("primary", (o, d, 1e4, ones)),
+                                          ("bounce-like", (ob, db, tb, ab))):
+            got = ctr.trace_core(oo, dd, rr.accel, 1e-4, tm, act)
+            torch.cuda.synchronize()
+            eff = torch.where(act, torch.broadcast_to(torch.as_tensor(tm, device=o.device), (n,)),
+                              torch.zeros((n,), device=o.device))
+            want = ctr.trace_core_plain(oo, dd, rr.accel, eff)
+            slot_bad = int((got[1] != want[1].to(torch.int32)).sum())
+            mat_bad = int((got[7] != want[7].to(torch.int32)).sum())
+            err = max(float((x - y).abs().max()) for i, (x, y) in enumerate(zip(got, want))
+                      if i not in (1, 7))
+            worst = max(worst, err)
+            hits = int((got[1] >= 0).sum())
+            print(f"   K3 {gname}, {rname} rays: lanes {n}, hits {hits}, slot mismatches "
+                  f"{slot_bad}, material mismatches {mat_bad}, worst float error {err:.3e}",
+                  flush=True)
+            if slot_bad or mat_bad or not err <= K3_ATOL:
+                fail(f"K3 differs from its plain version ({gname}, {rname})")
+            if rr is r_quads_off:  # a merged quad slot reports one triangle of the two
+                k3 = ctr.trace_closest_clusters(oo, dd, rr.accel, 1e-4, tm, act)
+                walk = traverse.trace_closest(oo, dd, bvh, 1e-4, tm, act)
+                torch.cuda.synchronize()
+                bad = int((k3.prim != walk.prim).sum())
+                print(f"   K3 against the BVH walk, {rname} rays: prim differs on {bad} of {n} "
+                      f"lanes", flush=True)
+                if bad > FLIP_FRAC * n:
+                    fail(f"K3 and the BVH walk differ on {bad} lanes ({rname})")
+    ctr.trace_core.launches = saved  # comparison launches do not count
+    return worst
+
+
+def wavefront_path(main_opts, mega_img):
+    """The wavefront engine on the main scene, held against the
+    megakernel image of the same configuration."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    opt = dataclasses.replace(opt, engine="wavefront")
+    r = Renderer(scene, opt)
+    t0 = time.perf_counter()
+    Renderer(scene, dataclasses.replace(opt, width=64, height=64, num_samples=1)).render()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ctr.trace_core.launches
+    paths = opt.width * opt.height * opt.num_samples
+    nonflip, flips = flip_gate(img, mega_img)
+    budget = WAVEFRONT_FLIP_FRAC * opt.width * opt.height
+    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, wavefront: warm-up "
+          f"(64x64@1) {warm:.3f} s, timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K3 launches "
+          f"{launches}; image mean {float(np.mean(img)):.6f}; against the megakernel image: "
+          f"non-flip RMSE {nonflip:.3e} (limit 1e-3), flip pixels {flips} (budget {budget:.0f})",
+          flush=True)
+    if launches <= 0:
+        fail("the wavefront path launched the closest-hit kernel no time")
+    if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
+        fail("wavefront image is not finite or has the wrong shape")
+    if not (nonflip <= 1e-3 and flips <= budget):
+        fail("the wavefront image fails the gate against the megakernel image")
+    return launches
+
+
+def aov_phase(main_opts):
+    """The three AOVs of showcase at full size through K3, against the
+    same passes with K3's plain version on the card."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    real_launch = ctr._launch
+
+    def plain_launch(o, d, grid, eff_tmax, t_min):
+        out = ctr.trace_core_plain(o, d, grid, eff_tmax, t_min)
+        return tuple(x.to(torch.int32) if i in (1, 7) else x for i, x in enumerate(out))
+
+    for kind in ("depth", "normal", "topology"):
+        r = Renderer(scene, dataclasses.replace(opt, aov=kind))
+        reset_launch_counts()
+        img = r.render()
+        launches = ctr.trace_core.launches
+        ctr._launch = plain_launch
+        try:
+            ref = r.render()
+        finally:
+            ctr._launch = real_launch
+        equal = bool(np.array_equal(img, ref))
+        print(f"   AOV {kind} {opt.width}x{opt.height}: K3 launches {launches}, equal to the plain "
+              f"pass: {equal}, mean {float(np.mean(img)):.6f}", flush=True)
+        if launches != 1:
+            fail(f"AOV {kind} launched K3 {launches} times, expected once")
+        if not equal or not np.isfinite(img).all():
+            fail(f"AOV {kind} through K3 differs from its plain pass")
+
+
+def k3_needed_work(g, o, d, t_hit):
+    """(box tests, slot-test operations) that a closest trace of rays
+    (o, d) with final hits ``t_hit`` needs: the boxes of every super, the
+    boxes of the clusters of supers met, and the real slots of the
+    clusters met before the final hit."""
+    real, per_super = grid_counts(g)
+    rays = (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
+    need, sup, clus = boxes_met(g, rays, t_hit, t_hit)
+    slabs = float(need.sum()) * g.num_supers + float((sup.double() @ per_super).sum())
+    return slabs, (ORIGIN_OPS + RAY_OPS) * float((clus.double() @ real).sum())
+
+
+def cuda_time(fn, reps):
+    """Mean device ms of ``fn(i)`` for i in range(reps), by CUDA events
+    around each call. Each call is queued behind a device sleep, so the
+    host's work in the wrapper is done while the card sleeps and the
+    events time the card's work alone (a wrapper that syncs, like the
+    plain versions, adds its host time)."""
+    import torch
+
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(i)
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / reps
+
+
+def time_k3(r):
+    """K3 per launch at the wavefront's widest launch (65,536 fresh
+    showcase lanes, closest trace), the plain version on the same input,
+    and the bound from the work that input needs."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+
+    g = r.accel
+    o, d = primary_rays(r)
+    n = o.shape[0]
+    tmax = torch.full((n,), 1e4, device=o.device)
+    before = ctr.trace_core.launches
+    kern = lambda _i=0: ctr.trace_core(o, d, g, 1e-4, tmax)  # noqa: E731
+    plain = lambda _i=0: ctr.trace_core_plain(o, d, g, tmax)  # noqa: E731
+    t_hit = kern()[0]
+    slabs, slot_ops = k3_needed_work(g, o, d, t_hit)
+    ops = slabs * SLAB_OPS + slot_ops
+    grid_bytes = sum(t.numel() * t.element_size() for t in (g.bounds, g.super_bounds, g.run_rows))
+    nbytes = n * K3_RAY_BYTES + grid_bytes
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    cuda_time(kern, 5)  # warm-up
+    ms = cuda_time(kern, 50)
+    plain_ms = cuda_time(plain, 3)
+    ctr.trace_core.launches = before
+    print(f"   K3 at {n} fresh lanes, closest trace: {ms:.4f} ms per launch; plain {plain_ms:.3f} "
+          f"ms; needed work: {slabs:.0f} box tests, {slot_ops:.6e} slot-test operations, "
+          f"{ops:.6e} f32 operations in all = {t_ops:.5f} ms at {PEAK_F32_OPS:.3e} op/s; {nbytes} "
+          f"bytes = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
+          f"{bound_ms / ms:.4f} of it", flush=True)
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def profile_pass(r, engine):
+    """Optional: torch.profiler over one 65,536-lane pass of 16 samples
+    through the ``engine``'s beauty function."""
     import torch
     import torch.profiler as tp
 
+    from complex_materials_renderer_tpu_torch.render.integrator import render_beauty
     from complex_materials_renderer_tpu_torch.render.megarender import render_beauty_mega
 
     opt = r.options
     kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
               rng_mode=opt.rng, full_resolution=(opt.width, opt.height))
-    render_beauty_mega(r.camera, r.scene_arrays, r.grid, r.lights, (opt.width, 128), 16, **kw)
+    fn = render_beauty_mega if engine == "mega" else render_beauty
+    spp = 16
+    fn(r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128), 1, **kw)
     torch.cuda.synchronize()
     with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_beauty_mega(r.camera, r.scene_arrays, r.grid, r.lights, (opt.width, 128), 16, **kw)
+        fn(r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128), spp, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only the kernel rows: an aten op's self device time repeats the time
@@ -396,7 +674,7 @@ def profile_pass(r):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
     busy = sum(dev_ms(e) for e in rows)
-    print(f"   profile of one pass (65536 lanes x 16 spp): wall {wall * 1e3:.2f} ms, "
+    print(f"   profile of one {engine} pass (65536 lanes x {spp} spp): wall {wall * 1e3:.2f} ms, "
           f"device busy {busy:.2f} ms", flush=True)
     for e in sorted(rows, key=lambda e: -dev_ms(e))[:12]:
         print(f"     {dev_ms(e):10.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
@@ -404,8 +682,8 @@ def profile_pass(r):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quick", action="store_true", help="stop after the first kernel comparison")
-    ap.add_argument("--profile", action="store_true", help="add a torch.profiler breakdown")
+    ap.add_argument("--quick", action="store_true", help="stop after the first kernel comparisons")
+    ap.add_argument("--profile", action="store_true", help="add torch.profiler breakdowns")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -429,37 +707,50 @@ def main() -> int:
     from complex_materials_renderer_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.prebuild([1, 4, 8], verbose=True)
+    build.prebuild([1, 4, 8, 10], verbose=True)
     print(f"   built {len(build.build_log)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
     for lib, secs, log in build.build_log:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"   {lib}: {secs:.1f} s; " + " | ".join(regs[-2:]), flush=True)
 
-    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
-    phase("kernel against plain (showcase, 65,536 lanes)")
+    phase("megakernel (K1) against plain (showcase, 65,536 lanes)")
     main_opts = showcase_options(512, 512, 16)
     r = Renderer(*main_opts)
     scene, opt = main_opts
     r_part = Renderer(scene, dataclasses.replace(opt, partition="media"))
-    if r_part.grid.num_opaque_supers <= 0:
+    r_quads_off = Renderer(scene, dataclasses.replace(opt, quads="off"))
+    if r_part.accel.num_opaque_supers <= 0:
         fail("the partitioned grid has no opaque supers")
+    if not bool((r.accel.qa != 0.5).any()) or bool((r_quads_off.accel.qa != 0.5).any()):
+        fail("the default grid should hold quad slots and the quads-off grid none")
     worst, media9, misc, base = kernel_vs_plain(r, r_part, args.quick)
+
+    phase("closest-hit kernel (K3) against plain and the BVH walk (showcase, 65,536 lanes)")
+    worst_k3 = k3_vs_plain(r, r_quads_off, r_part)
     if args.quick:
         print("chip_smoke: --quick stops here", flush=True)
         return 3
 
-    phase("main path: showcase 512x512 @ 16 spp")
-    r, launches, dt, paths = main_path(main_opts)
+    phase("main path: showcase 512x512 @ 16 spp, megakernel")
+    r, launches, mega_img = main_path(main_opts)
     golden_gate()
+
+    phase("wavefront path: showcase 512x512 @ 16 spp, AOVs, bvh backend")
+    k3_launches = wavefront_path(main_opts, mega_img)
+    golden_gate(engine="wavefront")
+    aov_phase(main_opts)
+    golden_gate(name="isobox", golden="isobox", spp=2, engine="wavefront", backend="bvh")
 
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)
+    ms_k3, plain_ms_k3, bound_ms_k3, bound_by_k3 = time_k3(r)
     if args.profile:
         phase("profile")
-        profile_pass(r)
+        profile_pass(r, "mega")
+        profile_pass(r, "wavefront")
 
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined)",
@@ -473,12 +764,23 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "closest-hit trace over the cluster grid (K3)",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/cluster_trace.cu",
+        "replaces": "complex_materials_renderer_tpu/kernels/pallas_trace.py:170",
+        "launches": k3_launches,
+        "max_abs_err": worst_k3,
+        "ms": ms_k3,
+        "plain_ms": plain_ms_k3,
+        "bound_ms": bound_ms_k3,
+        "bound_by": bound_by_k3,
+        "library_ms": None,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

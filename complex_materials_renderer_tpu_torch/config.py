@@ -37,8 +37,8 @@ class RenderOptions:
 
     # --- extensions of the JAX package ---
     aov: str = "beauty"  # beauty | depth | normal | topology
-    backend: str = "auto"  # auto | cluster (the CUDA kernel) | bvh (not ported yet)
-    engine: str = "auto"  # auto | mega (fused kernel) | wavefront, binned, pair (not ported yet)
+    backend: str = "auto"  # auto (= cluster) | cluster (the CUDA kernels) | bvh (plain PyTorch walk)
+    engine: str = "auto"  # auto | mega (fused kernel) | wavefront | binned, pair (not ported yet)
     tir: str = "reflect"  # reflect | kill (reference-faithful TIR termination)
     direct: str = "scatter"  # scatter (reference estimator) | analytic
     # (closed-form in-scatter direct term: same converged image, lower
@@ -80,21 +80,24 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t\t1\tCheckerboard pattern
 \t\t2\tCornell box (paints vertical planes based on their normals)
 \t--width/--height\tRender resolution (default: 1920x1080)
-\t--aov\tOutput channel: beauty (default); depth, normal, topology (not ported yet)
+\t--aov\tOutput channel: beauty (default) | depth | normal | topology
 \t--max-depth\tMaximum path depth (default: 32)
 \t--rr-depth\tPath depth after which russian roulette starts (default: 16)
 \t--rng\tparity (reference-matching PCG stream) | counter (decorrelated,
 \t\tsample-parallel) | ld (Owen-scrambled Sobol: same image in the
 \t\tlimit, converges fastest; sample-parallel)
-\t--backend\tauto (default) | cluster (CUDA path-tracing kernel) | bvh (not ported)
-\t--engine\tauto (default) | mega (fused path kernel); wavefront, binned, pair (not ported yet)
+\t--backend\tauto (default: cluster) | cluster (the CUDA kernels) | bvh (threaded-BVH
+\t\twalk in plain PyTorch: portable, slow on the card)
+\t--engine\tauto (default: mega on the cluster backend, wavefront on bvh) | mega
+\t\t(fused path kernel) | wavefront (bounce-by-bounce loop); binned, pair
+\t\t(not ported yet)
 \t--tir\treflect (default) | kill (reference-faithful TIR termination)
 \t--direct\tMedia direct-light estimator: scatter (default, reference
 \t\testimator) | analytic (closed-form expectation: same image in the
 \t\tlimit, less noise in media, same RNG stream)
 \t--shard\tauto (tile-shard across devices; not ported yet, so auto with
 \t\tseveral visible cards raises) or none
-\t--nee-bound\tMax media crossings along shadow rays (default: 4; 1..8 on the card)
+\t--nee-bound\tMax media crossings along shadow rays (default: 4)
 \t--sample-chunk\tSamples per bounded device pass (default: 0 = auto)
 \t--spp-mode\tuniform (default: every pixel gets -s samples) | adaptive
 \t\t(per-pixel budget by measured noise; not ported yet)

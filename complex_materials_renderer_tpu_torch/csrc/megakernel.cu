@@ -29,8 +29,9 @@
 // Later work: warp-coherent traversal, rows staged in shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// --fmad=false -shared -Xcompiler -fPIC -DCMR_NEE_MAX_MEDIA=<n> (n in
-// 1..8). --fmad=false and no --use_fast_math keep every product, 1/x and
+// --fmad=false -shared -Xcompiler -fPIC -DCMR_NEE_MAX_MEDIA=<n>, one
+// library per --nee-bound value (the K-list length is a template
+// parameter; large values spill registers). --fmad=false and no --use_fast_math keep every product, 1/x and
 // sqrtf IEEE-rounded like the plain PyTorch version it is checked against.
 
 #include <cuda_runtime.h>

@@ -2,9 +2,11 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds, not minutes). The megakernel is templated on the NEE
-K-list length, and one library is built per ``--nee-bound`` value asked
-for (``-DCMR_NEE_MAX_MEDIA=n``). Libraries go to ``build/kernels/`` beside
+build takes seconds, not minutes): the megakernel (``megakernel.cu``) and
+the closest-hit kernel (``cluster_trace.cu``). The megakernel is templated
+on the NEE K-list length, and one library is built per ``--nee-bound``
+value asked for (``-DCMR_NEE_MAX_MEDIA=n``), for any value, at its first
+use. Libraries go to ``build/kernels/`` beside
 the package (listed in ``.gitignore``), named by a digest of the sources
 and flags, so a changed source is rebuilt.
 
@@ -36,7 +38,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_libs: dict = {}
+_libs: dict = {}  # nee_max_media -> megakernel library; "cluster_trace" -> K3's
 build_log: list = []  # (library, seconds, nvcc output) of each build in this process
 
 
@@ -102,18 +104,32 @@ def _load_megakernel(path: str):
     return lib
 
 
-def prebuild(nee_bounds, verbose: bool = False) -> None:
-    """Build the megakernel for each value of ``nee_bounds`` at once, one
-    nvcc process per library, all started together."""
+def _load_cluster_trace(path: str):
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.cmr_cluster_trace_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    lib.cmr_cluster_trace_launch.restype = ci
+    lib.cmr_error_string.argtypes = [ci]
+    lib.cmr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def prebuild(nee_bounds, verbose: bool = False, cluster_trace: bool = True) -> None:
+    """Build the megakernel for each value of ``nee_bounds`` and (with
+    ``cluster_trace``) the closest-hit kernel at once, one nvcc process per
+    library, all started together."""
     todo = [n for n in sorted(set(nee_bounds)) if n not in _libs]
-    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
-        paths = list(pool.map(
-            lambda n: _compile("megakernel.cu", {"CMR_NEE_MAX_MEDIA": n}, verbose), todo
-        ))
+    jobs = [("megakernel.cu", {"CMR_NEE_MAX_MEDIA": n}) for n in todo]
+    if cluster_trace and "cluster_trace" not in _libs:
+        todo.append("cluster_trace")
+        jobs.append(("cluster_trace.cu", {}))
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        paths = list(pool.map(lambda job: _compile(*job, verbose), jobs))
     with _lock:
-        for n, path in zip(todo, paths):
-            if n not in _libs:
-                _libs[n] = _load_megakernel(path)
+        for key, path in zip(todo, paths):
+            if key not in _libs:
+                load = _load_cluster_trace if key == "cluster_trace" else _load_megakernel
+                _libs[key] = load(path)
 
 
 def megakernel(nee_max_media: int):
@@ -121,11 +137,21 @@ def megakernel(nee_max_media: int):
     with _lock:
         lib = _libs.get(nee_max_media)
     if lib is None:
-        prebuild([nee_max_media])
+        prebuild([nee_max_media], cluster_trace=False)
         lib = _libs[nee_max_media]
     if lib.cmr_megakernel_k_nee() != 2 * nee_max_media + 2:
         raise RuntimeError("megakernel library built for another K-list length")
     return lib.cmr_megakernel_launch
+
+
+def cluster_trace():
+    """The launch function of the closest-hit kernel (K3)."""
+    with _lock:
+        lib = _libs.get("cluster_trace")
+    if lib is None:
+        prebuild([])
+        lib = _libs["cluster_trace"]
+    return lib.cmr_cluster_trace_launch
 
 
 def error_string(err: int) -> str:

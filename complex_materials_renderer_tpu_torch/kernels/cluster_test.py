@@ -16,7 +16,9 @@ updates would:
 - ``dnee`` -> ``dist`` for ray set A + ``nee`` for ray set B, one origin
 
 Closest hits: the first slot (lowest index) of least t among hits with
-t_min < t < bound — what the strict ``tt < t_best`` walk keeps. NEE: the
+t_min < t < bound — what the strict ``tt < t_best`` walk keeps. The
+standalone closest-hit kernel K3 (``cluster_trace.py``) shares this plain
+tester with another far-edge acceptance (``additive_eps``, see ``_mt``). NEE: the
 K smallest media keys below the final opaque bound t_opq. A walk may
 also keep keys beyond a t_opq that shrank after their insertion; the
 shadow march (megakernel ``nee_resolve``) treats such keys exactly like
@@ -125,9 +127,15 @@ def media_index(mat: torch.Tensor, med_ids) -> torch.Tensor:
     return idx
 
 
-def _mt(sl: SlotTable, O, D):
+def _mt(sl: SlotTable, O, D, additive_eps: bool = False):
     """Moller-Trumbore of every lane (rows) against every slot (columns),
-    in the JAX tester's operation order. Returns (uu, vv, tt, inside)."""
+    in the JAX tester's operation order. Returns (uu, vv, tt, inside).
+
+    The far-edge tests are K2's, ``<= q * (1 + eps)`` (cluster_test.py
+    :212-227 of the JAX package), or with ``additive_eps`` those of the
+    standalone closest-hit kernel K3, ``<= q + eps`` (pallas_trace.py
+    :301-308): on triangle slots (q = 0.5) K3 admits u+v <= 1 + 2e-6 where
+    K2 admits u+v <= 1 + 1e-6."""
     OX, OY, OZ = (o[:, None] for o in O)
     DX, DY, DZ = (d[:, None] for d in D)
     px = DY * sl.e2z - DZ * sl.e2y
@@ -147,18 +155,22 @@ def _mt(sl: SlotTable, O, D):
     tt = t_num * inv_det
     qa1 = 1.0 - sl.qa
     qb1 = 1.0 - sl.qb
+    if additive_eps:
+        lim_b, lim_a = sl.qb + _EPS, sl.qa + _EPS
+    else:
+        lim_b, lim_a = sl.qb * _ONE_EPS, sl.qa * _ONE_EPS
     inside = (
         (uu >= -_EPS)
         & (vv >= -_EPS)
-        & (uu * sl.qb + vv * qa1 <= sl.qb * _ONE_EPS)
-        & (uu * qb1 + vv * sl.qa <= sl.qa * _ONE_EPS)
+        & (uu * sl.qb + vv * qa1 <= lim_b)
+        & (uu * qb1 + vv * sl.qa <= lim_a)
     )
     return uu, vv, tt, inside
 
 
-def _closest(sl: SlotTable, O, D, state, t_min, full: bool):
+def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool = False):
     """Merge the closest hit over ``sl`` into a (t, slot[, ...]) state."""
-    uu, vv, tt, inside = _mt(sl, O, D)
+    uu, vv, tt, inside = _mt(sl, O, D, additive_eps)
     t_best = state[0]
     ok = inside & (tt > t_min) & (tt < t_best[:, None])
     masked = torch.where(ok, tt, torch.full_like(tt, float("inf")))
@@ -213,10 +225,11 @@ def _lane_chunk(n_slots: int, device) -> int:
 
 
 def trace_slots(sl: SlotTable, rays, payload: str, state, t_min,
-               K_NEE: int = 0, med_ids=()):
+               K_NEE: int = 0, med_ids=(), additive_eps: bool = False):
     """Test every slot of ``sl`` against every lane and merge the hits
     into ``state`` (see payload_state0). ``rays`` is (OX, OY, OZ, DX, DY,
-    DZ), or for 'dnee' (OX, OY, OZ, DX, DY, DZ, DXB, DYB, DZB)."""
+    DZ), or for 'dnee' (OX, OY, OZ, DX, DY, DZ, DXB, DYB, DZB).
+    ``additive_eps`` selects K3's acceptance for 'full' (see ``_mt``)."""
     if payload not in PAYLOADS:
         raise ValueError(f"unknown payload {payload!r}")
     n = rays[0].shape[0]
@@ -227,7 +240,7 @@ def trace_slots(sl: SlotTable, rays, payload: str, state, t_min,
         st = tuple(x[lo:lo + step] for x in state)
         O, DA = r[0:3], r[3:6]
         if payload == "full":
-            outs.append(_closest(sl, O, DA, st, t_min, full=True))
+            outs.append(_closest(sl, O, DA, st, t_min, full=True, additive_eps=additive_eps))
         elif payload in ("dist", "occl"):
             outs.append(_closest(sl, O, DA, st, t_min, full=False))
         elif payload == "nee":

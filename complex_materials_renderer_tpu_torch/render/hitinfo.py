@@ -59,6 +59,28 @@ def make_scene_arrays(triangles, mat_ids, media: MediaTable, scale, background: 
     )
 
 
+def shade_color(position: torch.Tensor, normal: torch.Tensor, background: int) -> torch.Tensor:
+    """Procedural base color (hitinfo.py:72-90 of the JAX package,
+    volpath:198-226): 0.8 grey; background 1 a checkerboard on the parity
+    of floor(x) and floor(y), with ``jnp.mod``'s sign of the divisor
+    (``torch.remainder``, not ``fmod``, which differs on negative
+    floors); background 2 Cornell red/green by the normal's x."""
+    r = position.shape[0]
+    ones = torch.ones((r, 3), dtype=torch.float32, device=position.device)
+    if background == 1:
+        even = ((torch.remainder(torch.floor(position[:, 0]), 2.0) == 0.0)
+                == (torch.remainder(torch.floor(position[:, 1]), 2.0) == 0.0))
+        return torch.where(even[:, None], 0.8, 0.3) * ones
+    base = 0.8 * ones
+    if background == 2:
+        dot_x = normal[:, 0]
+        red = torch.tensor([0.8, 0.0, 0.0], dtype=torch.float32, device=position.device) * ones
+        green = torch.tensor([0.0, 0.8, 0.0], dtype=torch.float32, device=position.device) * ones
+        return torch.where((dot_x > 0.99)[:, None], red,
+                           torch.where((dot_x < -0.99)[:, None], green, base))
+    return base
+
+
 def make_lights(position, color, intensity, device="cpu") -> Lights:
     """``Lights`` from the options' light fields (renderer.py:203-207)."""
     color = np.asarray(color, np.float32)

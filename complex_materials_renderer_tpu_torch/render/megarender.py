@@ -40,6 +40,7 @@ from ..kernels.megakernel import (
 from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
 from .hitinfo import Lights, SceneArrays
+from .integrator import coherence_key
 
 TILE = 32  # pixels per tile side; 32x32 = one 1024-lane block
 # Widest wave one step of the counter/ld sample loop runs (megarender.py:47
@@ -90,35 +91,13 @@ def _phase_schedule(rp: int, max_depth: int, schedule: str = ""):
     return sched
 
 
-def _spread3(v: torch.Tensor) -> torch.Tensor:
-    """Interleave 10-bit ints for Morton codes (classic bit smear)."""
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
 def _partition_live(state: MegaState, lane: torch.Tensor, scene: SceneArrays,
                     sortkey: str = "dir"):
     """Compact and re-sort the wavefront: dead lanes last, live lanes by
     (direction octant, Morton cell of origin), or cell-major for
     ``sortkey='pos'``. The sort is stable, like ``jnp.argsort``."""
-    extent = torch.clamp(scene.world_hi - scene.world_lo, min=1e-6)
-    rel = (state.org - scene.world_lo) / extent
-    q = torch.clamp(rel * 32.0, 0.0, 31.0).to(torch.int64)
-    cell = (_spread3(q[:, 0]) << 2) | (_spread3(q[:, 1]) << 1) | _spread3(q[:, 2])
-    d = state.dir
-    octant = (
-        (d[:, 0] > 0).to(torch.int64) * 4
-        + (d[:, 1] > 0).to(torch.int64) * 2
-        + (d[:, 2] > 0).to(torch.int64)
-    )
-    if sortkey == "pos":
-        key = (cell << 3) | octant
-    else:
-        key = (octant << 15) | cell
-    key = torch.where(state.alive, key, torch.full_like(key, 0xFFFFFFFF))
+    key = coherence_key(state.org, state.dir, state.alive, scene.world_lo, scene.world_hi,
+                        sortkey)
     perm = torch.argsort(key, stable=True)
     return MegaState(*(x[perm] for x in state)), lane[perm]
 

@@ -1,32 +1,38 @@
 """High-level renderer: scene -> device tables -> image.
 
 Counterpart of complex_materials_renderer_tpu/renderer.py (``Renderer``
-:87): builds the cluster grid with the JAX package's automatic choices
-(width, opaque/media partition, super fan-out), lays it out on the device,
-and runs the beauty pass through the megakernel in bounded row x sample
-chunks, with an optional checkpoint that resumes to the same image.
+:87): builds the acceleration structure (the cluster grid with the JAX
+package's automatic choices of width, opaque/media partition and super
+fan-out, or the threaded BVH), lays it out on the device, and renders the
+AOVs in one pass or the beauty pass in bounded row x sample chunks, with
+an optional checkpoint that resumes to the same image.
 
-This port runs the cluster backend and the ``mega`` engine on one device.
-The other paths of the JAX package raise ``NotImplementedError`` naming
-their ROADMAP item: AOVs, adaptive sampling, the wavefront, binned and
-pair engines, the BVH backend, and sharding over several devices.
+Engines: ``mega`` (the megakernel, cluster backend only) and
+``wavefront`` (the bounce-by-bounce loop, both backends); ``auto`` takes
+``mega`` on the cluster backend and ``wavefront`` on the BVH. Backends:
+``cluster`` (= ``auto``) and ``bvh``. The other paths of the JAX package
+raise ``NotImplementedError`` naming their ROADMAP item: adaptive
+sampling, the binned and pair engines, and sharding over several devices.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import warnings
 from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .accel.clusters import build_clusters
+from .accel import build_bvh, build_clusters
 from .config import RenderOptions
 from .kernels.cluster_grid import DeviceClusterGrid, device_cluster_grid
 from .kernels.megakernel import MAX_SUPERS
+from .kernels.traverse import device_bvh
 from .ops.camera import Camera, make_camera
+from .render.aov import render_aov
 from .render.hitinfo import make_lights, make_scene_arrays
 from .scene import Scene
 from .utils.device import resolve_device
@@ -95,8 +101,38 @@ class Renderer:
         opt = self.options
         self.device = resolve_device(device if device is not None else opt.device)
         self.timer = PhaseTimer()
-        if opt.backend not in ("auto", "cluster"):
-            raise _not_ported(f"--backend {opt.backend}", "ROADMAP Queue 1, item 9")
+        if opt.backend not in ("auto", "cluster", "bvh"):
+            raise ValueError(f"--backend must be auto|cluster|bvh, got {opt.backend!r}")
+        if opt.backend == "bvh":
+            if self.device.type == "cuda":
+                warnings.warn(
+                    "--backend bvh on the card is the plain PyTorch BVH walk (one "
+                    "small op per lane step, gathers per node), far slower than the "
+                    "cluster backend's CUDA kernels; use --backend cluster or auto",
+                    stacklevel=2,
+                )
+            with self.timer.phase("accel_build"):
+                self._host_accel = build_bvh(scene.triangles, leaf_size=opt.leaf_size)
+            with self.timer.phase("upload"):
+                self.accel = device_bvh(self._host_accel, scene.triangles, opt.leaf_size,
+                                        self.device)
+        else:
+            self._build_cluster_grid(scene)
+        with self.timer.phase("upload"):
+            self.scene_arrays = make_scene_arrays(
+                scene.triangles, scene.mat_ids, scene.media, opt.scale,
+                opt.background, device=self.device,
+            )
+        self.camera: Camera = make_camera(
+            opt.camera_pos, opt.camera_look_at, opt.camera_fov, device=self.device
+        )
+        self.lights = make_lights(
+            opt.light_pos, opt.light_color, opt.light_intensity, device=self.device
+        )
+        self.triangles = scene.triangles
+
+    def _build_cluster_grid(self, scene: Scene) -> None:
+        opt = self.options
         with self.timer.phase("accel_build"):
             ntris = int(scene.triangles.shape[0])
             width = auto_cluster_width(opt.cluster_size, ntris)
@@ -122,26 +158,21 @@ class Renderer:
                 sf *= 2
                 self._host_accel = _build(sf)
         with self.timer.phase("upload"):
-            self.grid: DeviceClusterGrid = device_cluster_grid(self._host_accel, self.device)
-            self.scene_arrays = make_scene_arrays(
-                scene.triangles, scene.mat_ids, scene.media, opt.scale,
-                opt.background, device=self.device,
-            )
-        self.camera: Camera = make_camera(
-            opt.camera_pos, opt.camera_look_at, opt.camera_fov, device=self.device
-        )
-        self.lights = make_lights(
-            opt.light_pos, opt.light_color, opt.light_intensity, device=self.device
-        )
-        self.triangles = scene.triangles
+            self.accel = device_cluster_grid(self._host_accel, self.device)
 
     def _resolve_engine(self) -> str:
-        """The bounce-loop engine: 'auto' and 'mega' take the megakernel."""
+        """The bounce-loop engine (renderer.py:616): 'auto' takes the
+        megakernel on the cluster backend and the wavefront loop on the
+        BVH, the only engine there."""
         engine = self.options.engine
-        if engine in ("auto", "mega"):
-            return "mega"
-        item = {"wavefront": "ROADMAP Queue 1, item 9",
-                "binned": "ROADMAP Queue 1, item 13",
+        is_cluster = isinstance(self.accel, DeviceClusterGrid)
+        if engine == "auto":
+            return "mega" if is_cluster else "wavefront"
+        if engine in ("mega", "binned", "pair") and not is_cluster:
+            raise ValueError(f"--engine {engine} requires --backend cluster")
+        if engine in ("mega", "wavefront"):
+            return engine
+        item = {"binned": "ROADMAP Queue 1, item 13",
                 "pair": "ROADMAP Queue 1, item 14"}.get(engine, "ROADMAP Queue 1")
         raise _not_ported(f"--engine {engine}", item)
 
@@ -153,13 +184,16 @@ class Renderer:
         interrupted render resumes from it to the same image (the file is
         removed on completion).
         """
+        from .render.integrator import render_beauty
         from .render.megarender import render_beauty_mega
 
         opt = self.options
         checkpoint_path = checkpoint_path or (opt.checkpoint or None)
         resolution = (opt.width, opt.height)
         if opt.aov != "beauty":
-            raise _not_ported(f"--aov {opt.aov}", "ROADMAP Queue 1, item 10")
+            with self.timer.phase("render"):
+                img = render_aov(self.triangles, self.camera, self.accel, resolution, opt.aov)
+                return img.cpu().numpy()
         if opt.spp_mode == "adaptive":
             raise _not_ported("--spp-mode adaptive", "ROADMAP Queue 1, item 11")
         if (opt.shard == "auto" and self.device.type == "cuda"
@@ -168,15 +202,16 @@ class Renderer:
                 "Sharding over several devices (pass --shard none to render on one)",
                 "ROADMAP Queue 1, item 12",
             )
-        self._resolve_engine()
-
-        knobs = _mega_env_knobs()
-        if (knobs["schedule_mode"] == "auto"
-                and opt.width * opt.height * opt.num_samples < (1 << 18)):
-            # Preview-sized jobs take the dynamic mode, as in the JAX
-            # package (renderer.py:317-327).
-            knobs["schedule_mode"] = "all"
-        beauty_fn = partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
+        if self._resolve_engine() == "mega":
+            knobs = _mega_env_knobs()
+            if (knobs["schedule_mode"] == "auto"
+                    and opt.width * opt.height * opt.num_samples < (1 << 18)):
+                # Preview-sized jobs take the dynamic mode, as in the JAX
+                # package (renderer.py:317-327).
+                knobs["schedule_mode"] = "all"
+            beauty_fn = partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
+        else:
+            beauty_fn = partial(render_beauty, tir=opt.tir, direct=opt.direct)
 
         chunk = opt.sample_chunk or _auto_sample_chunk(opt.width, opt.height)
         chunk = max(1, min(chunk, opt.num_samples))
@@ -217,7 +252,7 @@ class Renderer:
                 while done < opt.num_samples:
                     n = min(chunk, opt.num_samples - done)
                     img, rng_state = beauty_fn(
-                        self.camera, self.scene_arrays, self.grid, self.lights,
+                        self.camera, self.scene_arrays, self.accel, self.lights,
                         (opt.width, tile_h), n,
                         max_depth=opt.max_depth, rr_depth=opt.rr_depth,
                         nee_max_media=opt.nee_max_media, rng_mode=opt.rng,

@@ -1,8 +1,10 @@
 """The port's Renderer and CLI on the CPU: the hermetic goldens pass the
 flip-budgeted gate of bench.py (non-flip RMSE <= 1e-3, at most 24 pixels
-with |diff| > 1e-2), chunked and checkpointed renders equal a monolithic
-one, ``python -m complex_materials_renderer_tpu_torch`` writes a readable
-.hdr, and the paths that are not ported yet refuse to run."""
+with |diff| > 1e-2) through the megakernel engine and through the
+wavefront engine on both backends, chunked and checkpointed renders equal
+a monolithic one, ``python -m complex_materials_renderer_tpu_torch``
+writes a readable .hdr, and the paths that are not ported yet refuse to
+run."""
 
 import dataclasses
 import json
@@ -29,9 +31,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLIP_BUDGET = 24
 
 
-def _golden_render(name, spp, golden_name=None):
+def _golden_render(name, spp, golden_name=None, **extra):
     obj = os.path.join(REPO, "scenes", f"{name}.obj")
-    kw = dict(width=64, height=64, num_samples=spp, shard="none", rng="parity", device="cpu")
+    kw = dict(width=64, height=64, num_samples=spp, shard="none", rng="parity", device="cpu",
+              **extra)
     scene = load_scene(obj, RenderOptions(obj_path=obj, **kw))
     img = Renderer(scene, dataclasses.replace(scene.options, **kw)).render()
     with np.load(os.path.join(REPO, "tests", "golden", f"{golden_name or name}.npz")) as z:
@@ -42,6 +45,19 @@ def _golden_render(name, spp, golden_name=None):
 @pytest.mark.parametrize("name", ["isobox", "gembox"])
 def test_golden_gate(name):
     img, ref = _golden_render(name, 2)
+    assert img.shape == ref.shape and img.dtype == np.float32
+    nonflip, flips = flip_gate(img, ref)
+    assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
+
+
+@pytest.mark.parametrize("name,spp,backend", [
+    ("isobox", 2, "bvh"), ("isobox", 2, "cluster"), ("gembox", 2, "cluster"),
+    ("showcase", 4, "cluster"),
+])
+def test_wavefront_golden_gate(name, spp, backend):
+    """The goldens were rendered by the JAX wavefront engine on its BVH
+    backend: the port's wavefront engine passes the same gate on both."""
+    img, ref = _golden_render(name, spp, engine="wavefront", backend=backend)
     assert img.shape == ref.shape and img.dtype == np.float32
     nonflip, flips = flip_gate(img, ref)
     assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
@@ -69,6 +85,34 @@ def test_chunked_equals_monolithic(rng, monkeypatch):
     monkeypatch.setattr(trenderer, "LANES_PER_PASS", 8 * 24)
     chunked = _isobox(rng=rng, sample_chunk=1).render()
     np.testing.assert_allclose(chunked, mono, atol=1e-6)
+
+
+def test_wavefront_chunked_and_checkpointed(tmp_path, monkeypatch):
+    """The wavefront engine in bands of 8 rows and 1-sample chunks, and
+    resumed from a checkpoint, equals its monolithic render."""
+    from complex_materials_renderer_tpu_torch.render import integrator
+
+    kw = dict(engine="wavefront")
+    mono = _isobox(sample_chunk=4, **kw).render()
+    monkeypatch.setattr(trenderer, "LANES_PER_PASS", 8 * 24)
+    np.testing.assert_allclose(_isobox(sample_chunk=1, **kw).render(), mono, atol=1e-6)
+    ck = str(tmp_path / "render.ckpt.npz")
+    real = integrator.render_beauty
+    calls = {"n": 0}
+
+    def interrupted(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == 5:
+            raise KeyboardInterrupt
+        return real(*a, **k)
+
+    monkeypatch.setattr(integrator, "render_beauty", interrupted)
+    with pytest.raises(KeyboardInterrupt):
+        _isobox(sample_chunk=1, **kw).render(checkpoint_path=ck)
+    monkeypatch.setattr(integrator, "render_beauty", real)
+    resumed = _isobox(sample_chunk=1, **kw).render(checkpoint_path=ck)
+    assert not os.path.exists(ck)
+    np.testing.assert_allclose(resumed, mono, atol=1e-6)
 
 
 def test_checkpoint_resumes_to_same_image(tmp_path, monkeypatch):
@@ -147,11 +191,10 @@ def test_cli_main_matches_renderer(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(aov="depth"), "aov"),
-    (dict(spp_mode="adaptive", rng="counter"), "adaptive"),
-    (dict(engine="wavefront"), "wavefront"),
-    (dict(engine="binned"), "binned"),
-    (dict(engine="pair"), "pair"),
+    (dict(spp_mode="adaptive", rng="counter"), "item 11"),
+    (dict(spp_mode="adaptive", rng="ld", engine="wavefront"), "item 11"),
+    (dict(engine="binned"), "item 13"),
+    (dict(engine="pair"), "item 14"),
 ])
 def test_unported_paths_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -159,8 +202,42 @@ def test_unported_paths_raise(kw, match):
 
 
 def test_unported_backend_and_debug_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="bvh"):
-        _isobox(backend="bvh")
+    """The megakernel family needs the cluster grid (renderer.py:632-633
+    of the JAX package); an unknown backend is refused; the TPU timing
+    ablations are not ported."""
+    for engine in ("mega", "binned", "pair"):
+        with pytest.raises(ValueError, match="requires --backend cluster"):
+            _isobox(backend="bvh", engine=engine).render()
+    with pytest.raises(ValueError, match="backend"):
+        _isobox(backend="kd-tree")
     monkeypatch.setenv("CMR_MEGA_DEBUG", "ordered")
     with pytest.raises(NotImplementedError, match="CMR_MEGA_DEBUG"):
         _isobox().render()
+
+
+def test_engine_auto_resolution():
+    """auto: the megakernel on the cluster grid, the wavefront loop on the
+    BVH; the BVH backend builds a threaded BVH."""
+    from complex_materials_renderer_tpu_torch.kernels.traverse import DeviceBVH
+
+    assert _isobox()._resolve_engine() == "mega"
+    r = _isobox(backend="bvh")
+    assert isinstance(r.accel, DeviceBVH) and r._resolve_engine() == "wavefront"
+    assert _isobox(engine="wavefront")._resolve_engine() == "wavefront"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "wavefront", "--backend", "bvh"],
+    ["--engine", "wavefront"],
+    ["--aov", "normal", "--backend", "bvh"],
+    ["--aov", "topology"],
+])
+def test_cli_new_paths_write_hdr(tmp_path, monkeypatch, flags):
+    from complex_materials_renderer_tpu_torch.cli import main
+
+    obj = _write_tiny_scene(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert main([obj, "-s", "2", "--width", "24", "--height", "16", "-o", "a",
+                 "--device", "cpu", *flags]) == 0
+    img = read_hdr(str(tmp_path / "a.hdr"))
+    assert img.shape == (16, 24, 3) and np.isfinite(img).all() and img.max() > 0

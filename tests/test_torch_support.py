@@ -10,7 +10,10 @@ seed, go to both.
 - ``assert_states_close``: the flip-budgeted comparison of two path
   states.
 - ``flip_gate``: the image gate of bench.py (non-flip RMSE and a budget
-  of flip pixels).
+  of flip pixels);
+- ``scene_accels``, ``port_camera``, ``port_lights``, ``check_image``:
+  one scene on either backend for both packages, and the per-pixel image
+  check of the wavefront tests.
 """
 
 from __future__ import annotations
@@ -25,10 +28,15 @@ import complex_materials_renderer_tpu.render as jax_render_pkg
 from complex_materials_renderer_tpu.accel.clusters import build_clusters as jax_build_clusters
 from complex_materials_renderer_tpu.kernels import megakernel as jmk
 from complex_materials_renderer_tpu.kernels.pallas_trace import device_cluster_grid as jax_device_grid
+from complex_materials_renderer_tpu.ops.medium import MediaTable as JaxMediaTable
 from complex_materials_renderer_tpu_torch.kernels import cluster_grid as tcg
 from complex_materials_renderer_tpu_torch.kernels import megakernel as tmk
+from complex_materials_renderer_tpu_torch.kernels import traverse
+from complex_materials_renderer_tpu_torch.ops.camera import make_camera
+from complex_materials_renderer_tpu_torch.render.hitinfo import make_lights, make_scene_arrays
+from complex_materials_renderer_tpu_torch.scene.medium import MediaTable
 
-from helpers import fixture_camera, fixture_lights, make_test_scene
+from helpers import assemble, fixture_camera, fixture_lights, make_test_scene
 
 FLIP_THRESHOLD = 1e-2
 
@@ -190,6 +198,39 @@ K1_CASES = (
     ("ld, clipped dim base", dict(lanes=1024, seed=13, ld=True),
      dict(ld=True, dim0=5000, max_iters=2, **_K1)),
 )
+
+
+def scene_accels(tris, mats, media, backend, scale=1.0):
+    """(JAX scene, JAX accel, port scene, port accel) of one scene on the
+    ``bvh`` or ``cluster`` backend (JAX K3 interpreted, width 8)."""
+    jscene, jbvh = assemble(tris, mats, JaxMediaTable(*media), scale=scale)
+    tscene = make_scene_arrays(tris, mats, MediaTable(*media), scale, 1, device="cpu")
+    if backend == "bvh":
+        return jscene, jbvh, tscene, traverse.device_bvh_from_jax(jbvh)
+    jgrid = jax_device_grid(jax_build_clusters(tris, mats, cluster_size=8), interpret=True)
+    return jscene, jgrid, tscene, tcg.from_jax_arrays(jgrid)
+
+
+def port_lights():
+    """The port's counterpart of helpers.fixture_lights."""
+    return make_lights((2.0, 4.0, 3.0), (0.8, 0.8, 0.6), 100.0)
+
+
+def port_camera():
+    """The port's counterpart of helpers.fixture_camera."""
+    return make_camera((0.0, 1.5, 5.0), (0.0, 1.0, 0.0), 36.0)
+
+
+def check_image(img, ref, max_flips):
+    """Images equal within atol 1e-5 except at most ``max_flips`` flip
+    pixels (|diff| > 1e-2)."""
+    img = np.asarray(img, np.float64)
+    diff = np.abs(img - ref).max(-1)
+    flips = int((diff > 1e-2).sum())
+    assert flips <= max_flips, flips
+    keep = diff <= 1e-2
+    np.testing.assert_allclose(img[keep], ref[keep], atol=1e-5)
+    assert np.isfinite(img).all() and img.mean() > 0
 
 
 def main():
