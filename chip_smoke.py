@@ -5,8 +5,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit and builds the CUDA kernels of
    ``csrc/`` with nvcc (one process per library, started together): the
-   megakernel for ``--nee-bound`` 1, 4, 8 and 10 and the closest-hit
-   kernel, each with its ptxas line (registers, spills);
+   megakernel for ``--nee-bound`` 1, 4, 8 and 10, the closest-hit kernel,
+   and at ``--nee-bound`` 4 the listing, the round (each at list lengths
+   4, 8 and 12) and the pair sweep, each with its ptxas lines (registers
+   and spill stores of every kernel);
 2. holds the path-tracing kernel (K1, with the triangle tester K2
    inlined) against its plain PyTorch version on the card, from one
    65,536-lane state of the showcase scene, in six cases: parity to
@@ -26,6 +28,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rays on the quads-off grid (a merged quad slot reports one of its two
    triangles), prim must be equal on all but 1e-3 of the lanes (K3's
    additive far-edge epsilon admits hits up to 2e-6 past an edge);
+3b. holds the binned and pair engines' kernels against their plain
+   versions on the card, on 65,536-lane ray sets of showcase (primary
+   rays; bounce-like rays; shadow rays from their hits): the listing K4
+   at list lengths 4, 8 and 12 with fresh and relisting t_lo, the round
+   K5's first round after the regroup sort for 'full', 'dist' and 'nee'
+   and with ``cap_iters=2``, the pair sweep K6 over a first generation's
+   pairs for 'dist', 'occl' and 'nee': keys, tlim, state and iterations
+   equal on every lane. Then whole traces: the binned 'full' trace
+   against K3 (slot equal on all but 1e-3 of the lanes: K2's scaled edge
+   epsilon is not K3's additive one), the pair trace against the binned
+   one ('dist' equal; 'nee' t_opq and the boundaries below it equal);
 4. drives the main path: a default (megakernel) render of
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
    through ``Renderer``, timed after one warm-up, with K1's launch count;
@@ -41,19 +54,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    passes through its plain version on the card (equal); and
    scenes/isobox.obj at 64x64 with 2 spp through ``--backend bvh --engine
    wavefront`` on the card against tests/golden/isobox.npz (the gate);
-6. times K1 and K3 with CUDA events at their widest launches on the main
-   paths (65,536 fresh lanes: K1 one bounce, K3 the closest trace of the
-   primary rays), times the plain versions on the same inputs, and
-   computes each bound from its input: a plain pass finds, for each ray
-   set, the clusters whose box the ray meets before its final hit (or its
-   own bound), and counts their real slots and boxes at the f32
-   operations of the CUDA tests;
+5b. drives the binned and pair paths: showcase 512x512 at 4 spp through
+   ``--engine binned`` and ``--engine pair``, each timed after a small
+   warm-up with its K3-K6 launch counts (each count set to 0 just before
+   the render), held against the megakernel image of the same render
+   under the wavefront's gate, and showcase_gate through each engine;
+6. times K1, K3, K4, K5 and K6 with CUDA events at their widest launches
+   on their paths (65,536 lanes: K1 one bounce, K3 and K4 the closest
+   trace of the primary rays, K5 its first round, K6 the pair engine's
+   NEE sweep), times the plain versions on the same inputs, and computes
+   each bound from its input: for K1 and K3 a plain pass finds, for each
+   ray set, the clusters whose box the ray meets before its final hit (or
+   its own bound), and counts their real slots and boxes at the f32
+   operations of the CUDA tests; K4 counts the listing's box tests, K5
+   the slot tests of the lanes holding each served cluster, K6 those of
+   each valid pair's own cluster;
 7. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
-after the first kernel comparisons; ``--profile`` adds a torch.profiler
-breakdown of one main-path pass of each engine.
+after the kernel comparisons (phases 2-3b) and exits 4; ``--profile``
+adds a torch.profiler breakdown of one pass of each engine.
 """
 
 from __future__ import annotations
@@ -65,6 +86,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -97,6 +119,10 @@ STATE_BYTES = 12 * 4 + 8 + 4 + 1
 K3_RAY_BYTES = (7 + 11) * 4
 
 BAND_ROWS = 128  # rows of 512 pixels in one main-path pass: 65,536 lanes
+BINNED_LISTS = (4, 8, 12)  # list lengths at which K4 is held against its plain version
+PAIR_LIST = 4  # the pair engine's list length for its distance and NEE traces
+ENGINE_SPP = 4  # samples per pixel of the binned and pair engines' showcase renders
+TRACE_FLIP_FRAC = 1e-3
 FLIP_FRAC = 1e-3
 ATOL = 1e-4
 RTOL = 1e-4
@@ -105,6 +131,27 @@ WAVEFRONT_FLIP_FRAC = 24 / 4096  # the golden gate's flip budget, per pixel
 # Device sleep queued ahead of each timed launch: about 10 ms at the H100's
 # clock, far longer than a wrapper's host work.
 SLEEP_CYCLES = 20_000_000
+
+
+def ptxas_lines(log: str):
+    """(kernel, registers, spill-store bytes) of each entry function in an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, fn, spill = [], "?", 0
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            name = re.sub(r"^_ZN3cmr\d+", "", fn)[:40]
+            out.append((name, int(m.group(1)), spill))
+            spill = 0
+    return out
 
 
 def fail(msg: str) -> None:
@@ -118,11 +165,48 @@ def phase(name: str) -> None:
 
 def reset_launch_counts() -> None:
     """Set the launch count of every kernel wrapper to 0."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
 
     mk.trace_paths_mega.launches = 0
     ctr.trace_core.launches = 0
+    bt.listing.launches = 0
+    bt.run_round.launches = 0
+    ps.sweep.launches = 0
+
+
+def launch_counts() -> dict:
+    """The launch count of every kernel wrapper."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    return {"K1": mk.trace_paths_mega.launches, "K3": ctr.trace_core.launches,
+            "K4": bt.listing.launches, "K5": bt.run_round.launches, "K6": ps.sweep.launches}
+
+
+class uncounted:
+    """Leaves every launch count as it was on entry: the launches made to
+    compare or time a kernel are not the main path's."""
+
+    def __enter__(self):
+        self.saved = launch_counts()
+
+    def __exit__(self, *exc):
+        from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+        from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+        from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+        from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+        mk.trace_paths_mega.launches = self.saved["K1"]
+        ctr.trace_core.launches = self.saved["K3"]
+        bt.listing.launches = self.saved["K4"]
+        bt.run_round.launches = self.saved["K5"]
+        ps.sweep.launches = self.saved["K6"]
+        return False
 
 
 def nvidia_smi_line() -> str:
@@ -645,9 +729,336 @@ def time_k3(r):
     return ms, plain_ms, bound_ms, bound_by
 
 
+# --------------------------------------------------------------------------
+# The binned and pair engines: K4 (listing), K5 (round), K6 (pair sweep)
+# --------------------------------------------------------------------------
+
+
+def ray_sets(r):
+    """The ray sets on which K4, K5 and K6 are held against their plain
+    versions, from the main path's first pass over showcase (65,536
+    lanes), each as (origin, direction, the trace's bound; 0 = parked):
+    'full' the primary rays bounded by the scene-box exit (the closest
+    trace), 'dist' the bounce-like rays with their t_max, also clamped to
+    the scene box, and 'nee' shadow rays toward the light from where the
+    bounce-like rays hit (from the primary hits the light is in plain
+    view), bounded by the light distance."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.render.integrator import light_setup
+
+    sc = r.scene_arrays
+    o, d = primary_rays(r)
+    n = o.shape[0]
+    with uncounted():
+        ob, db, tb, ab = bounce_rays(r, o, d)
+        hit = ctr.trace_shaded_clusters(ob, db, r.accel, 1e-4, 1e4)
+    full_b = bt.scene_box_clamp(torch.full((n,), 1e4, device=o.device), o, d, sc.world_lo,
+                                sc.world_hi)
+    dist_b = bt.scene_box_clamp(torch.where(ab, tb, torch.zeros_like(tb)), ob, db, sc.world_lo,
+                                sc.world_hi)
+    _, ldir, _, eff = light_setup(hit.position, r.lights, hit.hit)
+    return {"full": (o, d, full_b.contiguous()), "dist": (ob, db, dist_b.contiguous()),
+            "nee": (hit.position.contiguous(), ldir.contiguous(), eff.contiguous())}
+
+
+def rays6(o, d):
+    import torch
+
+    return torch.cat([o.t(), d.t()]).contiguous()
+
+
+def fresh_tlo(eff):
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    return torch.where(eff > bt._T_MIN, -1, bt.EMPTY).to(torch.int32)
+
+
+def first_round(r, payload, o, d, eff, L):
+    """(K, rays, keys, state, lb) of a binned trace's first round, built as
+    ``trace_binned`` builds it: the fresh state, the listing (plain) and the
+    regroup sort."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    K = ct.nee_list_len(r.options.nee_max_media)
+    rays = rays6(o, d)
+    state = bt.state_bits(ct.payload_state0(payload, eff, K))
+    bnd = ct.payload_bound(payload, bt.state_fields(state, payload, K), K).contiguous()
+    keys, _ = bt.listing_plain(r.accel, rays, bnd, fresh_tlo(eff), L)
+    live, keys, rays, state = bt.regroup(keys, rays, state)
+    lb = ((live + bt.BLOCK - 1) // bt.BLOCK).reshape(1).to(torch.int32)
+    return K, rays, keys, state, lb
+
+
+def float_err(a_bits, b_bits, payload, K):
+    """Worst difference of the float fields of two payload states."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    worst = 0.0
+    for x, y in zip(bt.state_fields(a_bits, payload, K), bt.state_fields(b_bits, payload, K)):
+        if x.dtype.is_floating_point and x.numel():
+            worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def k456_vs_plain(r, media9, sets):
+    """K4, K5 and K6 against their plain versions on the card: keys, tlim,
+    state and iterations equal on every lane. Returns the worst float
+    error of each (0.0 when equal)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    g = r.accel
+    errs = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+    with uncounted():
+        for name, (o, d, eff) in sets.items():
+            rays = rays6(o, d)
+            fresh = fresh_tlo(eff)
+            relist = bt.listing_plain(g, rays, eff, fresh, 2)[0][1].contiguous()
+            for L in BINNED_LISTS:
+                for tname, tlo in (("fresh", fresh), ("relisting", relist)):
+                    keys, tlim = bt.listing(g, rays, eff, tlo, L)
+                    torch.cuda.synchronize()
+                    wk, wt = bt.listing_plain(g, rays, eff, tlo, L)
+                    bad = int(((keys != wk).any(0) | (tlim != wt)).sum())
+                    print(f"   K4 L={L}, {name} rays, {tname} t_lo: lanes {rays.shape[1]}, "
+                          f"listing {int((tlo != bt.EMPTY).sum())}, keys listed "
+                          f"{int((keys != bt.EMPTY).sum())}, lanes differing {bad}", flush=True)
+                    if bad:
+                        fail(f"K4 differs from its plain version (L={L}, {name}, {tname})")
+        for payload, L, cap in (("full", 8, 12), ("dist", 8, 12), ("nee", 8, 12), ("full", 8, 2)):
+            K, rays, keys, state, lb = first_round(r, payload, *sets[payload], L)
+            want = bt.round_plain(g, media9, lb, rays, keys, state, payload, K, cap)
+            got = bt.run_round(g, media9, lb, rays, keys.clone(), state.clone(), payload, K, cap)
+            torch.cuda.synchronize()
+            bad = [f for f, x, y in zip(("keys", "state", "iters"), got, want)
+                   if not torch.equal(x, y)]
+            err = float_err(got[1], want[1], payload, K)
+            errs["K5"] = max(errs["K5"], err)
+            print(f"   K5 {payload}, L={L}, cap_iters={cap}: live blocks {int(lb)}, servings "
+                  f"{int(got[2].sum())}, fields differing {bad}, worst float error {err:.3e}",
+                  flush=True)
+            if bad:
+                fail(f"K5 differs from its plain version ({payload}, cap_iters={cap}): {bad}")
+        for payload in ("dist", "occl", "nee"):
+            o, d, eff = sets["nee" if payload == "nee" else "dist"]
+            K = ct.nee_list_len(r.options.nee_max_media)
+            rays = rays6(o, d)
+            keys, _ = bt.listing_plain(g, rays, eff, fresh_tlo(eff), PAIR_LIST)
+            pair_rays, cid, _ = ps.expand_pairs(keys, rays, eff, 8)
+            got = ps.sweep(g, media9, pair_rays, cid, payload, K)
+            torch.cuda.synchronize()
+            want = ps.sweep_plain(g, media9, pair_rays, cid, payload, K)
+            err = float_err(got, want, payload, K)
+            errs["K6"] = max(errs["K6"], err)
+            equal = torch.equal(got, want)
+            print(f"   K6 {payload}: pairs {int((cid < bt.BIGC).sum())} of {cid.shape[0]}, equal "
+                  f"{equal}, worst float error {err:.3e}", flush=True)
+            if not equal:
+                fail(f"K6 differs from its plain version ({payload})")
+    return errs
+
+
+def whole_traces(r, media9, sets):
+    """The binned 'full' trace against K3 on the primary rays (slot equal
+    on all but 1e-3 of the lanes: K2's scaled edge epsilon is not K3's
+    additive one), and the pair trace against the binned one: 'dist'
+    equal; 'nee' t_opq and the boundaries below it equal (what the march
+    reads)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    g = r.accel
+    sc = r.scene_arrays
+    world = dict(world_lo=sc.world_lo, world_hi=sc.world_hi)
+    with uncounted():
+        o, d, eff = sets["full"]
+        n = o.shape[0]
+        got = bt.trace_binned(g, media9, o, d, torch.full((n,), 1e4, device=o.device), "full",
+                              **world)
+        k3 = ctr.trace_core(o, d, g, 1e-4, eff)
+        torch.cuda.synchronize()
+        bad = int((got[1].to(torch.int32) != k3[1]).sum())
+        print(f"   trace_binned 'full' against K3, primary rays: slot differs on {bad} of {n} "
+              f"lanes; hits {int((k3[1] >= 0).sum())}", flush=True)
+        if bad > TRACE_FLIP_FRAC * n:
+            fail(f"the binned closest trace and K3 differ on {bad} lanes")
+        K = ct.nee_list_len(r.options.nee_max_media)
+        for payload in ("dist", "nee"):
+            o, d, eff = sets[payload]
+            kw = world if payload == "dist" else {}
+            a = bt.trace_binned(g, media9, o, d, eff, payload, list_len=PAIR_LIST, **kw)
+            b = ps.trace_pairs(g, media9, o, d, eff, payload, list_len=PAIR_LIST, **kw)
+            torch.cuda.synchronize()
+            if payload == "dist":
+                ok = all(torch.equal(x, y) for x, y in zip(a, b))
+                print(f"   trace_pairs against trace_binned, 'dist': equal {ok}; hits "
+                      f"{int((a[1] >= 0).sum())}", flush=True)
+            else:
+                opq = a[2 * K]
+                below = torch.stack(a[:K]) < opq
+                ok = (torch.equal(opq, b[2 * K])
+                      and torch.equal(below, torch.stack(b[:K]) < b[2 * K])
+                      and torch.equal(torch.where(below, torch.stack(a[:K]), 0),
+                                      torch.where(below, torch.stack(b[:K]), 0))
+                      and torch.equal(torch.where(below, torch.stack(a[K:2 * K]), 0),
+                                      torch.where(below, torch.stack(b[K:2 * K]), 0)))
+                beyond = int((torch.stack(a[:2 * K]) != torch.stack(b[:2 * K])).any(0).sum())
+                print(f"   trace_pairs against trace_binned, 'nee': t_opq and the "
+                      f"{int(below.sum())} boundaries below it equal {ok}; lanes whose keys "
+                      f"beyond t_opq differ {beyond}", flush=True)
+            if not ok:
+                fail(f"trace_pairs and trace_binned differ ('{payload}')")
+
+
+def engine_path(main_opts, engine, mega_img):
+    """The showcase render through ``--engine binned`` or ``pair`` at
+    512x512 and ENGINE_SPP samples, timed after a 64x64 one-sample
+    warm-up, held against the megakernel image of the same render."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    opt = dataclasses.replace(opt, engine=engine, num_samples=ENGINE_SPP)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = Renderer(scene, opt)
+        t0 = time.perf_counter()
+        Renderer(scene, dataclasses.replace(opt, width=64, height=64, num_samples=1)).render()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = launch_counts()
+    paths = opt.width * opt.height * opt.num_samples
+    nonflip, flips = flip_gate(img, mega_img)
+    budget = WAVEFRONT_FLIP_FRAC * opt.width * opt.height
+    rate = paths / dt / 1e6
+    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, {engine}: warm-up "
+          f"(64x64@1) {warm:.3f} s, timed {dt:.3f} s = {rate:.4f} Mpaths/s; launches K3 "
+          f"{counts['K3']}, K4 {counts['K4']}, K5 {counts['K5']}, K6 {counts['K6']}; image mean "
+          f"{float(np.mean(img)):.6f}; against the megakernel image: non-flip RMSE "
+          f"{nonflip:.3e} (limit 1e-3), flip pixels {flips} (budget {budget:.0f})", flush=True)
+    need = ("K4", "K5") if engine == "binned" else ("K3", "K4", "K6")
+    for k in need:
+        if counts[k] <= 0:
+            fail(f"the {engine} path launched {k} no time")
+    if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
+        fail(f"{engine} image is not finite or has the wrong shape")
+    if not (nonflip <= 1e-3 and flips <= budget):
+        fail(f"the {engine} image fails the gate against the megakernel image")
+    return counts, rate
+
+
+def real_slots(g):
+    real, _ = grid_counts(g)
+    return real
+
+
+def time_k456(r, media9, sets):
+    """K4, K5 and K6 per launch at their widest launches on the engines'
+    paths (65,536 lanes), each plain version on the same input, and the
+    bounds from the work that input needs: K4 the listing of the binned
+    closest trace (L = 8, primary rays, fresh), K5 that trace's first round,
+    K6 the pair engine's NEE sweep (L = 4, shadow rays). Returns
+    {kernel: (ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    g = r.accel
+    real = real_slots(g)
+    run_bytes = g.run_rows.numel() * 4
+    out = {}
+
+    def bound(nbytes, ops):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_F32_OPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    with uncounted():
+        # K4
+        o, d, eff = sets["full"]
+        rays, tlo, L = rays6(o, d), fresh_tlo(eff), 8
+        n = rays.shape[1]
+        need, sup, _ = boxes_met(g, (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]), eff, eff)
+        _, per_super = grid_counts(g)
+        slabs = float(need.sum()) * g.num_supers + float((sup.double() @ per_super).sum())
+        nbytes = n * (8 + L + 1) * 4 + (g.num_clusters + g.num_supers) * 32
+        b_ms, b_by = bound(nbytes, slabs * SLAB_OPS)
+        cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), 5)
+        ms = cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), 50)
+        plain_ms = cuda_time(lambda i: bt.listing_plain(g, rays, eff, tlo, L), 3)
+        out["K4"] = (ms, plain_ms, b_ms, b_by)
+        print(f"   K4 at {n} primary lanes, L={L}: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; "
+              f"needed work {slabs:.0f} box tests; {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), "
+              f"kernel at {b_ms / ms:.4f} of it", flush=True)
+        # K5
+        K, rays5, keys, state, lb = first_round(r, "full", o, d, eff, L)
+        served = []
+        bt.round_plain(g, media9, lb, rays5, keys, state, "full", K, 12, served=served)
+        holders = 0.0
+        for c, cnt in served:
+            ok = c < bt.BIGC
+            holders += float((cnt[ok].double() * real[c[ok].to(torch.int64)]).sum())
+        ns = state.shape[0]
+        nbytes = n * (6 + 2 * (L + ns)) * 4 + (n // bt.BLOCK) * 4 + run_bytes
+        b_ms, b_by = bound(nbytes, holders * (ORIGIN_OPS + RAY_OPS))
+        copies = [(keys.clone(), state.clone()) for _ in range(25)]
+        launch = lambda i: bt.run_round(g, media9, lb, rays5, *copies[i], "full", K, 12)  # noqa: E731
+        cuda_time(launch, 5)
+        ms = cuda_time(lambda i: launch(5 + i), 20)
+        plain_ms = cuda_time(lambda i: bt.round_plain(g, media9, lb, rays5, keys, state, "full", K,
+                                                      12), 3)
+        out["K5"] = (ms, plain_ms, b_ms, b_by)
+        print(f"   K5 at {n} primary lanes ({int(lb)} live blocks), first round of the closest "
+              f"trace: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work "
+              f"{holders:.0f} slot tests of lanes holding the served cluster; {nbytes} bytes; "
+              f"bound {b_ms:.5f} ms ({b_by}), kernel at {b_ms / ms:.4f} of it", flush=True)
+        # K6
+        o, d, eff = sets["nee"]
+        rays = rays6(o, d)
+        keys, _ = bt.listing_plain(g, rays, eff, fresh_tlo(eff), PAIR_LIST)
+        pair_rays, cid, _ = ps.expand_pairs(keys, rays, eff, 8)
+        valid = cid < bt.BIGC
+        pairs_work = float(real[cid[valid].to(torch.int64)].sum())
+        nbytes = cid.shape[0] * (8 + K + 1) * 4 + run_bytes
+        b_ms, b_by = bound(nbytes, pairs_work * (ORIGIN_OPS + RAY_OPS))
+        cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K), 5)
+        ms = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K), 50)
+        plain_ms = cuda_time(lambda i: ps.sweep_plain(g, media9, pair_rays, cid, "nee", K), 3)
+        out["K6"] = (ms, plain_ms, b_ms, b_by)
+        print(f"   K6 at {int(valid.sum())} pairs of {n} shadow lanes (L={PAIR_LIST}), 'nee': "
+              f"{ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work {pairs_work:.0f} "
+              f"slot tests; {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), kernel at "
+              f"{b_ms / ms:.4f} of it", flush=True)
+    return out
+
+
 def profile_pass(r, engine):
-    """Optional: torch.profiler over one 65,536-lane pass of 16 samples
-    through the ``engine``'s beauty function."""
+    """Optional: torch.profiler over one 65,536-lane pass through the
+    ``engine``'s beauty function, of 16 samples (ENGINE_SPP for the binned
+    and pair engines)."""
     import torch
     import torch.profiler as tp
 
@@ -657,8 +1068,11 @@ def profile_pass(r, engine):
     opt = r.options
     kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
               rng_mode=opt.rng, full_resolution=(opt.width, opt.height))
-    fn = render_beauty_mega if engine == "mega" else render_beauty
+    fn = render_beauty if engine == "wavefront" else render_beauty_mega
     spp = 16
+    if engine in ("binned", "pair"):
+        kw["trace_engine"] = engine
+        spp = ENGINE_SPP
     fn(r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128), 1, **kw)
     torch.cuda.synchronize()
     with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
@@ -707,12 +1121,18 @@ def main() -> int:
     from complex_materials_renderer_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.prebuild([1, 4, 8, 10], verbose=True)
+    build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
+                   rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4])
     print(f"   built {len(build.build_log)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    worst_spill = 0
     for lib, secs, log in build.build_log:
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"   {lib}: {secs:.1f} s; " + " | ".join(regs[-2:]), flush=True)
+        lines = ptxas_lines(log)
+        worst_spill = max([worst_spill] + [sp for _, _, sp in lines])
+        print(f"   {lib}: {secs:.1f} s; " + " | ".join(
+            f"{fn}: {regs} registers, {sp} bytes spill stores" for fn, regs, sp in lines),
+            flush=True)
+    print(f"   worst spill of any kernel: {worst_spill} bytes of stores", flush=True)
 
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
@@ -730,9 +1150,14 @@ def main() -> int:
 
     phase("closest-hit kernel (K3) against plain and the BVH walk (showcase, 65,536 lanes)")
     worst_k3 = k3_vs_plain(r, r_quads_off, r_part)
+
+    phase("listing (K4), round (K5) and pair sweep (K6) against plain (showcase, 65,536 lanes)")
+    sets = ray_sets(r)
+    errs = k456_vs_plain(r, media9, sets)
+    whole_traces(r, media9, sets)
     if args.quick:
         print("chip_smoke: --quick stops here", flush=True)
-        return 3
+        return 4  # nonzero: no result line is printed
 
     phase("main path: showcase 512x512 @ 16 spp, megakernel")
     r, launches, mega_img = main_path(main_opts)
@@ -744,13 +1169,24 @@ def main() -> int:
     aov_phase(main_opts)
     golden_gate(name="isobox", golden="isobox", spp=2, engine="wavefront", backend="bvh")
 
+    phase(f"binned and pair engines: showcase 512x512 @ {ENGINE_SPP} spp")
+    with uncounted():
+        mega4 = Renderer(scene, dataclasses.replace(opt, num_samples=ENGINE_SPP)).render()
+    engines = {}
+    for engine in ("binned", "pair"):
+        engines[engine] = engine_path(main_opts, engine, mega4)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            golden_gate(engine=engine)
+
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)
     ms_k3, plain_ms_k3, bound_ms_k3, bound_by_k3 = time_k3(r)
+    k456 = time_k456(r, media9, sets)
     if args.profile:
         phase("profile")
-        profile_pass(r, "mega")
-        profile_pass(r, "wavefront")
+        for engine in ("mega", "wavefront", "binned", "pair"):
+            profile_pass(r, engine)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined)",
@@ -776,7 +1212,29 @@ def main() -> int:
         "bound_ms": bound_ms_k3,
         "bound_by": bound_by_k3,
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": errs[kid],
+        "ms": k456[kid][0],
+        "plain_ms": k456[kid][1],
+        "bound_ms": k456[kid][2],
+        "bound_by": k456[kid][3],
+        "library_ms": None,
+    } for kid, name, src, replaces, launches in (
+        ("K4", "per-lane candidate-cluster listing (K4)", "binned_listing.cu",
+         "complex_materials_renderer_tpu/kernels/binned_trace.py:88",
+         engines["binned"][0]["K4"] + engines["pair"][0]["K4"]),
+        ("K5", "binned round (K5, with the triangle tester K2 inlined)", "binned_round.cu",
+         "complex_materials_renderer_tpu/kernels/binned_trace.py:199",
+         engines["binned"][0]["K5"]),
+        ("K6", "cluster-major pair sweep (K6, with the triangle tester K2 inlined)",
+         "pair_sweep.cu", "complex_materials_renderer_tpu/kernels/pairsweep.py:111",
+         engines["pair"][0]["K6"]),
+    )]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -38,7 +38,7 @@ class RenderOptions:
     # --- extensions of the JAX package ---
     aov: str = "beauty"  # beauty | depth | normal | topology
     backend: str = "auto"  # auto (= cluster) | cluster (the CUDA kernels) | bvh (plain PyTorch walk)
-    engine: str = "auto"  # auto | mega (fused kernel) | wavefront | binned, pair (not ported yet)
+    engine: str = "auto"  # auto | mega (fused kernel) | wavefront | binned | pair
     tir: str = "reflect"  # reflect | kill (reference-faithful TIR termination)
     direct: str = "scatter"  # scatter (reference estimator) | analytic
     # (closed-form in-scatter direct term: same converged image, lower
@@ -89,8 +89,9 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t--backend\tauto (default: cluster) | cluster (the CUDA kernels) | bvh (threaded-BVH
 \t\twalk in plain PyTorch: portable, slow on the card)
 \t--engine\tauto (default: mega on the cluster backend, wavefront on bvh) | mega
-\t\t(fused path kernel) | wavefront (bounce-by-bounce loop); binned, pair
-\t\t(not ported yet)
+\t\t(fused path kernel) | wavefront (bounce-by-bounce loop) | binned (bounce
+\t\tloop, per-lane candidate lists served in rounds; CMR_BINNED_LIST,
+\t\tCMR_BINNED_CAP) | pair (bounce loop, cluster-major pair sweep)
 \t--tir\treflect (default) | kill (reference-faithful TIR termination)
 \t--direct\tMedia direct-light estimator: scatter (default, reference
 \t\testimator) | analytic (closed-form expectation: same image in the

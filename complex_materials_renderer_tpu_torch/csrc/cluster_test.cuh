@@ -7,14 +7,18 @@
 // quad slots through the far-corner coefficients qa/qb with the scaled
 // edge epsilon, and the payloads:
 //   FullState  'full': closest hit with the shading payload
-//   DistState  'dist': (t, slot);  'occl' reads only t of a DistState
+//   DistState  'dist': (t, slot)
+//   OcclState  'occl': t only
 //   NeeState<K> 'nee': the K nearest media boundaries as packed int32 keys
 //                       [t-bits & ~63 | media row] plus the opaque t_opq
 //   DneeState<K> 'dnee': dist along ray set A and nee along set B from one
 //                       origin, sharing s, q and the t numerator
 // The K keys live in registers: every loop over them is unrolled with
 // compile-time indices (a dynamically indexed per-thread array would go
-// to local memory).
+// to local memory). The 'nee' tester takes a per-lane accept flag (the
+// JAX tester's ``mask``, cluster_test.py:161-168, :307-308): the binned
+// round and the pair sweep test one cluster against lanes that may have
+// met it before, and the K-list insert is not idempotent.
 #pragma once
 
 #include <cstdint>
@@ -34,6 +38,10 @@ struct FullState {
 
 struct DistState {
   float t, slot;
+};
+
+struct OcclState {
+  float t;
 };
 
 template <int K>
@@ -146,11 +154,16 @@ __device__ __forceinline__ void update_dist(DistState& st, const Slot& s, float 
   }
 }
 
+__device__ __forceinline__ void update_occl(OcclState& st, const Slot& s, float uu, float vv,
+                                            float tt) {
+  if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) st.t = tt;
+}
+
 template <int K>
 __device__ __forceinline__ void update_nee(NeeState<K>& st, const Slot& s, float uu, float vv,
-                                           float tt, int midx) {
+                                           float tt, int midx, bool accept = true) {
   const bool med = midx >= 0;
-  const bool valid_geom = inside(s, uu, vv) && tt > T_MIN;
+  const bool valid_geom = inside(s, uu, vv) && tt > T_MIN && accept;
   if (valid_geom && !med && tt < st.t_opq) st.t_opq = tt;
   const bool valid = valid_geom && med && tt < st.t_opq;
   const int mat_i = midx > 0 ? midx : 0;
@@ -182,6 +195,59 @@ __device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows,
   }
 }
 
+__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
+                                            int subs, int run, int c, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            DistState& st) {
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    const int r_off = (c * subs + rr) * run;
+    for (int j = 0; j < run; ++j) {
+      const Slot s = load_slot(row, run, j);
+      const Origin o = origin_terms(s, ox, oy, oz);
+      float uu, vv, tt;
+      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
+      update_dist(st, s, uu, vv, tt, (float)(r_off + j));
+    }
+  }
+}
+
+__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
+                                            int subs, int run, int c, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            OcclState& st) {
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    for (int j = 0; j < run; ++j) {
+      const Slot s = load_slot(row, run, j);
+      const Origin o = origin_terms(s, ox, oy, oz);
+      float uu, vv, tt;
+      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
+      update_occl(st, s, uu, vv, tt);
+    }
+  }
+}
+
+// 'nee' with the per-lane accept flag: a lane with accept == false changes
+// nothing.
+template <int K>
+__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
+                                            int subs, int run, int c, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            const float* media, int M, bool accept,
+                                            NeeState<K>& st) {
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    for (int j = 0; j < run; ++j) {
+      const Slot s = load_slot(row, run, j);
+      const Origin o = origin_terms(s, ox, oy, oz);
+      float uu, vv, tt;
+      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
+      update_nee<K>(st, s, uu, vv, tt, media_index(s.mat, media, M), accept);
+    }
+  }
+}
+
 template <int K>
 __device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
                                             int subs, int run, int c, float ox, float oy,
@@ -203,10 +269,12 @@ __device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows,
   }
 }
 
-// Ray/AABB slab entry of box b (8 floats: lo xyz, hi xyz, pad, pad)
-// against [T_MIN, tmax]: true when the segment meets the box.
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ b, float ox, float oy, float oz,
-                                         float ix, float iy, float iz, float tmax) {
+// Ray/AABB slab test of box b (8 floats: lo xyz, hi xyz, pad, pad)
+// against [T_MIN, tmax]: true when the segment meets the box, with its
+// entry (clamped to T_MIN) in tn.
+__device__ __forceinline__ bool slab_entry(const float* __restrict__ b, float ox, float oy,
+                                           float oz, float ix, float iy, float iz, float tmax,
+                                           float& tn_out) {
   float s0 = (__ldg(b + 0) - ox) * ix;
   float s1 = (__ldg(b + 3) - ox) * ix;
   float tn = fminf(s0, s1);
@@ -221,7 +289,14 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ b, float ox, 
   tf = fminf(tf, fmaxf(s0, s1));
   tn = fmaxf(tn, T_MIN);
   tf = fminf(tf, tmax);
+  tn_out = tn;
   return tn <= tf;
+}
+
+__device__ __forceinline__ bool slab_hit(const float* __restrict__ b, float ox, float oy, float oz,
+                                         float ix, float iy, float iz, float tmax) {
+  float tn;
+  return slab_entry(b, ox, oy, oz, ix, iy, iz, tmax, tn);
 }
 
 // Early-exit bound of the NEE set: min(K-th key's t, t_opq).

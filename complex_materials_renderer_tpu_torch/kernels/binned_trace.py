@@ -1,0 +1,400 @@
+"""Binned per-lane traversal: the candidate listing (K4) and the binned
+round (K5).
+
+Counterpart of complex_materials_renderer_tpu/kernels/binned_trace.py
+(``_make_listing_kernel`` :88, ``_make_round_kernel`` :199, ``trace_binned``
+:355). A trace runs generations; each generation
+
+1. LISTS, per lane, the L nearest-entry candidate clusters as packed int32
+   keys [entry-t f32 bits & ~ID_MASK | 14-bit cluster id] above a strict
+   lower key t_lo (``listing``: K4);
+2. runs ROUNDS until no lane lists a cluster: the lanes are regrouped by
+   their head cluster id (a stable sort, as ``lax.sort``), so that each
+   1024-lane block holds lanes that need the same few clusters, and the
+   round (``run_round``: K5) serves each block's smallest head cluster id
+   up to ``cap_iters`` times;
+3. RELISTS the lanes whose list overflowed and whose bound still lies
+   beyond their L-th key (t_lo = that key).
+
+The lane order is restored at the end. Payloads ('full', 'dist', 'occl',
+'nee') and their states are those of ``cluster_test``; the round carries
+a payload's state as one (fields, lanes) int32 tensor with float fields as
+their bit patterns, so the host sorts move one tensor per kind.
+
+On CUDA tensors ``listing`` and ``run_round`` launch the kernels of
+``csrc/binned_listing.cu`` and ``csrc/binned_round.cu`` (or raise); on CPU
+tensors they run ``listing_plain`` and ``round_plain``. The plain round is
+block-faithful: it picks the served cluster per 1024-lane block as the
+kernel does, so the two agree on every lane. The JAX ``lax.while_loop``
+conditions are host syncs: one per generation and one per round.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..render.hitinfo import T_MIN
+from .cluster_grid import DeviceClusterGrid
+from .cluster_test import (
+    nee_list_len,
+    nee_unpack_mat,
+    nee_unpack_t,
+    payload_bound,
+    payload_state0,
+    slot_table,
+    trace_slots,
+)
+from .megakernel import _require, _safe_inv
+
+BLOCK = 1024  # lanes of one round block (the TPU kernel's (8, 128) tile)
+EMPTY = 2147483647  # empty list slot / resolved-lane t_lo
+ID_BITS = 14  # cluster id field of a key
+ID_MASK = (1 << ID_BITS) - 1
+BIGC = 1 << 20  # no-cluster sentinel of the regroup key and the serve loop
+MAX_MEDIA_ROWS = 63  # the NEE keys' 6-bit media-row field
+PAYLOAD_IDS = {"full": 0, "dist": 1, "occl": 2, "nee": 3}
+
+_T_MIN = float(np.float32(T_MIN))
+_TEN_TMIN = float(np.float32(10.0) * np.float32(T_MIN))
+_LANE_CHUNK = 1 << 22  # lanes x clusters of one plain listing step
+
+
+def n_state(payload: str, K_NEE: int) -> int:
+    """Fields of a payload's state."""
+    return {"full": 11, "dist": 2, "occl": 1}.get(payload, K_NEE + 1)
+
+
+def _float_field(payload: str, K_NEE: int, i: int) -> bool:
+    return payload != "nee" or i == K_NEE
+
+
+def state_bits(state) -> torch.Tensor:
+    """A payload state (tuple of float32/int32 tensors) as one (ns, n)
+    int32 tensor, float fields as their bit patterns."""
+    return torch.stack([x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+                        for x in state])
+
+
+def state_fields(bits: torch.Tensor, payload: str, K_NEE: int):
+    """The inverse of ``state_bits``."""
+    return tuple(bits[i].view(torch.float32) if _float_field(payload, K_NEE, i) else bits[i]
+                 for i in range(bits.shape[0]))
+
+
+def entry_of(key: torch.Tensor) -> torch.Tensor:
+    """The (rounded-down) AABB entry of a key (binned_trace.py:341)."""
+    return (key & ~ID_MASK).view(torch.float32)
+
+
+def _check_payload(payload: str) -> None:
+    if payload not in PAYLOAD_IDS:
+        raise ValueError(f"unknown payload {payload!r}")
+
+
+def check_grid(grid: DeviceClusterGrid, media9: torch.Tensor) -> None:
+    """The caps of the packed keys (ROADMAP R4): 14-bit cluster ids and 63
+    media rows."""
+    if grid.num_clusters > (1 << ID_BITS):
+        raise ValueError(
+            f"{grid.num_clusters} clusters exceed the binned tracer's {ID_BITS}-bit id field"
+        )
+    if media9.shape[0] > MAX_MEDIA_ROWS:
+        raise ValueError(f"{media9.shape[0]} media rows exceed the 63-medium key field")
+
+
+def scene_box_clamp(eff, o, d, world_lo, world_hi):
+    """``eff`` clamped to the scene-box exit along each ray
+    (binned_trace.py:400-419, megakernel.traverse parity)."""
+    lo = torch.as_tensor(world_lo, dtype=torch.float32, device=o.device).reshape(3)
+    hi = torch.as_tensor(world_hi, dtype=torch.float32, device=o.device).reshape(3)
+
+    def axis_exit(i):
+        inv = _safe_inv(d[:, i])
+        return torch.maximum((lo[i] - o[:, i]) * inv, (hi[i] - o[:, i]) * inv)
+
+    tf = torch.minimum(torch.minimum(axis_exit(0), axis_exit(1)), axis_exit(2))
+    return torch.minimum(eff, torch.clamp(tf, min=0.0) * float(np.float32(1.0001)) + _TEN_TMIN)
+
+
+# --------------------------------------------------------------------------
+# K4: the listing
+# --------------------------------------------------------------------------
+
+
+def _entries(boxes, O, INV, bnd):
+    """Slab entries (n, B) of rays against boxes (B, 8) within [T_MIN, bnd]
+    and the hit mask, in the TPU kernel's operation order (:130-146)."""
+    tn = tf = None
+    for a in range(3):
+        s0 = (boxes[None, :, a] - O[a][:, None]) * INV[a][:, None]
+        s1 = (boxes[None, :, a + 3] - O[a][:, None]) * INV[a][:, None]
+        lo_s, hi_s = torch.minimum(s0, s1), torch.maximum(s0, s1)
+        tn = lo_s if tn is None else torch.maximum(tn, lo_s)
+        tf = hi_s if tf is None else torch.minimum(tf, hi_s)
+    tn = torch.clamp(tn, min=_T_MIN)
+    tf = torch.minimum(tf, bnd[:, None])
+    return tn, tn <= tf
+
+
+def listing_plain(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tensor,
+                  tlo: torch.Tensor, list_len: int):
+    """The plain version of the listing: (keys (L, n) int32, tlim (n,)).
+    ``rays`` is (6, n) (origin, direction), ``bound`` the per-lane walk
+    bound, ``tlo`` the strict lower key (EMPTY: list nothing)."""
+    n = rays.shape[1]
+    L = list_len
+    dev = rays.device
+    keys = torch.full((L, n), EMPTY, dtype=torch.int32, device=dev)
+    act = (tlo != EMPTY).nonzero().squeeze(1)
+    C = grid.num_clusters
+    ids = torch.arange(C, dtype=torch.int32, device=dev)
+    owner = (ids // grid.super_factor).to(torch.int64)
+    step = max(1, _LANE_CHUNK // max(1, C))
+    for lo in range(0, act.numel(), step):
+        idx = act[lo:lo + step]
+        O = tuple(rays[a, idx] for a in range(3))
+        INV = tuple(_safe_inv(rays[3 + a, idx]) for a in range(3))
+        bnd = bound[idx]
+        _, hit_s = _entries(grid.super_bounds, O, INV, bnd)
+        tn, hit = _entries(grid.bounds, O, INV, bnd)
+        hit = hit & hit_s[:, owner]
+        key = (tn.view(torch.int32) & ~ID_MASK) | ids
+        key = torch.where(hit & (key > tlo[idx, None]), key, torch.full_like(key, EMPTY))
+        if C < L:
+            key = torch.cat([key, torch.full((key.shape[0], L - C), EMPTY, dtype=torch.int32,
+                                             device=dev)], dim=1)
+        keys[:, idx] = torch.topk(key, L, dim=1, largest=False, sorted=True).values.t()
+    return keys, keys[L - 1].clone()
+
+
+def listing(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tensor,
+            tlo: torch.Tensor, list_len: int):
+    """(keys (L, n) int32, tlim (n,) int32) of the listing: the kernel of
+    ``csrc/binned_listing.cu`` on CUDA tensors (launches counted in
+    ``listing.launches``), ``listing_plain`` on CPU tensors."""
+    if list_len < 1:
+        raise ValueError(f"list_len must be >= 1, got {list_len}")
+    if rays.device.type == "cpu":
+        return listing_plain(grid, rays, bound, tlo, list_len)
+    from . import build
+
+    dev = rays.device
+    n = rays.shape[1]
+    C, S = grid.num_clusters, grid.num_supers
+    _require(grid.bounds, "bounds", torch.float32, (C, 8), dev)
+    _require(grid.super_bounds, "super_bounds", torch.float32, (S, 8), dev)
+    _require(rays, "rays", torch.float32, (6, n), dev)
+    _require(bound, "bound", torch.float32, (n,), dev)
+    _require(tlo, "tlo", torch.int32, (n,), dev)
+    keys = torch.empty((list_len, n), dtype=torch.int32, device=dev)
+    tlim = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys, tlim
+    fn = build.binned_listing(list_len)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(p(grid.bounds), p(grid.super_bounds), p(rays), p(bound), p(tlo), p(keys),
+                 p(tlim), n, C, S, grid.super_factor, ctypes.c_void_p(stream))
+    listing.launches += 1
+    if err != 0:
+        raise RuntimeError(f"listing kernel launch failed: {build.error_string(err)}")
+    return keys, tlim
+
+
+listing.launches = 0  # CUDA launches made by listing
+
+
+# --------------------------------------------------------------------------
+# K5: the round
+# --------------------------------------------------------------------------
+
+
+def round_plain(grid: DeviceClusterGrid, media9: torch.Tensor, lb, rays: torch.Tensor,
+                keys: torch.Tensor, state: torch.Tensor, payload: str, K_NEE: int,
+                cap_iters: int, served: list | None = None):
+    """The plain version of the round: (keys, state, iters) after serving
+    each 1024-lane block below ``lb`` blocks up to ``cap_iters`` times
+    (binned_trace.py:225-319). ``keys`` (L, n) and ``state`` (ns, n,
+    ``state_bits``) are not modified; ``iters`` is (n / 1024,) int32.
+    ``served``, when given, receives for each serving iteration the
+    cluster served in each block (BIGC: none) and how many of the block's
+    lanes held it: the work a round needs."""
+    L, n = keys.shape
+    blocks = n // BLOCK
+    dev = keys.device
+    keys = keys.clone()
+    state = state.clone()
+    iters = torch.zeros((blocks,), dtype=torch.int32, device=dev)
+    live = torch.arange(blocks, device=dev) < int(torch.as_tensor(lb).reshape(-1)[0])
+    med_ids = media9[:, 0].tolist()
+    W = grid.width
+    empty = torch.full_like(keys[0], EMPTY)
+    for _ in range(cap_iters):
+        go = live & (keys[0].view(blocks, BLOCK) != EMPTY).any(dim=1)
+        if not bool(go.any()):
+            break
+        iters += go.to(torch.int32)
+        go_lane = go.repeat_interleave(BLOCK)
+        fields = state_fields(state, payload, K_NEE)
+        bnd = payload_bound(payload, fields, K_NEE)
+        head = keys[0]
+        clear = go_lane & (head != EMPTY) & (entry_of(head) >= bnd)
+        keys = torch.where(clear[None], EMPTY, keys)
+        head = keys[0]
+        hid = torch.where(head != EMPTY, head & ID_MASK, torch.full_like(head, BIGC))
+        c = torch.where(go, hid.view(blocks, BLOCK).amin(dim=1), torch.full_like(go, BIGC,
+                                                                                dtype=torch.int32))
+        c_lane = c.repeat_interleave(BLOCK)
+        match = (keys != EMPTY) & ((keys & ID_MASK) == c_lane[None])
+        has_c = match.any(dim=0)
+        if served is not None:
+            served.append((c, has_c.view(blocks, BLOCK).sum(dim=1)))
+        for cv in torch.unique(c[c < BIGC]).tolist():
+            cc = min(cv, grid.num_clusters - 1)
+            lanes = ((c_lane == cv) & (has_c if payload == "nee" else True)).nonzero().squeeze(1)
+            if lanes.numel() == 0:
+                continue
+            sub = trace_slots(slot_table(grid, cc * W, (cc + 1) * W),
+                              tuple(rays[a, lanes] for a in range(6)), payload,
+                              tuple(f[lanes] for f in fields), _T_MIN, K_NEE, med_ids,
+                              in_order=True)
+            state[:, lanes] = state_bits(sub)
+            fields = state_fields(state, payload, K_NEE)
+        shift = torch.cummax(match.to(torch.int32), dim=0).values.bool()
+        nxt = torch.cat([keys[1:], empty[None]])
+        keys = torch.where(shift, nxt, keys)
+    return keys, state, iters
+
+
+def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: torch.Tensor,
+              rays: torch.Tensor, keys: torch.Tensor, state: torch.Tensor, payload: str,
+              K_NEE: int, cap_iters: int):
+    """(keys, state, iters) after one round: the kernel of
+    ``csrc/binned_round.cu`` on CUDA tensors, which updates ``keys`` and
+    ``state`` in place (the Pallas call's aliases; launches counted in
+    ``run_round.launches``), ``round_plain`` on CPU tensors. ``lb`` is a
+    (1,) int32 tensor: the kernel reads it on the card, no sync."""
+    _check_payload(payload)
+    if rays.device.type == "cpu":
+        return round_plain(grid, media9, lb, rays, keys, state, payload, K_NEE, cap_iters)
+    from . import build
+
+    dev = rays.device
+    L, n = keys.shape
+    if n % BLOCK:
+        raise ValueError(f"the round takes whole blocks of {BLOCK} lanes, got {n}")
+    if (K_NEE - 2) % 2 or K_NEE < 2:
+        raise ValueError(f"K-list length {K_NEE} is not 2 * nee_bound + 2")
+    C = grid.num_clusters
+    row_w = grid.run_rows.shape[1]
+    _require(grid.run_rows, "run_rows", torch.float32, (C * grid.runs_per_cluster, row_w), dev)
+    _require(media9, "media9", torch.float32, (media9.shape[0], 9), dev)
+    _require(lb, "lb", torch.int32, (1,), dev)
+    _require(rays, "rays", torch.float32, (6, n), dev)
+    _require(keys, "keys", torch.int32, (L, n), dev)
+    _require(state, "state", torch.int32, (n_state(payload, K_NEE), n), dev)
+    iters = torch.empty((n // BLOCK,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys, state, iters
+    fn = build.binned_round(L, (K_NEE - 2) // 2)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(p(media9), media9.shape[0], p(lb), p(grid.run_rows), p(rays), p(keys), p(state),
+                 p(iters), n, C, grid.runs_per_cluster, grid.run_size, row_w,
+                 PAYLOAD_IDS[payload], int(cap_iters), ctypes.c_void_p(stream))
+    run_round.launches += 1
+    if err != 0:
+        raise RuntimeError(f"round kernel launch failed: {build.error_string(err)}")
+    return keys, state, iters
+
+
+run_round.launches = 0  # CUDA launches made by run_round
+
+
+# --------------------------------------------------------------------------
+# The trace
+# --------------------------------------------------------------------------
+
+
+def regroup(keys, *lane_arrays):
+    """Sort the lanes by head cluster id, empty lists last, stably
+    (binned_trace.py:513-532). Returns (live lanes, keys, the arrays) with
+    every (rows, lanes) or (lanes,) array permuted along its lanes."""
+    head = keys[0]
+    gkey = torch.where(head != EMPTY, head & ID_MASK, torch.full_like(head, BIGC))
+    g0, perm = torch.sort(gkey, stable=True)
+    live = (g0 < BIGC).sum()
+    return (live, keys[:, perm]) + tuple(a[..., perm] for a in lane_arrays)
+
+
+def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
+                 d: torch.Tensor, bound: torch.Tensor, payload: str, world_lo=None,
+                 world_hi=None, nee_max_media: int = 4, list_len: int = 8, cap_iters: int = 12,
+                 max_gens: int = 64, debug_stats: bool = False):
+    """Per-lane-work-proportional trace (binned_trace.py:355); the payload
+    contract of the megakernel's traverse: t == the per-lane bound on a
+    miss, slot and mat -1. 'nee' returns K ts, K media rows (float) and
+    t_opq. ``world_lo``/``world_hi`` clamp 'full' and 'dist' to the scene
+    box. ``debug_stats`` also returns [generations, rounds, serving
+    iterations, live-lane rounds]."""
+    _check_payload(payload)
+    check_grid(grid, media9)
+    L = list_len
+    K_NEE = nee_list_len(nee_max_media)
+    dev = o.device
+    r = o.shape[0]
+    blocks = -(-r // BLOCK)
+    rp = blocks * BLOCK
+
+    eff = torch.where(bound > _T_MIN, bound, torch.zeros_like(bound)).to(torch.float32)
+    if payload in ("full", "dist"):
+        eff = scene_box_clamp(eff, o, d, world_lo, world_hi)
+    rays = torch.cat([o.t(), d.t()]).to(torch.float32)
+    if rp != r:
+        # Pad lanes carry eff == 0: missed, and they list nothing.
+        pad = torch.zeros((6, rp - r), dtype=torch.float32, device=dev)
+        pad[3] = 1.0
+        rays = torch.cat([rays, pad], dim=1)
+        eff = torch.cat([eff, torch.zeros((rp - r,), dtype=torch.float32, device=dev)])
+    rays = rays.contiguous()
+    state = state_bits(payload_state0(payload, eff, K_NEE))
+    lane = torch.arange(rp, dtype=torch.int64, device=dev)
+    tlo = torch.where(eff > _T_MIN, torch.full((rp,), -1, dtype=torch.int32, device=dev),
+                      torch.full((rp,), EMPTY, dtype=torch.int32, device=dev))
+    stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+
+    for _ in range(max_gens):
+        if not bool((tlo != EMPTY).any()):
+            break
+        bnd = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE).contiguous()
+        keys, tlim = listing(grid, rays, bnd, tlo, L)
+        stats[0] += 1
+        while bool((keys[0] != EMPTY).any()):
+            live, keys, rays, state, tlo, tlim, lane = regroup(keys, rays, state, tlo, tlim,
+                                                                lane)
+            lb = ((live + BLOCK - 1) // BLOCK).reshape(1).to(torch.int32)
+            keys, state, iters = run_round(grid, media9, lb, rays, keys.contiguous(),
+                                           state.contiguous(), payload, K_NEE, cap_iters)
+            stats[1] += 1
+            stats[2] += iters.sum()
+            stats[3] += live
+        bnd2 = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE)
+        unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
+        tlo = torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY))
+
+    restored = torch.empty_like(state)
+    restored[:, lane] = state
+    result = tuple(x[:r] for x in state_fields(restored, payload, K_NEE))
+    if payload == "nee":
+        eff_r = eff[:r]
+        ts = tuple(nee_unpack_t(k, eff_r) for k in result[:K_NEE])
+        ms = tuple(nee_unpack_mat(k) for k in result[:K_NEE])
+        result = ts + ms + (result[K_NEE],)
+    if debug_stats:
+        return result, stats
+    return result

@@ -2,13 +2,21 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds, not minutes): the megakernel (``megakernel.cu``) and
-the closest-hit kernel (``cluster_trace.cu``). The megakernel is templated
-on the NEE K-list length, and one library is built per ``--nee-bound``
-value asked for (``-DCMR_NEE_MAX_MEDIA=n``), for any value, at its first
-use. Libraries go to ``build/kernels/`` beside
-the package (listed in ``.gitignore``), named by a digest of the sources
-and flags, so a changed source is rebuilt.
+build takes seconds, not minutes):
+
+- ``megakernel.cu`` (K1), one library per ``--nee-bound`` value
+  (``-DCMR_NEE_MAX_MEDIA=n``: the NEE K-list length is a template
+  parameter);
+- ``cluster_trace.cu`` (K3);
+- ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``);
+- ``binned_round.cu`` (K5), one per (list length, ``--nee-bound``);
+- ``pair_sweep.cu`` (K6), one per ``--nee-bound``.
+
+Lists and K-lists live in registers, so their lengths are compile-time;
+a library is built for any value asked for, at its first use. Libraries
+go to ``build/kernels/`` beside the package (listed in ``.gitignore``),
+named by a digest of the sources and flags, so a changed source is
+rebuilt.
 
 ``--fmad=false`` and no ``--use_fast_math``: every product, ``1/x`` and
 ``sqrtf`` is IEEE-rounded, as in the plain PyTorch version that the kernel
@@ -37,8 +45,24 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# kind -> (source, names of the -D values in the key, launch function, its argtypes)
+_KINDS = {
+    "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_megakernel_launch",
+                   [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 15 + [_vp]),
+    "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
+                      [_vp] * 8 + [_ci] * 7 + [_vp]),
+    "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",
+                       [_vp] * 7 + [_ci] * 4 + [_vp]),
+    "binned_round": ("binned_round.cu", ("CMR_LIST_LEN", "CMR_NEE_MAX_MEDIA"),
+                     "cmr_binned_round_launch",
+                     [_vp, _ci] + [_vp] * 6 + [_ci] * 7 + [_vp]),
+    "pair_sweep": ("pair_sweep.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_pair_sweep_launch",
+                   [_vp, _ci] + [_vp] * 4 + [_ci] * 5 + [_vp]),
+}
+
 _lock = threading.Lock()
-_libs: dict = {}  # nee_max_media -> megakernel library; "cluster_trace" -> K3's
+_libs: dict = {}  # key (kind, *values) -> loaded library
 build_log: list = []  # (library, seconds, nvcc output) of each build in this process
 
 
@@ -91,54 +115,68 @@ def _compile(source: str, defines: dict, verbose: bool) -> str:
     return out
 
 
-def _load_megakernel(path: str):
+def _load(key, path: str):
+    _, _, launch, argtypes = _KINDS[key[0]]
     lib = ctypes.CDLL(path)
-    fn = lib.cmr_megakernel_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci] + [vp] * 8 + [ci] * 15 + [vp]
-    fn.restype = ci
-    lib.cmr_megakernel_k_nee.argtypes = []
-    lib.cmr_megakernel_k_nee.restype = ci
-    lib.cmr_error_string.argtypes = [ci]
+    fn = getattr(lib, launch)
+    fn.argtypes = argtypes
+    fn.restype = _ci
+    for name in ("cmr_megakernel_k_nee", "cmr_k_nee", "cmr_list_len"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = _ci
+    lib.cmr_error_string.argtypes = [_ci]
     lib.cmr_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _load_cluster_trace(path: str):
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.cmr_cluster_trace_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
-    lib.cmr_cluster_trace_launch.restype = ci
-    lib.cmr_error_string.argtypes = [ci]
-    lib.cmr_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def prebuild(nee_bounds, verbose: bool = False, cluster_trace: bool = True) -> None:
-    """Build the megakernel for each value of ``nee_bounds`` and (with
-    ``cluster_trace``) the closest-hit kernel at once, one nvcc process per
-    library, all started together."""
-    todo = [n for n in sorted(set(nee_bounds)) if n not in _libs]
-    jobs = [("megakernel.cu", {"CMR_NEE_MAX_MEDIA": n}) for n in todo]
-    if cluster_trace and "cluster_trace" not in _libs:
-        todo.append("cluster_trace")
-        jobs.append(("cluster_trace.cu", {}))
-    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+def build(keys, verbose: bool = False) -> None:
+    """Build and load the libraries of ``keys`` ((kind, *values), e.g.
+    ("binned_round", 8, 4)), one nvcc process per library, all started
+    together."""
+    todo = []
+    for key in keys:
+        key = tuple(key)
+        if key[0] not in _KINDS:
+            raise ValueError(f"unknown kernel library {key!r}")
+        if key not in _libs and key not in todo:
+            todo.append(key)
+    if not todo:
+        return
+    jobs = [(_KINDS[k[0]][0], dict(zip(_KINDS[k[0]][1], k[1:]))) for k in todo]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = list(pool.map(lambda job: _compile(*job, verbose), jobs))
     with _lock:
         for key, path in zip(todo, paths):
             if key not in _libs:
-                load = _load_cluster_trace if key == "cluster_trace" else _load_megakernel
-                _libs[key] = load(path)
+                _libs[key] = _load(key, path)
+
+
+def prebuild(nee_bounds=(), verbose: bool = False, cluster_trace: bool = True,
+             list_lens=(), rounds=(), sweeps=()) -> None:
+    """Build at once the megakernel for each value of ``nee_bounds``, (with
+    ``cluster_trace``) the closest-hit kernel, the listing for each of
+    ``list_lens``, the round for each (list length, nee bound) of
+    ``rounds`` and the sweep for each nee bound of ``sweeps``."""
+    build([("megakernel", n) for n in sorted(set(nee_bounds))]
+          + ([("cluster_trace",)] if cluster_trace else [])
+          + [("binned_listing", L) for L in sorted(set(list_lens))]
+          + [("binned_round", L, n) for L, n in sorted(set(rounds))]
+          + [("pair_sweep", n) for n in sorted(set(sweeps))], verbose)
+
+
+def _library(key):
+    with _lock:
+        lib = _libs.get(key)
+    if lib is None:
+        build([key])
+        lib = _libs[key]
+    return lib
 
 
 def megakernel(nee_max_media: int):
     """The launch function of the megakernel built for ``nee_max_media``."""
-    with _lock:
-        lib = _libs.get(nee_max_media)
-    if lib is None:
-        prebuild([nee_max_media], cluster_trace=False)
-        lib = _libs[nee_max_media]
+    lib = _library(("megakernel", nee_max_media))
     if lib.cmr_megakernel_k_nee() != 2 * nee_max_media + 2:
         raise RuntimeError("megakernel library built for another K-list length")
     return lib.cmr_megakernel_launch
@@ -146,12 +184,32 @@ def megakernel(nee_max_media: int):
 
 def cluster_trace():
     """The launch function of the closest-hit kernel (K3)."""
-    with _lock:
-        lib = _libs.get("cluster_trace")
-    if lib is None:
-        prebuild([])
-        lib = _libs["cluster_trace"]
-    return lib.cmr_cluster_trace_launch
+    return _library(("cluster_trace",)).cmr_cluster_trace_launch
+
+
+def binned_listing(list_len: int):
+    """The launch function of the listing kernel (K4) for ``list_len``."""
+    lib = _library(("binned_listing", list_len))
+    if lib.cmr_list_len() != list_len:
+        raise RuntimeError("listing library built for another list length")
+    return lib.cmr_binned_listing_launch
+
+
+def binned_round(list_len: int, nee_max_media: int):
+    """The launch function of the round kernel (K5) for ``list_len`` and
+    ``nee_max_media``."""
+    lib = _library(("binned_round", list_len, nee_max_media))
+    if lib.cmr_list_len() != list_len or lib.cmr_k_nee() != 2 * nee_max_media + 2:
+        raise RuntimeError("round library built for another list or K-list length")
+    return lib.cmr_binned_round_launch
+
+
+def pair_sweep(nee_max_media: int):
+    """The launch function of the pair sweep (K6) for ``nee_max_media``."""
+    lib = _library(("pair_sweep", nee_max_media))
+    if lib.cmr_k_nee() != 2 * nee_max_media + 2:
+        raise RuntimeError("sweep library built for another K-list length")
+    return lib.cmr_pair_sweep_launch
 
 
 def error_string(err: int) -> str:

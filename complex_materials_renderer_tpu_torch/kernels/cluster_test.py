@@ -22,7 +22,9 @@ tester with another far-edge acceptance (``additive_eps``, see ``_mt``). NEE: th
 K smallest media keys below the final opaque bound t_opq. A walk may
 also keep keys beyond a t_opq that shrank after their insertion; the
 shadow march (megakernel ``nee_resolve``) treats such keys exactly like
-empty slots, so both give the same light.
+empty slots, so both give the same light. The binned and pair engines,
+which hold their kernels to this version key for key, ask for the walk's
+keys (``in_order``).
 """
 
 from __future__ import annotations
@@ -201,16 +203,28 @@ def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool =
     return (t_new, slot) + rest
 
 
-def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids):
-    """Merge the NEE boundary sweep over ``sl`` into (K keys..., t_opq)."""
+def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids, mask=None, in_order=False):
+    """Merge the NEE boundary sweep over ``sl`` into (K keys..., t_opq).
+
+    A media hit is kept when it lies below the final t_opq; with
+    ``in_order``, as in the walk, slot by slot: below t_opq as it stood
+    before its slot (the lane's t_opq and the opaque hits of the slots
+    before it), so the keys equal the walk's, including keys beyond an
+    opaque hit found later. ``mask`` (per lane) lets only its lanes accept
+    hits (cluster_test.py:307-308 of the JAX package)."""
     _, _, tt, inside = _mt(sl, O, D)
     midx = media_index(sl.mat, med_ids)
     med = midx >= 0.0
     valid_geom = inside & (tt > t_min)
+    if mask is not None:
+        valid_geom = valid_geom & mask[:, None]
     inf = torch.full_like(tt, float("inf"))
-    opq_min = torch.where(valid_geom & ~med, tt, inf).min(dim=1).values
-    t_opq = torch.minimum(state[K_NEE], opq_min)
-    valid = valid_geom & med & (tt < t_opq[:, None])
+    t_in = state[K_NEE][:, None]
+    opq_run = torch.minimum(torch.cummin(torch.where(valid_geom & ~med, tt, inf), dim=1).values,
+                            t_in)
+    t_opq = opq_run[:, -1]
+    t_before = torch.cat([t_in, opq_run[:, :-1]], dim=1) if in_order else t_opq[:, None]
+    valid = valid_geom & med & (tt < t_before)
     mat_i = torch.clamp(midx, min=0.0).to(torch.int32)
     key = (tt.view(torch.int32) & ~NEE_MAT_MASK) | mat_i
     cand = torch.where(valid, key, torch.full_like(key, KEY_EMPTY))
@@ -225,11 +239,15 @@ def _lane_chunk(n_slots: int, device) -> int:
 
 
 def trace_slots(sl: SlotTable, rays, payload: str, state, t_min,
-               K_NEE: int = 0, med_ids=(), additive_eps: bool = False):
+               K_NEE: int = 0, med_ids=(), additive_eps: bool = False, mask=None,
+               in_order: bool = False):
     """Test every slot of ``sl`` against every lane and merge the hits
     into ``state`` (see payload_state0). ``rays`` is (OX, OY, OZ, DX, DY,
     DZ), or for 'dnee' (OX, OY, OZ, DX, DY, DZ, DXB, DYB, DZB).
-    ``additive_eps`` selects K3's acceptance for 'full' (see ``_mt``)."""
+    ``additive_eps`` selects K3's acceptance for 'full' (see ``_mt``);
+    ``mask`` (per lane) restricts which lanes accept 'nee' hits, and
+    ``in_order`` keeps the 'nee' keys of a walk over the slots in order
+    (see ``_nee``)."""
     if payload not in PAYLOADS:
         raise ValueError(f"unknown payload {payload!r}")
     n = rays[0].shape[0]
@@ -244,7 +262,8 @@ def trace_slots(sl: SlotTable, rays, payload: str, state, t_min,
         elif payload in ("dist", "occl"):
             outs.append(_closest(sl, O, DA, st, t_min, full=False))
         elif payload == "nee":
-            outs.append(_nee(sl, O, DA, st, t_min, K_NEE, med_ids))
+            outs.append(_nee(sl, O, DA, st, t_min, K_NEE, med_ids,
+                             None if mask is None else mask[lo:lo + step], in_order))
         else:
             a = _closest(sl, O, DA, st[:2], t_min, full=False)
             b = _nee(sl, O, r[6:9], st[2:], t_min, K_NEE, med_ids)

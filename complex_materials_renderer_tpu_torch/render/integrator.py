@@ -55,6 +55,18 @@ def _boundary_event(direction, normal, medium_ior):
     return refl, transmitted_dir, r, tir
 
 
+def light_setup(position, lights: Lights, active):
+    """(light_value (R, 3), direction, distance, distance on active lanes
+    else 0) of the NEE toward the point light (volpath:337-345)."""
+    to_light = lights.position[None, :] - position
+    light_dist = norm(to_light)
+    inv = 1.0 / torch.clamp(light_dist, min=1e-20)
+    light_value = lights.intensity[None, :] * (inv * inv)[:, None]
+    ldir = to_light * inv[:, None]
+    return light_value, ldir, light_dist, torch.where(active, light_dist,
+                                                      torch.zeros_like(light_dist))
+
+
 def sample_direct_light(position, scene: SceneArrays, accel, lights: Lights, active,
                         max_media: int):
     """Next-event estimation toward the point light through at most
@@ -62,14 +74,8 @@ def sample_direct_light(position, scene: SceneArrays, accel, lights: Lights, act
     (volpath:337-426). Draws no RNG. A medium-less hit occludes; each
     medium segment multiplies Beer-Lambert transmittance and 0.9; a lane
     still mid-march after ``max_media`` pairs is dark."""
-    to_light = lights.position[None, :] - position
-    light_dist = norm(to_light)
-    inv = 1.0 / torch.clamp(light_dist, min=1e-20)
-    light_value = lights.intensity[None, :] * (inv * inv)[:, None]
-    ldir = to_light * inv[:, None]
-
+    light_value, ldir, _, remaining = light_setup(position, lights, active)
     trans = torch.ones_like(position)
-    remaining = torch.where(active, light_dist, torch.zeros_like(light_dist))
     origin = position
 
     def shaded(o, t_max, act):

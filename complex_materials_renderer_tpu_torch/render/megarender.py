@@ -17,7 +17,9 @@ in 32x32 pixel tiles so neighbouring lanes trace neighbouring pixels.
 Per-lane RNG streams are those of the JAX package (same masked PCG draws,
 same counter seeds, same ld dimensions), so the images agree with it up to
 float rounding. Every function here is host control flow and PyTorch
-tensor glue; the only kernel is ``trace_paths_mega``.
+tensor glue; the per-pass kernel is ``trace_paths_mega``, or with
+``trace_engine`` binned or pair the wavefront bounce loop over the binned
+tracer (render/binnedrender.py) or the pair sweep (render/pairrender.py).
 """
 
 from __future__ import annotations
@@ -114,6 +116,34 @@ def _resolve_dynamic(schedule_mode: str, grid) -> str:
     if dynamic not in ("off", "all", "hybrid"):
         raise ValueError(f"schedule mode must be auto|off|all|hybrid, got {schedule_mode!r}")
     return dynamic
+
+
+def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr_depth,
+               nee_max_media, tir, direct, rng_mode, binned_list, binned_cap):
+    """The per-pass bounce kernel of the selected trace engine
+    (megarender.py:166-210): the megakernel, or the wavefront bounce loop
+    over the binned or the pair tracer. Each updates the state in place."""
+    ld = rng_mode == "ld"
+    if trace_engine == "binned":
+        from .binnedrender import make_binned_kern
+
+        return make_binned_kern(grid, scene, lights, media9, max_depth=max_depth,
+                                rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
+                                list_len=binned_list, cap_iters=binned_cap, direct=direct, ld=ld)
+    if trace_engine == "pair":
+        from .pairrender import make_pair_kern
+
+        return make_pair_kern(grid, scene, lights, media9, max_depth=max_depth,
+                              rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
+                              direct=direct, ld=ld)
+    if trace_engine != "mega":
+        raise ValueError(f"trace engine must be mega|binned|pair, got {trace_engine!r}")
+    return partial(
+        trace_paths_mega, grid, media9, misc,
+        background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
+        nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
+        analytic_direct=(direct == "analytic"), ld=ld,
+    )
 
 
 def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
@@ -324,6 +354,9 @@ def render_beauty_mega(
     sortkey: str = "dir",
     debug: str = "",
     direct: str = "scatter",
+    trace_engine: str = "mega",
+    binned_list: int = 8,
+    binned_cap: int = 12,
 ):
     """Render an (H, W, 3) tile of the beauty pass with the megakernel, on
     the device of ``grid`` (the tables and the camera must be there too).
@@ -332,7 +365,9 @@ def render_beauty_mega(
     the mean over this call's samples; ``pixel_offset``/``row_offset`` and
     ``full_resolution`` place the tile in the full frame; ``rng_state`` (u32
     words in int64, row-major) carries the parity stream across sample
-    chunks. ``schedule_mode``: auto | off | hybrid | all.
+    chunks. ``schedule_mode``: auto | off | hybrid | all. ``trace_engine``
+    swaps the per-pass kernel: mega | binned (with ``binned_list`` and
+    ``binned_cap``) | pair.
     """
     if debug:
         raise NotImplementedError(
@@ -353,11 +388,10 @@ def render_beauty_mega(
     misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
     dynamic = _resolve_dynamic(schedule_mode, grid)
     sched = _phase_schedule(step, max_depth, schedule)
-    kern = partial(
-        trace_paths_mega, grid, media9, misc,
-        background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
-        nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
-        analytic_direct=(direct == "analytic"), ld=(rng_mode == "ld"),
+    kern = _make_kern(
+        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
+        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
+        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
     )
     _advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
 

@@ -7,12 +7,14 @@ fan-out, or the threaded BVH), lays it out on the device, and renders the
 AOVs in one pass or the beauty pass in bounded row x sample chunks, with
 an optional checkpoint that resumes to the same image.
 
-Engines: ``mega`` (the megakernel, cluster backend only) and
-``wavefront`` (the bounce-by-bounce loop, both backends); ``auto`` takes
-``mega`` on the cluster backend and ``wavefront`` on the BVH. Backends:
-``cluster`` (= ``auto``) and ``bvh``. The other paths of the JAX package
-raise ``NotImplementedError`` naming their ROADMAP item: adaptive
-sampling, the binned and pair engines, and sharding over several devices.
+Engines: ``mega`` (the megakernel), ``binned`` and ``pair`` (the
+wavefront bounce over the binned tracer or the pair sweep, under the
+megakernel's pass loop), all on the cluster backend only, and ``wavefront`` (the
+bounce-by-bounce loop, both backends); ``auto`` takes ``mega`` on the
+cluster backend and ``wavefront`` on the BVH. Backends: ``cluster`` (=
+``auto``) and ``bvh``. The other paths of the JAX package raise
+``NotImplementedError`` naming their ROADMAP item: adaptive sampling and
+sharding over several devices.
 """
 
 from __future__ import annotations
@@ -163,18 +165,26 @@ class Renderer:
     def _resolve_engine(self) -> str:
         """The bounce-loop engine (renderer.py:616): 'auto' takes the
         megakernel on the cluster backend and the wavefront loop on the
-        BVH, the only engine there."""
+        BVH, the only engine there. The binned and pair engines warn, as
+        the JAX package's do: they are kept, tested alternatives, not the
+        fast path."""
         engine = self.options.engine
         is_cluster = isinstance(self.accel, DeviceClusterGrid)
         if engine == "auto":
             return "mega" if is_cluster else "wavefront"
         if engine in ("mega", "binned", "pair") and not is_cluster:
             raise ValueError(f"--engine {engine} requires --backend cluster")
-        if engine in ("mega", "wavefront"):
+        if engine in ("binned", "pair"):
+            warnings.warn(
+                f"--engine {engine} renders the image of --engine mega through the "
+                "wavefront bounce loop and its own trace kernels; it is an alternative "
+                "kept for study, not the fast path (PERF.md has its speed on the card). "
+                "Use --engine mega (or auto) for production.",
+                stacklevel=2,
+            )
+        if engine in ("mega", "wavefront", "binned", "pair"):
             return engine
-        item = {"binned": "ROADMAP Queue 1, item 13",
-                "pair": "ROADMAP Queue 1, item 14"}.get(engine, "ROADMAP Queue 1")
-        raise _not_ported(f"--engine {engine}", item)
+        raise _not_ported(f"--engine {engine}", "ROADMAP Queue 1")
 
     def render(self, checkpoint_path: Optional[str] = None) -> np.ndarray:
         """Render the configured beauty image as an (H, W, 3) float32 array.
@@ -202,8 +212,13 @@ class Renderer:
                 "Sharding over several devices (pass --shard none to render on one)",
                 "ROADMAP Queue 1, item 12",
             )
-        if self._resolve_engine() == "mega":
+        engine = self._resolve_engine()
+        if engine in ("mega", "binned", "pair"):
             knobs = _mega_env_knobs()
+            knobs["trace_engine"] = engine
+            if engine == "binned":
+                knobs["binned_list"] = int(os.environ.get("CMR_BINNED_LIST", 8))
+                knobs["binned_cap"] = int(os.environ.get("CMR_BINNED_CAP", 12))
             if (knobs["schedule_mode"] == "auto"
                     and opt.width * opt.height * opt.num_samples < (1 << 18)):
                 # Preview-sized jobs take the dynamic mode, as in the JAX

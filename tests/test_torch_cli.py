@@ -3,8 +3,8 @@ flip-budgeted gate of bench.py (non-flip RMSE <= 1e-3, at most 24 pixels
 with |diff| > 1e-2) through the megakernel engine and through the
 wavefront engine on both backends, chunked and checkpointed renders equal
 a monolithic one, ``python -m complex_materials_renderer_tpu_torch``
-writes a readable .hdr, and the paths that are not ported yet refuse to
-run."""
+writes a readable .hdr (also through the binned and pair engines), and the
+paths that are not ported yet refuse to run."""
 
 import dataclasses
 import json
@@ -59,6 +59,18 @@ def test_wavefront_golden_gate(name, spp, backend):
     backend: the port's wavefront engine passes the same gate on both."""
     img, ref = _golden_render(name, spp, engine="wavefront", backend=backend)
     assert img.shape == ref.shape and img.dtype == np.float32
+    nonflip, flips = flip_gate(img, ref)
+    assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
+
+
+@pytest.mark.parametrize("name,spp,engine", [
+    ("isobox", 2, "binned"), ("isobox", 2, "pair"), ("gembox", 2, "binned"),
+    ("gembox", 2, "pair"),
+])
+def test_binned_pair_golden_gate(name, spp, engine):
+    """The binned and pair engines share the wavefront's physics and RNG
+    streams: they pass the same gate."""
+    img, ref = _golden_render(name, spp, engine=engine)
     nonflip, flips = flip_gate(img, ref)
     assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
 
@@ -193,8 +205,8 @@ def test_cli_main_matches_renderer(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw,match", [
     (dict(spp_mode="adaptive", rng="counter"), "item 11"),
     (dict(spp_mode="adaptive", rng="ld", engine="wavefront"), "item 11"),
-    (dict(engine="binned"), "item 13"),
-    (dict(engine="pair"), "item 14"),
+    (dict(spp_mode="adaptive", rng="counter", engine="binned"), "item 11"),
+    (dict(spp_mode="adaptive", rng="ld", engine="pair"), "item 11"),
 ])
 def test_unported_paths_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -231,6 +243,8 @@ def test_engine_auto_resolution():
     ["--engine", "wavefront"],
     ["--aov", "normal", "--backend", "bvh"],
     ["--aov", "topology"],
+    ["--engine", "binned"],
+    ["--engine", "pair"],
 ])
 def test_cli_new_paths_write_hdr(tmp_path, monkeypatch, flags):
     from complex_materials_renderer_tpu_torch.cli import main
@@ -241,3 +255,30 @@ def test_cli_new_paths_write_hdr(tmp_path, monkeypatch, flags):
                  "--device", "cpu", *flags]) == 0
     img = read_hdr(str(tmp_path / "a.hdr"))
     assert img.shape == (16, 24, 3) and np.isfinite(img).all() and img.max() > 0
+
+
+def test_binned_and_pair_engines_resolve_warn_and_read_knobs(monkeypatch):
+    """--engine binned|pair run under the megakernel's pass loop with their trace
+    engine (renderer.py:303-316 of the JAX package), warn that they are not
+    the fast path, and the binned engine reads CMR_BINNED_LIST and
+    CMR_BINNED_CAP."""
+    seen = []
+    real = tmr.render_beauty_mega
+
+    def spy(*a, **k):
+        seen.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tmr, "render_beauty_mega", spy)
+    monkeypatch.setenv("CMR_BINNED_LIST", "3")
+    monkeypatch.setenv("CMR_BINNED_CAP", "5")
+    for engine in ("binned", "pair"):
+        r = _isobox(engine=engine, width=8, height=8, num_samples=1)
+        with pytest.warns(UserWarning, match="not the fast path"):
+            assert r._resolve_engine() == engine
+        with pytest.warns(UserWarning):
+            img = r.render()
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert [k["trace_engine"] for k in seen] == ["binned", "pair"]
+    assert (seen[0]["binned_list"], seen[0]["binned_cap"]) == (3, 5)
+    assert "binned_list" not in seen[1]

@@ -12,7 +12,8 @@ card: rng, depth and alive equal except on at most 1e-3 of the lanes
 1e-4 and rtol 1e-4 elsewhere (the smoke test's gate; on the card the two
 agree to the bit in practice). The closest-hit kernel K3 and its plain
 version: every output equal (both round every operation once, in the
-same order). Renders on the card against the CPU: at most 2 flip pixels,
+same order); so are the listing (K4), the round (K5) and the pair sweep
+(K6) and theirs. Renders on the card against the CPU: at most 2 flip pixels,
 atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
 (the camera rays of the two devices may differ by an ulp)."""
 
@@ -223,3 +224,152 @@ def test_aov_cuda_matches_cpu(cuda, kind):
     sky = np.float32([0.0, 0.0, 0.5])
     np.testing.assert_array_equal(np.all(img_gpu == sky, -1), np.all(img_cpu == sky, -1))
     np.testing.assert_allclose(img_gpu, img_cpu, atol=1e-5, rtol=1e-6)
+
+
+# --- The binned and pair engines' kernels (K4, K5, K6) ---------------------
+
+
+def _soup(device, n=160, seed=0):
+    """Random triangles in [-2.5, 2.5]^3, every third a medium, at cluster
+    width 8 in supers of 4 (20 clusters, 5 supers)."""
+    rs = np.random.default_rng(seed)
+    tris = (rs.uniform(-2.0, 2.0, (n, 1, 3)) + rs.uniform(-0.5, 0.5, (n, 3, 3))).astype(np.float32)
+    mats = (np.arange(n) % 3 == 0).astype(np.int32)
+    media = MediaTable(
+        mat_id=np.array([1], np.int32), sigma_s=np.full((1, 3), 0.3, np.float32),
+        sigma_a=np.full((1, 3), 0.1, np.float32), g=np.zeros((1, 3), np.float32),
+        ior=np.full((1,), 1.33, np.float32),
+    )
+    scene = make_scene_arrays(tris, mats, media, 1.0, 1, device=device)
+    grid = device_cluster_grid(build_clusters(tris, mats, cluster_size=8, super_factor=4), device)
+    return scene, grid
+
+
+def _trace_inputs(device, n, seed, nee=False):
+    """Rays from [-4, 4]^3 aimed at random points of the triangles' region,
+    with per-lane bounds and some parked lanes: (rays (6, n), bound (n,))."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(-4.0, 4.0, (n, 3))
+    d = rs.uniform(-2.5, 2.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bound = rs.uniform(0.5, 8.0, n) if nee else np.full(n, 1e4)
+    bound[::13] = 0.0
+    rays = torch.from_numpy(np.concatenate([o.T, d.T]).astype(np.float32)).to(device)
+    return rays.contiguous(), torch.from_numpy(bound.astype(np.float32)).to(device)
+
+
+def _binned_setup(device, payload, n=8192, L=4, nee_max_media=2, seed=3):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    scene, grid = _soup(device)
+    media9 = mk.pack_media(scene.media, scene.scale, device=device)
+    K = ct.nee_list_len(nee_max_media)
+    rays, bound = _trace_inputs(device, n, seed, nee=payload == "nee")
+    eff = torch.where(bound > 1e-4, bound, torch.zeros_like(bound))
+    if payload in ("full", "dist"):
+        eff = bt.scene_box_clamp(eff, rays[:3].t(), rays[3:].t(), scene.world_lo, scene.world_hi)
+    state = bt.state_bits(ct.payload_state0(payload, eff, K))
+    tlo = torch.where(eff > 1e-4, -1, bt.EMPTY).to(torch.int32)
+    bnd = ct.payload_bound(payload, bt.state_fields(state, payload, K), K).contiguous()
+    keys, _ = bt.listing_plain(grid, rays, bnd, tlo, L)
+    return grid, media9, K, rays, bnd, tlo, keys, state
+
+
+@pytest.mark.parametrize("L", [2, 8, 12])
+def test_listing_matches_plain(cuda, L):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    grid, _, _, rays, bnd, tlo, _, _ = _binned_setup(cuda, "full")
+    for relist in (False, True):
+        if relist:
+            tlo = bt.listing_plain(grid, rays, bnd, tlo, 2)[0][1].contiguous()
+        before = bt.listing.launches
+        keys, tlim = bt.listing(grid, rays, bnd, tlo, L)
+        torch.cuda.synchronize()
+        assert bt.listing.launches == before + 1
+        want_keys, want_tlim = bt.listing_plain(grid, rays, bnd, tlo, L)
+        assert torch.equal(keys, want_keys) and torch.equal(tlim, want_tlim)
+        assert int((keys[0] != bt.EMPTY).sum()) > (1000 if relist else 4000)
+
+
+@pytest.mark.parametrize("payload", ["full", "dist", "occl", "nee"])
+def test_round_matches_plain(cuda, payload):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    grid, media9, K, rays, _, _, keys, state = _binned_setup(cuda, payload)
+    live, keys, rays, state = bt.regroup(keys, rays, state)
+    blocks = -(-int(live) // bt.BLOCK)
+    assert blocks >= 2
+    for lb, cap in ((blocks, 12), (blocks - 1, 2)):
+        lb_t = torch.tensor([lb], dtype=torch.int32, device=cuda)
+        want = bt.round_plain(grid, media9, lb_t, rays, keys, state, payload, K, cap)
+        before = bt.run_round.launches
+        got = bt.run_round(grid, media9, lb_t, rays, keys.clone(), state.clone(), payload, K, cap)
+        torch.cuda.synchronize()
+        assert bt.run_round.launches == before + 1
+        for name, x, y in zip(("keys", "state", "iters"), got, want):
+            assert torch.equal(x, y), (name, lb, cap)
+        assert int(got[2].max()) > 1 and not torch.equal(got[1], state)
+
+
+@pytest.mark.parametrize("payload", ["dist", "occl", "nee"])
+def test_sweep_matches_plain(cuda, payload):
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    # A fresh lane's seed is its bound: its t (closest payloads) or t_opq.
+    grid, media9, K, rays, bnd, _, keys, _ = _binned_setup(cuda, payload)
+    pair_rays, cid, _ = ps.expand_pairs(keys, rays, bnd, chunk_blocks=2)
+    before = ps.sweep.launches
+    got = ps.sweep(grid, media9, pair_rays, cid, payload, K)
+    torch.cuda.synchronize()
+    assert ps.sweep.launches == before + 1
+    assert torch.equal(got, ps.sweep_plain(grid, media9, pair_rays, cid, payload, K))
+
+
+def test_binned_kernels_refuse_bad_inputs(cuda):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    grid, media9, K, rays, bnd, tlo, keys, state = _binned_setup(cuda, "dist", n=2048)
+    with pytest.raises(TypeError, match="expected"):
+        bt.listing(grid, rays, bnd.double(), tlo, 4)
+    with pytest.raises(ValueError, match="expected"):
+        bt.listing(grid, rays, bnd, tlo.cpu(), 4)
+    lb = torch.tensor([2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="whole blocks"):
+        bt.run_round(grid, media9, lb, rays[:, :1000], keys[:, :1000], state[:, :1000], "dist",
+                     K, 4)
+    with pytest.raises(ValueError, match="expected"):
+        bt.run_round(grid, media9, lb.cpu(), rays, keys, state, "dist", K, 4)
+    cid = torch.full((2048,), bt.BIGC, dtype=torch.int32, device=cuda)
+    seeds = torch.cat([rays, bnd[None]]).contiguous()
+    with pytest.raises(TypeError, match="expected"):
+        ps.sweep(grid, media9, seeds, cid.long(), "dist", K)
+
+
+def _gembox_engine(device, engine):
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return _gembox(device, engine=engine).render()
+
+
+@pytest.mark.parametrize("engine", ["binned", "pair"])
+def test_engine_cuda_matches_cpu(cuda, engine):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    before = (bt.listing.launches, bt.run_round.launches, ps.sweep.launches,
+              ctr.trace_core.launches)
+    img_gpu = _gembox_engine("cuda", engine)
+    after = (bt.listing.launches, bt.run_round.launches, ps.sweep.launches,
+             ctr.trace_core.launches)
+    launched = [a > b for a, b in zip(after, before)]
+    assert launched == ([True, True, False, False] if engine == "binned"
+                        else [True, False, True, True])
+    img_cpu = _gembox_engine("cpu", engine)
+    diff = np.abs(img_gpu - img_cpu).max(-1)
+    assert int((diff > 1e-2).sum()) <= 2
+    np.testing.assert_allclose(img_gpu[diff <= 1e-2], img_cpu[diff <= 1e-2], atol=1e-4)

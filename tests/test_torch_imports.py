@@ -44,7 +44,8 @@ left = sorted(m for m in sys.modules if banned(m))
 assert not left, left
 for name in ("render.integrator", "render.aov", "kernels.traverse", "kernels.cluster_trace",
              "kernels.intersect", "accel.bvh", "ops.fresnel", "ops.phase", "ops.diffuse",
-             "ops.medium"):
+             "ops.medium", "kernels.binned_trace", "kernels.pairsweep", "render.binnedrender",
+             "render.pairrender"):
     assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
@@ -56,10 +57,10 @@ def test_port_imports_no_jax():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
-    # Every module of the two slices was imported, the wavefront engine,
-    # the AOVs, the BVH backend and the closest-hit kernel's wrapper among
-    # them.
-    assert int(proc.stdout.split()[-1]) >= 38
+    # Every module of the three slices was imported, the wavefront, binned
+    # and pair engines, the AOVs, the BVH backend and the wrappers of the
+    # closest-hit, listing, round and sweep kernels among them.
+    assert int(proc.stdout.split()[-1]) >= 42
 
 
 def _no_card(monkeypatch):

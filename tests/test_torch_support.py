@@ -13,7 +13,9 @@ seed, go to both.
   of flip pixels);
 - ``scene_accels``, ``port_camera``, ``port_lights``, ``check_image``:
   one scene on either backend for both packages, and the per-pixel image
-  check of the wavefront tests.
+  check of the wavefront tests;
+- ``assert_trace_close``: the per-field check of two trace results (the
+  binned and pair tracers against the JAX package's).
 """
 
 from __future__ import annotations
@@ -209,6 +211,33 @@ def scene_accels(tris, mats, media, backend, scale=1.0):
         return jscene, jbvh, tscene, traverse.device_bvh_from_jax(jbvh)
     jgrid = jax_device_grid(jax_build_clusters(tris, mats, cluster_size=8), interpret=True)
     return jscene, jgrid, tscene, tcg.from_jax_arrays(jgrid)
+
+
+ATOL = RTOL = 1e-6
+UV_ATOL = 5e-6
+NEE_RTOL = 2e-5
+_FULL = ("t", "slot", "u", "v", "nx", "ny", "nz", "mat", "px", "py", "pz")
+
+
+def assert_trace_close(payload, K, got, want):
+    """Per-field comparison of two trace results of one payload, as
+    ``trace_binned`` returns them: 'full' (11 fields), 'dist' (t, slot),
+    'occl' (t), 'nee' (K boundaries, K media rows, t_opq). Slots,
+    materials and media rows equal; t and the normal within atol 1e-6 +
+    rtol 1e-6, u, v and the position within atol 5e-6 (XLA's CPU backend
+    contracts products and sums into FMAs); NEE boundaries within rtol
+    2e-5 (a key keeps t rounded down to 64 ulps, so an ulp of t can move
+    it by one such step: up to 1.5e-5 of t)."""
+    names = _FULL[:len(got)] if payload != "nee" else \
+        ["ts"] * K + ["ms"] * K + ["t_opq"]
+    for name, a, b in zip(names, got, want):
+        if name in ("slot", "mat", "ms"):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        elif name == "ts":
+            np.testing.assert_allclose(a, b, rtol=NEE_RTOL, atol=0, err_msg=name)
+        else:
+            atol = UV_ATOL if name in ("u", "v", "px", "py", "pz") else ATOL
+            np.testing.assert_allclose(a, b, atol=atol, rtol=RTOL, err_msg=name)
 
 
 def port_lights():
