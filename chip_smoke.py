@@ -17,7 +17,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    opaque/media partitioned grid, and ``--nee-bound 10``. rng, depth and
    alive must be equal on all lanes but the flip lanes (those whose depth
    or alive differ), at most 1e-3 of the lanes; rad, thr, org and dir
-   within atol 1e-4 and rtol 1e-4 on the other lanes;
+   within atol 1e-4 and rtol 1e-4 on the other lanes. Then at every group
+   size G (threads per lane: 1, 2, 4, 8, 16, 32) on the widest launch
+   (65,536 fresh lanes, one bounce) and on the tail of one sample step
+   (1,024 lanes of a mid-path state run to termination), bit-equal;
 3. holds the closest-hit kernel (K3) against its plain version on the
    card: 65,536 showcase primary rays and 65,536 bounce-like rays (random
    directions from the primary hits, a third of the lanes parked, a
@@ -27,7 +30,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    operation once, in the same order). Against the BVH walk of the same
    rays on the quads-off grid (a merged quad slot reports one of its two
    triangles), prim must be equal on all but 1e-3 of the lanes (K3's
-   additive far-edge epsilon admits hits up to 2e-6 past an edge);
+   additive far-edge epsilon admits hits up to 2e-6 past an edge). At
+   every G, on the primary and bounce-like rays, every output equal;
 3b. holds the binned and pair engines' kernels against their plain
    versions on the card, on 65,536-lane ray sets of showcase (primary
    rays; bounce-like rays; shadow rays from their hits): the listing K4
@@ -41,7 +45,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one ('dist' equal; 'nee' t_opq and the boundaries below it equal);
 4. drives the main path: a default (megakernel) render of
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
-   through ``Renderer``, timed after one warm-up, with K1's launch count;
+   through ``Renderer``, timed after one warm-up, with K1's launch count
+   and the G of its launches by width;
    then the 64x64 at 32 spp render against tests/golden/showcase_gate.npz
    under the flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels
    with |diff| > 1e-2);
@@ -68,13 +73,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    its own bound), and counts their real slots and boxes at the f32
    operations of the CUDA tests; K4 counts the listing's box tests, K5
    the slot tests of the lanes holding each served cluster, K6 those of
-   each valid pair's own cluster;
+   each valid pair's own cluster. Then K1 launch by launch over one
+   parity sample step of the main path (width, cap, G, lanes alive,
+   lane-bounces, ms, bound) and K3 at 65,536 primary rays and 16,384,
+   4,096 and 1,024 live bounce-like rays, each at the wrappers' G; then at
+   every G the widest K3 launch and the narrowest, and K1's first, second
+   (both 65,536 lanes) and tail launches;
 7. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
-after the kernel comparisons (phases 2-3b) and exits 4; ``--profile``
-adds a torch.profiler breakdown of one pass of each engine.
+after the kernel comparisons (phases 2-3b) and exits 4; ``--tables``
+builds, prints only the K1 and K3 launch tables of phase 6 and the timed
+main-path render of phase 4, and exits 4;
+``--profile`` adds a torch.profiler breakdown of one pass of each engine.
 """
 
 from __future__ import annotations
@@ -128,6 +140,7 @@ ATOL = 1e-4
 RTOL = 1e-4
 K3_ATOL = 1e-6
 WAVEFRONT_FLIP_FRAC = 24 / 4096  # the golden gate's flip budget, per pixel
+GROUPS = (1, 2, 4, 8, 16, 32)  # threads per ray that K1 and K3 are built for
 # Device sleep queued ahead of each timed launch: about 10 ms at the H100's
 # clock, far longer than a wrapper's host work.
 SLEEP_CYCLES = 20_000_000
@@ -279,20 +292,28 @@ def compare_states(name, a, b):
     return n_flip, worst
 
 
-def kernel_vs_plain(r, r_part, quick):
-    """K1 against its plain version on the card."""
-    import torch
-
-    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
-    from complex_materials_renderer_tpu_torch.kernels.megakernel import (
-        pack_media, pack_misc, trace_paths_mega, trace_paths_mega_plain,
-    )
+def mega_inputs(r):
+    """(media9, misc, the main path's K1 arguments) of renderer ``r``."""
+    from complex_materials_renderer_tpu_torch.kernels.megakernel import pack_media, pack_misc
 
     opt = r.options
     media9 = pack_media(r.scene_arrays.media, r.scene_arrays.scale, device=r.device)
     misc = pack_misc(r.lights, r.scene_arrays.world_lo, r.scene_arrays.world_hi, device=r.device)
     base = dict(background=opt.background, max_depth=opt.max_depth, rr_depth=opt.rr_depth,
                 nee_max_media=opt.nee_max_media)
+    return media9, misc, base
+
+
+def kernel_vs_plain(r, r_part, quick):
+    """K1 against its plain version on the card."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.kernels.megakernel import (
+        trace_paths_mega, trace_paths_mega_plain,
+    )
+
+    media9, misc, base = mega_inputs(r)
     cases = [
         ("parity, max_iters=max_depth", r.accel, "parity", dict()),
         ("counter, max_iters=1, live_blocks=5/8 of the blocks", r.accel, "counter",
@@ -324,6 +345,35 @@ def kernel_vs_plain(r, r_part, quick):
     return worst, media9, misc, base
 
 
+def k1_groups_vs_plain(r, media9, misc, base, tail):
+    """K1 against its plain version at every group size, on the main path's
+    widest launch (65,536 fresh lanes, one bounce) and on its tail (the
+    last launch of one sample step: 1,024 lanes of a mid-path state run to
+    termination). The two must agree to the bit: no flip lane, no rng
+    mismatch, float error 0."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    tail_st, tail_kw = tail
+    fresh = band_state(r, "parity")
+    for label, st, kw in (
+        (f"{fresh.org.shape[0]} fresh lanes, max_iters=1", fresh, dict(base, max_iters=1)),
+        (f"tail, {tail_st.org.shape[0]} lanes ({int(tail_st.alive.sum())} alive), "
+         f"max_iters={tail_kw['max_iters']}", tail_st, dict(base, **tail_kw)),
+    ):
+        want = clone_state(st)
+        mk.trace_paths_mega_plain(r.accel, media9, misc, want, **kw)
+        for g in GROUPS:
+            got = clone_state(st)
+            with uncounted(), forced_group(g):
+                mk.trace_paths_mega(r.accel, media9, misc, got, **kw)
+            torch.cuda.synchronize()
+            n_flip, err = compare_states(f"G={g}, {label}", got, want)
+            if n_flip or err != 0.0:
+                fail(f"K1 at G={g} is not bit-equal to its plain version ({label})")
+
+
 def main_path(r_opts):
     """Phase 4: the showcase render at 512x512, 16 spp."""
     import torch
@@ -342,13 +392,15 @@ def main_path(r_opts):
     warm = time.perf_counter() - t0
     reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = r.render()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with recorded_groups(mk) as groups:
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = mk.trace_paths_mega.launches
     paths = opt.width * opt.height * opt.num_samples
     mean = float(np.mean(img))
+    print(f"   K1 launches by width and threads per lane: {groups.line()}", flush=True)
     print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity: warm-up {warm:.3f} s, "
           f"timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K1 launches {launches}; "
           f"image mean {mean:.6f}", flush=True)
@@ -421,14 +473,15 @@ def boxes_met(g, rays, tmax, bound, chunk=8192):
 
 
 def needed_work(r, media9, misc, state, kw):
-    """(slab tests, slot-test operations) that the kernel call on ``state``
-    needs, from a plain pass over the same state: it runs the plain version
-    once, records each ray set that the bounce traces (rays, own bound,
-    final result) and counts, for each lane that needs the set, the boxes
-    and the real (not padding) slots of the clusters whose box the ray
-    meets before its final bound: the closest hit, or the set's own bound
-    when nothing is hit. A walk that knew that bound in advance would test
-    exactly these; the kernel tests at least these."""
+    """(slab tests, slot-test operations, lane-bounces) that the kernel call
+    on ``state`` needs, from a plain pass over the same state: it runs the
+    plain version once, records each ray set that the bounce traces (rays,
+    own bound, final result) and counts, for each lane that needs the set,
+    the boxes and the real (not padding) slots of the clusters whose box
+    the ray meets before its final bound: the closest hit, or the set's own
+    bound when nothing is hit. A walk that knew that bound in advance would
+    test exactly these; the kernel tests at least these. Lane-bounces are
+    the lanes of every bounce iteration the call runs."""
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
@@ -456,10 +509,12 @@ def needed_work(r, media9, misc, state, kw):
         return boxes_met(g, rays, tmax, bound)
 
     slabs = slots_ops = 0.0
+    lane_bounces = 0
     i = 0
     while i < len(records):
         payload, rays, tmax, bound = records[i]
         if payload == "full":
+            lane_bounces += rays[0].numel()
             need, sup, clus = met(rays, tmax, bound)
             slabs += float(need.sum()) * S + float((sup.double() @ per_super).sum())
             slots_ops += (ORIGIN_OPS + RAY_OPS) * float((clus.double() @ real).sum())
@@ -473,7 +528,40 @@ def needed_work(r, media9, misc, state, kw):
         slots_ops += ORIGIN_OPS * float(((clus_a | clus_b).double() @ real).sum())
         slots_ops += RAY_OPS * float(((clus_a.double() + clus_b.double()) @ real).sum())
         i += 2
-    return slabs, slots_ops
+    return slabs, slots_ops, lane_bounces
+
+
+def k1_bound(r, media9, misc, st, kw):
+    """(box tests, slot-test operations, lane-bounces, bytes, bytes ms,
+    operations ms, bound ms, bound by) of the K1 call ``kw`` on state
+    ``st`` (``needed_work`` on a copy)."""
+    g = r.accel
+    slabs, slots_ops, lane_bounces = needed_work(r, media9, misc, clone_state(st), kw)
+    ops = slabs * SLAB_OPS + slots_ops
+    lanes = st.org.shape[0]
+    grid_bytes = sum(t.numel() * t.element_size() for t in (g.bounds, g.super_bounds, g.run_rows))
+    nbytes = 2 * lanes * STATE_BYTES + grid_bytes + (media9.numel() + misc.numel()) * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return slabs, slots_ops, lane_bounces, nbytes, t_bytes, t_ops, bound_ms, bound_by
+
+
+def timed_states(fn, st, reps):
+    """Mean device ms of ``fn`` on ``reps`` fresh copies of state ``st``."""
+    copies = [clone_state(st) for _ in range(reps)]
+    return cuda_time(lambda i: fn(copies[i]), reps)
+
+
+def time_k1(r, media9, misc, st, kw, reps):
+    """Device ms of one K1 call ``kw`` on state ``st``, after a warm-up."""
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    def kern(s):
+        return mk.trace_paths_mega(r.accel, media9, misc, s, **kw)
+
+    timed_states(kern, st, 2)
+    return timed_states(kern, st, reps)
 
 
 def time_kernel(r, media9, misc, base):
@@ -487,26 +575,14 @@ def time_kernel(r, media9, misc, base):
     st = band_state(r, "parity")
     kw = dict(base, max_iters=1)
     g = r.accel
-    slabs, slots_ops = needed_work(r, media9, misc, clone_state(st), kw)
+    slabs, slots_ops, _, nbytes, t_bytes, t_ops, bound_ms, bound_by = k1_bound(
+        r, media9, misc, st, kw)
     ops = slabs * SLAB_OPS + slots_ops
     lanes = st.org.shape[0]
-    grid_bytes = sum(t.numel() * t.element_size() for t in (g.bounds, g.super_bounds, g.run_rows))
-    nbytes = 2 * lanes * STATE_BYTES + grid_bytes + (media9.numel() + misc.numel()) * 4
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
-    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def timed(fn, reps):
-        copies = [clone_state(st) for _ in range(reps)]
-        return cuda_time(lambda i: fn(copies[i]), reps)
-
-    before = mk.trace_paths_mega.launches
-    kern = lambda s: mk.trace_paths_mega(g, media9, misc, s, **kw)  # noqa: E731
-    plain = lambda s: mk.trace_paths_mega_plain(g, media9, misc, s, **kw)  # noqa: E731
-    timed(kern, 3)  # warm-up
-    ms = timed(kern, 20)
-    plain_ms = timed(plain, 3)
-    mk.trace_paths_mega.launches = before
+    with uncounted():
+        ms = time_k1(r, media9, misc, st, kw, 20)
+        plain_ms = timed_states(
+            lambda s: mk.trace_paths_mega_plain(g, media9, misc, s, **kw), st, 3)
     print(f"   K1 at {lanes} fresh lanes, one bounce: {ms:.4f} ms per launch; plain "
           f"{plain_ms:.3f} ms; needed work: {slabs:.0f} box tests, {slots_ops:.6e} slot-test "
           f"operations, {ops:.6e} f32 operations in all = {t_ops:.5f} ms at "
@@ -584,6 +660,22 @@ def k3_vs_plain(r, r_quads_off, r_part):
                       f"lanes", flush=True)
                 if bad > FLIP_FRAC * n:
                     fail(f"K3 and the BVH walk differ on {bad} lanes ({rname})")
+    for rname, (oo, dd, tm, act) in (("primary", (o, d, 1e4, ones)),
+                                      ("bounce-like", (ob, db, tb, ab))):
+        eff = torch.where(act, torch.broadcast_to(torch.as_tensor(tm, device=o.device), (n,)),
+                          torch.zeros((n,), device=o.device))
+        want = ctr.trace_core_plain(oo, dd, r.accel, eff)
+        bad = []
+        for g in GROUPS:
+            with forced_group(g):
+                got = ctr.trace_core(oo, dd, r.accel, 1e-4, tm, act)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y.to(x.dtype)) for x, y in zip(got, want)):
+                bad.append(g)
+        print(f"   K3 default grid, {rname} rays, at G = {', '.join(map(str, GROUPS))}: every "
+              f"output equal to the plain version except at G = {bad or 'none'}", flush=True)
+        if bad:
+            fail(f"K3 differs from its plain version at G = {bad} ({rname})")
     ctr.trace_core.launches = saved  # comparison launches do not count
     return worst
 
@@ -605,11 +697,16 @@ def wavefront_path(main_opts, mega_img):
     warm = time.perf_counter() - t0
     reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = r.render()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with recorded_groups(ctr) as groups:
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = ctr.trace_core.launches
+    print(f"   K3 launches of the wavefront render by threads per ray: "
+          f"{len(groups.seen)} widths; " + ", ".join(
+              f"G={g} x{sum(n for (_, gg), n in groups.seen.items() if gg == g)}"
+              for g in sorted({g for _, g in groups.seen})), flush=True)
     paths = opt.width * opt.height * opt.num_samples
     nonflip, flips = flip_gate(img, mega_img)
     budget = WAVEFRONT_FLIP_FRAC * opt.width * opt.height
@@ -727,6 +824,195 @@ def time_k3(r):
           f"bytes = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}), kernel at "
           f"{bound_ms / ms:.4f} of it", flush=True)
     return ms, plain_ms, bound_ms, bound_by
+
+
+# --------------------------------------------------------------------------
+# K1 and K3 launch by launch, and at every group size
+# --------------------------------------------------------------------------
+
+
+def group_rule():
+    """The wrappers' choice of threads per ray from the launch width, or
+    None for kernels that serve one ray per thread (those before the group
+    walk: the tables below also run on them, for comparison)."""
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    return getattr(mk, "group_size", None)
+
+
+class forced_group:
+    """K1 and K3 launch with ``g`` threads per ray, whatever their width."""
+
+    def __init__(self, g):
+        self.g = g
+
+    def __enter__(self):
+        from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+        from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+        self.saved = (mk.group_size, ctr.group_size)
+        mk.group_size = ctr.group_size = lambda lanes: self.g
+
+    def __exit__(self, *exc):
+        from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+        from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+        mk.group_size, ctr.group_size = self.saved
+        return False
+
+
+class recorded_groups:
+    """Records (lanes, group size) of every launch of ``module``'s kernel
+    (kernels.megakernel: K1, kernels.cluster_trace: K3) made inside it."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        self.rule, self.seen = getattr(self.module, "group_size", None), {}
+        if self.rule is None:  # one thread per ray
+            return self
+
+        def rule(lanes):
+            g = self.rule(lanes)
+            self.seen[(lanes, g)] = self.seen.get((lanes, g), 0) + 1
+            return g
+
+        self.module.group_size = rule
+        return self
+
+    def __exit__(self, *exc):
+        if self.rule is not None:
+            self.module.group_size = self.rule
+        return False
+
+    def line(self) -> str:
+        return ", ".join(f"{lanes} lanes G={g} x{n}" for (lanes, g), n in
+                         sorted(self.seen.items(), reverse=True)) or "one thread per lane"
+
+
+def k1_step_calls(r, media9, misc, base):
+    """(input state, call arguments) of every K1 launch of one parity
+    sample step of the main path over the 65,536-lane band, recorded
+    through the renderer's own phase schedule (render/megarender.py)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.render.megarender import (
+        _make_advance, _phase_schedule, _resolve_dynamic,
+    )
+
+    opt = r.options
+    st = band_state(r, "parity")
+    n = st.org.shape[0]
+    dynamic = _resolve_dynamic("auto", r.accel)
+    if dynamic != "off":
+        fail(f"the main path's schedule mode on showcase is {dynamic!r}, expected 'off'")
+    calls = []
+
+    def kern(state, **kw):
+        calls.append((clone_state(state), kw))
+        mk.trace_paths_mega(r.accel, media9, misc, state, **base, **kw)
+
+    lane = torch.arange(n, device=st.org.device)
+    with uncounted():
+        _make_advance(kern, dynamic, _phase_schedule(n, opt.max_depth), r.scene_arrays, "dir",
+                      opt.max_depth)(st, lane, n)
+    torch.cuda.synchronize()
+    return calls
+
+
+def k1_step_table(r, media9, misc, base, reps=10):
+    """K1 launch by launch over one sample step of the main path: width and
+    cap, lanes alive at the start, lane-bounces, device ms and the bound of
+    each launch; then the first, the second and the tail launch at every
+    group size.
+    Returns (step ms, step bound ms, the tail's input and arguments)."""
+    rule = group_rule()
+    calls = k1_step_calls(r, media9, misc, base)
+    print("   K1 launches of one parity sample step (showcase 512x512, the 65,536-lane band):",
+          flush=True)
+    print("     #  width  cap  G   alive  lane-bounces        ms   bound ms  bound by   "
+          "share of bound", flush=True)
+    tot_ms = tot_bound = 0.0
+    with uncounted():
+        for i, (st, kw) in enumerate(calls):
+            lanes = st.org.shape[0]
+            call_kw = dict(base, **kw)
+            _, _, lane_bounces, _, _, _, b_ms, b_by = k1_bound(r, media9, misc, st, call_kw)
+            ms = time_k1(r, media9, misc, st, call_kw, reps)
+            tot_ms += ms
+            tot_bound += b_ms
+            g = rule(lanes) if rule else 1
+            print(f"    {i:2d} {lanes:6d} {kw['max_iters']:4d} {g:2d} {int(st.alive.sum()):7d} "
+                  f"{lane_bounces:13d} {ms:9.4f} {b_ms:10.5f} {b_by:>10s} {b_ms / ms:9.4f}",
+                  flush=True)
+        print(f"   K1 over the step: {len(calls)} launches, {tot_ms:.4f} ms, bound {tot_bound:.5f} "
+              f"ms; x16 samples x4 bands = {tot_ms * 64 / 1e3:.4f} s of K1 per 512x512@16 "
+              f"render", flush=True)
+        if rule:
+            for label, (st, kw) in (("widest", calls[0]), ("second", calls[1]),
+                                    ("tail", calls[-1])):
+                call_kw = dict(base, **kw)
+                times = []
+                for g in GROUPS:
+                    with forced_group(g):
+                        times.append(time_k1(r, media9, misc, st, call_kw, reps))
+                print(f"   K1 {label} launch ({st.org.shape[0]} lanes, cap {kw['max_iters']}) by "
+                      f"threads per ray: " + ", ".join(
+                          f"G={g} {t:.4f} ms" for g, t in zip(GROUPS, times))
+                      + f"; the rule picks G={rule(st.org.shape[0])}", flush=True)
+    return tot_ms, tot_bound, calls[-1]
+
+
+def k3_width_table(r, reps=20):
+    """K3 at the widest launch (65,536 primary rays) and at compacted
+    widths (16,384, 4,096 and 1,024 live bounce-like rays): device ms and
+    bound; then the widest and the narrowest at every group size."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
+
+    g = r.accel
+    rule = group_rule()
+    o, d = primary_rays(r)
+    with uncounted():
+        ob, db, tb, ab = bounce_rays(r, o, d)
+    act = ab.nonzero().squeeze(1)
+    sets = [("primary", o, d, torch.full((o.shape[0],), 1e4, device=o.device))]
+    for n in (16384, 4096, 1024):
+        sel = act[:n]
+        sets.append(("bounce-like", ob[sel].contiguous(), db[sel].contiguous(),
+                     tb[sel].contiguous()))
+    grid_bytes = sum(t.numel() * t.element_size() for t in (g.bounds, g.super_bounds, g.run_rows))
+
+    def timed(oo, dd, tm):
+        cuda_time(lambda _i: ctr.trace_core(oo, dd, g, 1e-4, tm), 3)
+        return cuda_time(lambda _i: ctr.trace_core(oo, dd, g, 1e-4, tm), reps)
+
+    print("   K3 by width (showcase):", flush=True)
+    print("     rays          width  G        ms   bound ms  bound by   share of bound",
+          flush=True)
+    with uncounted():
+        for name, oo, dd, tm in sets:
+            n = oo.shape[0]
+            t_hit = ctr.trace_core(oo, dd, g, 1e-4, tm)[0]
+            slabs, slot_ops = k3_needed_work(g, oo, dd, t_hit)
+            t_ops = (slabs * SLAB_OPS + slot_ops) / PEAK_F32_OPS * 1e3
+            t_bytes = (n * K3_RAY_BYTES + grid_bytes) / PEAK_BYTES * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            ms = timed(oo, dd, tm)
+            print(f"     {name:12s} {n:6d} {rule(n) if rule else 1:2d} {ms:9.4f} {b_ms:10.5f} "
+                  f"{b_by:>10s} {b_ms / ms:9.4f}", flush=True)
+        if rule:
+            for name, oo, dd, tm in (sets[0], sets[-1]):
+                times = []
+                for gs in GROUPS:
+                    with forced_group(gs):
+                        times.append(timed(oo, dd, tm))
+                print(f"   K3 {name} rays, {oo.shape[0]} lanes, by threads per ray: " + ", ".join(
+                    f"G={gs} {t:.4f} ms" for gs, t in zip(GROUPS, times))
+                    + f"; the rule picks G={rule(oo.shape[0])}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1098,6 +1384,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="stop after the first kernel comparisons")
     ap.add_argument("--profile", action="store_true", help="add torch.profiler breakdowns")
+    ap.add_argument("--tables", action="store_true",
+                    help="only build, print the K1 and K3 launch tables and time the main path")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -1136,8 +1424,17 @@ def main() -> int:
 
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
-    phase("megakernel (K1) against plain (showcase, 65,536 lanes)")
     main_opts = showcase_options(512, 512, 16)
+    if args.tables:
+        phase("K1 and K3 launch tables")
+        r = Renderer(*main_opts)
+        k1_step_table(r, *mega_inputs(r))
+        k3_width_table(r)
+        main_path(main_opts)
+        print("chip_smoke: --tables stops here", flush=True)
+        return 4  # nonzero: no result line is printed
+
+    phase("megakernel (K1) against plain (showcase, 65,536 lanes)")
     r = Renderer(*main_opts)
     scene, opt = main_opts
     r_part = Renderer(scene, dataclasses.replace(opt, partition="media"))
@@ -1147,6 +1444,7 @@ def main() -> int:
     if not bool((r.accel.qa != 0.5).any()) or bool((r_quads_off.accel.qa != 0.5).any()):
         fail("the default grid should hold quad slots and the quads-off grid none")
     worst, media9, misc, base = kernel_vs_plain(r, r_part, args.quick)
+    k1_groups_vs_plain(r, media9, misc, base, k1_step_calls(r, media9, misc, base)[-1])
 
     phase("closest-hit kernel (K3) against plain and the BVH walk (showcase, 65,536 lanes)")
     worst_k3 = k3_vs_plain(r, r_quads_off, r_part)
@@ -1182,6 +1480,8 @@ def main() -> int:
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)
     ms_k3, plain_ms_k3, bound_ms_k3, bound_by_k3 = time_k3(r)
+    k1_step_table(r, media9, misc, base)
+    k3_width_table(r)
     k456 = time_k456(r, media9, sets)
     if args.profile:
         phase("profile")

@@ -1,29 +1,57 @@
 // Triangle tester over one cluster's run-major rows (K2), as __device__
-// code for one lane. Replaces the Pallas tester
+// code. Replaces the Pallas tester
 // complex_materials_renderer_tpu/kernels/cluster_test.py make_cluster_tester
 // (:119), which is inlined in the TPU megakernel; here it is inlined in
-// csrc/megakernel.cu. Moller-Trumbore in the same operation order as the
-// JAX tester (build with --fmad=false so no product is fused into an FMA),
-// quad slots through the far-corner coefficients qa/qb with the scaled
-// edge epsilon, and the payloads:
+// csrc/megakernel.cu (K1), csrc/cluster_trace.cu (K3), binned_round.cu (K5)
+// and pair_sweep.cu (K6). Moller-Trumbore in the same operation order as
+// the JAX tester (build with --fmad=false so no product is fused into an
+// FMA), quad slots through the far-corner coefficients qa/qb with the
+// scaled edge epsilon (K3: the additive one, ``inside_k3``), and the
+// payloads:
 //   FullState  'full': closest hit with the shading payload
 //   DistState  'dist': (t, slot)
 //   OcclState  'occl': t only
 //   NeeState<K> 'nee': the K nearest media boundaries as packed int32 keys
 //                       [t-bits & ~63 | media row] plus the opaque t_opq
 //   DneeState<K> 'dnee': dist along ray set A and nee along set B from one
-//                       origin, sharing s, q and the t numerator
+//                       origin, sharing s, q and the t numerator (K1's
+//                       fused walk, ``group_cluster_dnee``)
 // The K keys live in registers: every loop over them is unrolled with
 // compile-time indices (a dynamically indexed per-thread array would go
 // to local memory). The 'nee' tester takes a per-lane accept flag (the
 // JAX tester's ``mask``, cluster_test.py:161-168, :307-308): the binned
 // round and the pair sweep test one cluster against lanes that may have
 // met it before, and the K-list insert is not idempotent.
+//
+// Two forms of the walk over one cluster:
+// - ``test_cluster``: one thread serves one ray and tests the slots in
+//   order (K5, K6);
+// - ``group_cluster_full`` / ``group_cluster_dnee``: a tile of G threads
+//   (cooperative_groups::thread_block_tile<G>, G in 1..32) serves one ray
+//   (K1, K3). Thread k tests slots k, k+G, ... of each run, so the tile's
+//   loads of a row are neighbouring addresses and a narrow launch still has
+//   G threads per ray to fill the card. Each slot's arithmetic is the one
+//   above. After every cluster the tile reduces to exactly the state the
+//   one-thread walk holds after that cluster, so every later box decision
+//   is the serial one and the results stay bit-equal to the plain versions:
+//     'full'/'dist': the lexicographic minimum of (t, slot) over the
+//       accepted slots (the serial strict t < t_best keeps the lowest slot
+//       on ties); the winner's payload comes from the thread that owns it;
+//     'nee' (set B of 'dnee'): a media key is valid only below t_opq as it
+//       stood before its slot, the exclusive running minimum of the opaque
+//       hits in slot order (the carried t_opq and a tile scan per round of
+//       G slots); the valid keys are inserted in slot order on every thread
+//       of the tile (a ballot, then one shuffle per key), the serial
+//       insertion sequence, so the K-list and t_opq equal the serial ones.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 namespace cmr {
+
+namespace cg = cooperative_groups;
 
 constexpr int NEE_MAT_MASK = 63;
 constexpr int KEY_EMPTY = 2147483647;
@@ -88,6 +116,20 @@ __device__ __forceinline__ bool inside(const Slot& s, float uu, float vv) {
          (uu * qb1 + vv * s.qa <= s.qa * one_eps);
 }
 
+// K3's acceptance (pallas_trace.py:301-308 of the JAX package): an additive
+// epsilon on the far edges, where K2 scales it (``inside``); on a triangle
+// slot (qa = qb = 0.5) K3 admits u+v <= 1 + 2e-6 and K2 u+v <= 1 + 1e-6.
+__device__ __forceinline__ bool inside_k3(const Slot& s, float uu, float vv) {
+  return (uu >= -TRI_EPS) && (vv >= -TRI_EPS) &&
+         (uu * s.qb + vv * (1.0f - s.qa) <= s.qb + TRI_EPS) &&
+         (uu * (1.0f - s.qb) + vv * s.qa <= s.qa + TRI_EPS);
+}
+
+template <bool ADDITIVE>
+__device__ __forceinline__ bool accept_slot(const Slot& s, float uu, float vv) {
+  return ADDITIVE ? inside_k3(s, uu, vv) : inside(s, uu, vv);
+}
+
 // The origin-only half of Moller-Trumbore: s = O - v0, q = s x e1 and
 // the t numerator e2 . q (shared by both ray sets of 'dnee').
 struct Origin {
@@ -129,21 +171,25 @@ __device__ __forceinline__ int media_index(float mat, const float* media, int M)
   return -1;
 }
 
+// The shading payload of an accepted slot.
+__device__ __forceinline__ void set_full(FullState& st, const Slot& s, float uu, float vv,
+                                         float tt, float slot) {
+  st.t = tt;
+  st.slot = slot;
+  st.u = uu;
+  st.v = vv;
+  st.nx = s.e1y * s.e2z - s.e1z * s.e2y;
+  st.ny = s.e1z * s.e2x - s.e1x * s.e2z;
+  st.nz = s.e1x * s.e2y - s.e1y * s.e2x;
+  st.mat = s.mat;
+  st.px = s.ax + uu * s.e1x + vv * s.e2x;
+  st.py = s.ay + uu * s.e1y + vv * s.e2y;
+  st.pz = s.az + uu * s.e1z + vv * s.e2z;
+}
+
 __device__ __forceinline__ void update_full(FullState& st, const Slot& s, float uu, float vv,
                                             float tt, float slot) {
-  if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) {
-    st.t = tt;
-    st.slot = slot;
-    st.u = uu;
-    st.v = vv;
-    st.nx = s.e1y * s.e2z - s.e1z * s.e2y;
-    st.ny = s.e1z * s.e2x - s.e1x * s.e2z;
-    st.nz = s.e1x * s.e2y - s.e1y * s.e2x;
-    st.mat = s.mat;
-    st.px = s.ax + uu * s.e1x + vv * s.e2x;
-    st.py = s.ay + uu * s.e1y + vv * s.e2y;
-    st.pz = s.az + uu * s.e1z + vv * s.e2z;
-  }
+  if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) set_full(st, s, uu, vv, tt, slot);
 }
 
 __device__ __forceinline__ void update_dist(DistState& st, const Slot& s, float uu, float vv,
@@ -159,6 +205,23 @@ __device__ __forceinline__ void update_occl(OcclState& st, const Slot& s, float 
   if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) st.t = tt;
 }
 
+// The packed key of a media boundary at tt of media row midx.
+__device__ __forceinline__ int nee_key(float tt, int midx) {
+  return (__float_as_int(tt) & ~NEE_MAT_MASK) | (midx > 0 ? midx : 0);
+}
+
+// 2-op sorted insertion; a candidate beyond the K-th key (or KEY_EMPTY)
+// falls off.
+template <int K>
+__device__ __forceinline__ void insert_key(NeeState<K>& st, int cand) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int k = st.key[i];
+    st.key[i] = min(cand, k);
+    cand = max(cand, k);
+  }
+}
+
 template <int K>
 __device__ __forceinline__ void update_nee(NeeState<K>& st, const Slot& s, float uu, float vv,
                                            float tt, int midx, bool accept = true) {
@@ -166,15 +229,7 @@ __device__ __forceinline__ void update_nee(NeeState<K>& st, const Slot& s, float
   const bool valid_geom = inside(s, uu, vv) && tt > T_MIN && accept;
   if (valid_geom && !med && tt < st.t_opq) st.t_opq = tt;
   const bool valid = valid_geom && med && tt < st.t_opq;
-  const int mat_i = midx > 0 ? midx : 0;
-  int cand = valid ? ((__float_as_int(tt) & ~NEE_MAT_MASK) | mat_i) : KEY_EMPTY;
-  // 2-op sorted insertion; a candidate beyond the K-th key falls off.
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int k = st.key[i];
-    st.key[i] = min(cand, k);
-    cand = max(cand, k);
-  }
+  insert_key<K>(st, valid ? nee_key(tt, midx) : KEY_EMPTY);
 }
 
 // One cluster c against one lane, slots in order.
@@ -248,27 +303,6 @@ __device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows,
   }
 }
 
-template <int K>
-__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
-                                            int subs, int run, int c, float ox, float oy,
-                                            float oz, float dxa, float dya, float dza,
-                                            float dxb, float dyb, float dzb,
-                                            const float* media, int M, DneeState<K>& st) {
-  for (int rr = 0; rr < subs; ++rr) {
-    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
-    const int r_off = (c * subs + rr) * run;
-    for (int j = 0; j < run; ++j) {
-      const Slot s = load_slot(row, run, j);
-      const Origin o = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, o, dxa, dya, dza, uu, vv, tt);
-      update_dist(st.a, s, uu, vv, tt, (float)(r_off + j));
-      direction_terms(s, o, dxb, dyb, dzb, uu, vv, tt);
-      update_nee<K>(st.b, s, uu, vv, tt, media_index(s.mat, media, M));
-    }
-  }
-}
-
 // Ray/AABB slab test of box b (8 floats: lo xyz, hi xyz, pad, pad)
 // against [T_MIN, tmax]: true when the segment meets the box, with its
 // entry (clamped to T_MIN) in tn.
@@ -305,6 +339,144 @@ __device__ __forceinline__ float nee_bound(const NeeState<K>& st) {
   const int k = st.key[K - 1];
   const float kth = k == KEY_EMPTY ? INF_F : __int_as_float(k & ~NEE_MAT_MASK);
   return fminf(kth, st.t_opq);
+}
+
+// ------------------------------------------------------- the group walk --
+
+// The lexicographic minimum of (t, slot) over the tile, on every thread.
+template <int G>
+__device__ __forceinline__ void tile_min_hit(const cg::thread_block_tile<G>& tile, float& t,
+                                             float& slot) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float ot = tile.shfl_xor(t, off);
+    const float os = tile.shfl_xor(slot, off);
+    if (ot < t || (ot == t && os < slot)) {
+      t = ot;
+      slot = os;
+    }
+  }
+}
+
+// 'full' over cluster c for the tile's ray: thread k tests slots k, k+G,
+// ... of each run below the tile's bound (t, slot) as it stood at the
+// cluster's start, keeping the payload of its own closest hit in ``mine``;
+// then the tile takes the lexicographic minimum, the serial walk's state.
+template <int G, bool ADDITIVE>
+__device__ __forceinline__ void group_cluster_full(const cg::thread_block_tile<G>& tile,
+                                                   const float* __restrict__ run_rows,
+                                                   int row_w, int subs, int run, int c,
+                                                   float ox, float oy, float oz, float dx,
+                                                   float dy, float dz, float& t, float& slot,
+                                                   FullState& mine) {
+  float bt = t, bs = slot;
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    const int r_off = (c * subs + rr) * run;
+    for (int j = tile.thread_rank(); j < run; j += G) {
+      const Slot s = load_slot(row, run, j);
+      const Origin o = origin_terms(s, ox, oy, oz);
+      float uu, vv, tt;
+      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
+      if (accept_slot<ADDITIVE>(s, uu, vv) && tt > T_MIN && tt < bt) {
+        bt = tt;
+        bs = (float)(r_off + j);
+        set_full(mine, s, uu, vv, tt, bs);
+      }
+    }
+  }
+  tile_min_hit<G>(tile, bt, bs);
+  t = bt;
+  slot = bs;
+}
+
+// The closest hit (t, slot) of the tile with its payload, taken from the
+// thread whose own closest hit is that slot (each slot is tested by one
+// thread only). With no hit (slot -1) every thread holds the initial
+// payload.
+template <int G>
+__device__ __forceinline__ FullState group_payload(const cg::thread_block_tile<G>& tile,
+                                                   const FullState& mine, float t, float slot) {
+  const int src = __ffs(tile.ballot(mine.slot == slot)) - 1;
+  FullState st;
+  st.t = t;
+  st.slot = slot;
+  st.u = tile.shfl(mine.u, src);
+  st.v = tile.shfl(mine.v, src);
+  st.nx = tile.shfl(mine.nx, src);
+  st.ny = tile.shfl(mine.ny, src);
+  st.nz = tile.shfl(mine.nz, src);
+  st.mat = tile.shfl(mine.mat, src);
+  st.px = tile.shfl(mine.px, src);
+  st.py = tile.shfl(mine.py, src);
+  st.pz = tile.shfl(mine.pz, src);
+  return st;
+}
+
+// 'dnee' over cluster c for the tile's ray sets A (da) and B (db), in
+// rounds of G slots of a run (slot j0 + k on thread k). Set A as
+// ``group_cluster_full`` without the payload. Set B: a media hit is valid
+// below t_opq as it stood before its slot, the minimum of the carried
+// t_opq and the opaque hits of the round's earlier slots (an exclusive
+// prefix minimum over the tile); the valid keys are inserted on every
+// thread in slot order. A round in which no thread meets a medium or an
+// opaque slot below t_opq changes nothing and skips the scan (one vote).
+// ``st`` is the same on every thread before and after.
+template <int G, int K>
+__device__ __forceinline__ void group_cluster_dnee(const cg::thread_block_tile<G>& tile,
+                                                   const float* __restrict__ run_rows,
+                                                   int row_w, int subs, int run, int c,
+                                                   float ox, float oy, float oz, float dxa,
+                                                   float dya, float dza, float dxb, float dyb,
+                                                   float dzb, const float* media, int M,
+                                                   DneeState<K>& st) {
+  const int k = tile.thread_rank();
+  DistState a = st.a;
+  float opq = st.b.t_opq;
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    const int r_off = (c * subs + rr) * run;
+    for (int j0 = 0; j0 < run; j0 += G) {
+      const int j = j0 + k;
+      float own_opq = __int_as_float(0x7f800000), tb = 0.0f;  // +inf: no opaque hit
+      bool media_hit = false;
+      int key = KEY_EMPTY;
+      if (j < run) {
+        const Slot s = load_slot(row, run, j);
+        const Origin o = origin_terms(s, ox, oy, oz);
+        float uu, vv, tt;
+        direction_terms(s, o, dxa, dya, dza, uu, vv, tt);
+        update_dist(a, s, uu, vv, tt, (float)(r_off + j));
+        direction_terms(s, o, dxb, dyb, dzb, uu, vv, tt);
+        const int midx = media_index(s.mat, media, M);
+        const bool valid_geom = inside(s, uu, vv) && tt > T_MIN;
+        if (valid_geom && midx < 0) own_opq = tt;
+        media_hit = valid_geom && midx >= 0;
+        tb = tt;
+        key = nee_key(tt, midx);
+      }
+      // Most rounds meet nothing: then t_opq and the K-list stay as they are.
+      if (!tile.any(media_hit || own_opq < opq)) continue;
+      float incl = own_opq;
+#pragma unroll
+      for (int dl = 1; dl < G; dl <<= 1) {
+        const float y = tile.shfl_up(incl, dl);
+        if (k >= dl) incl = fminf(incl, y);
+      }
+      const float prev = tile.shfl_up(incl, 1);
+      const float before = k == 0 ? opq : fminf(opq, prev);
+      opq = fminf(opq, tile.shfl(incl, G - 1));
+      unsigned valid = tile.ballot(media_hit && tb < before);
+      while (valid) {
+        const int src = __ffs(valid) - 1;
+        valid &= valid - 1;
+        insert_key<K>(st.b, tile.shfl(key, src));
+      }
+    }
+  }
+  tile_min_hit<G>(tile, a.t, a.slot);
+  st.a = a;
+  st.b.t_opq = opq;
 }
 
 }  // namespace cmr

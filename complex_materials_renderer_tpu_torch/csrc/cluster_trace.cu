@@ -11,31 +11,42 @@
 // barycentric position a + u e1 + v e2. Misses keep t = t_max, slot -1,
 // normal (0, 0, 1), mat -1, position 0.
 //
-// What bounds it on this card: operations. A ray reads 28 bytes and writes
-// 44, and the grid (tens to hundreds of KB for the shipped scenes) stays
-// in L2, while each ray runs tens of slab tests and hundreds to thousands
-// of f32 triangle tests. The tests are data-dependent: the lanes of a warp
-// meet different clusters, so SMs idle on masked lanes (PERF.md holds the
-// measured share of the bound).
+// What bounds it on this card: latency, not the f32 rate. A ray reads 28
+// bytes and writes 44, and the grid (tens to hundreds of KB for the
+// shipped scenes) stays in L2, while each ray runs tens of slab tests and
+// hundreds to thousands of f32 triangle tests. With one thread per ray
+// each launch lasted one ray's dependent chain, so the wavefront's
+// compacted launches of a few thousand rays cost as much as a full one.
+// With the group walk below, what remains is each ray's box tests and the
+// tile's reductions after each cluster: the 65,536-ray launch reaches
+// ~26% of its operation bound, the compacted ones 1-8% (PERF.md).
 //
-// What this first design does about it: one thread per ray, the same
-// walk order as the TPU kernel (supers 0..S-1, clusters sp*SF ..
-// min(sp*SF+SF, C), slots in order), with every box gated by the slab
-// entry against the lane's OWN t_best. The TPU kernel culls a box for a
-// 1024-lane block when no lane of the block meets it (jnp.any); a box the
-// lane itself misses cannot hold a hit that beats its t_best, and the
-// strict `tt < t_best` update keeps the lowest slot on ties, so the
-// per-lane walk returns the same hits. Triangle data is read from the
+// What the design does about it: a tile of G threads serves one ray
+// (cluster_test.cuh ``group_cluster_full``), G a template parameter of 1,
+// 2, 4, 8, 16 or 32 that the wrapper picks from the launch width
+// (kernels/cluster_test.py ``group_size``), so that narrow launches still
+// put enough threads on the card and the tile's loads of a cluster row are
+// neighbouring addresses. The walk order is the TPU kernel's (supers
+// 0..S-1, clusters sp*SF .. min(sp*SF+SF, C), slots in order), with every
+// box gated by the slab entry against the ray's OWN t_best; every thread of
+// the tile runs the same box tests on the same values, so the visits are
+// uniform. The slots of a visited cluster are strided over the tile and
+// the tile reduces after each cluster to the lexicographic minimum of
+// (t, slot): exactly the one-thread walk's state, since its strict
+// `tt < t_best` keeps the lowest slot on ties. So the results are
+// bit-equal to the plain version for every G. The TPU kernel culls a box
+// for a 1024-lane block when no lane of the block meets it (jnp.any); a
+// box the ray itself misses cannot hold a hit that beats its t_best, so
+// the per-ray walk returns the same hits. Triangle data is read from the
 // run-major rows (run_rows, one row per run of a cluster) through the
 // read-only path rather than from the per-component (C, width) arrays the
 // TPU kernel reads: the rows hold the same values, and slot
-// c*width + r*run + j of row (c*subs + r) is visited in the same order.
+// c*width + r*run + j of row (c*subs + r) is the same slot.
 //
 // K3's far-edge acceptance is not K2's: K3 accepts
 // u*qb + v*(1-qa) <= qb + eps and u*(1-qb) + v*qa <= qa + eps
-// (pallas_trace.py:301-308), where K2 (cluster_test.cuh ``inside``) scales
-// the epsilon, <= qb*(1+eps). On a triangle slot (qa = qb = 0.5) K3 admits
-// u+v <= 1 + 2e-6 and K2 u+v <= 1 + 1e-6, so K3 has its own test here.
+// (pallas_trace.py:301-308), where K2 scales the epsilon (``inside_k3``
+// and ``inside`` in cluster_test.cuh).
 //
 // No NaN reaches the slab tests, so fminf/fmaxf (which drop a NaN where
 // jnp.minimum/maximum propagate it) give the JAX results: safe_inv keeps
@@ -54,7 +65,7 @@
 
 namespace cmr {
 
-constexpr int TRACE_THREADS = 128;
+constexpr int TRACE_THREADS = 128;  // threads per block, TRACE_THREADS / G rays
 
 struct TraceParams {
   const float* __restrict__ bounds;        // (C, 8)
@@ -73,66 +84,35 @@ __device__ __forceinline__ float trace_safe_inv(float v) {
   return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
 }
 
-// K3's acceptance (pallas_trace.py:301-308): additive epsilon on the far
-// edges; the t window is tested by the caller.
-__device__ __forceinline__ bool inside_k3(const Slot& s, float uu, float vv) {
-  return (uu >= -TRI_EPS) && (vv >= -TRI_EPS) &&
-         (uu * s.qb + vv * (1.0f - s.qa) <= s.qb + TRI_EPS) &&
-         (uu * (1.0f - s.qb) + vv * s.qa <= s.qa + TRI_EPS);
-}
-
-// One cluster c against one ray, slots in order (pallas_trace.py:268-320).
-__device__ __forceinline__ void trace_cluster(const TraceParams& p, int c, float ox, float oy,
-                                              float oz, float dx, float dy, float dz,
-                                              FullState& st) {
-  for (int rr = 0; rr < p.subs; ++rr) {
-    const float* row = p.run_rows + (long long)(c * p.subs + rr) * p.row_w;
-    const int r_off = (c * p.subs + rr) * p.run;
-    for (int j = 0; j < p.run; ++j) {
-      const Slot s = load_slot(row, p.run, j);
-      const Origin og = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, og, dx, dy, dz, uu, vv, tt);
-      if (inside_k3(s, uu, vv) && tt > T_MIN && tt < st.t) {
-        st.t = tt;
-        st.slot = (float)(r_off + j);
-        st.u = uu;
-        st.v = vv;
-        st.nx = s.e1y * s.e2z - s.e1z * s.e2y;
-        st.ny = s.e1z * s.e2x - s.e1x * s.e2z;
-        st.nz = s.e1x * s.e2y - s.e1y * s.e2x;
-        st.mat = s.mat;
-        st.px = s.ax + uu * s.e1x + vv * s.e2x;
-        st.py = s.ay + uu * s.e1y + vv * s.e2y;
-        st.pz = s.az + uu * s.e1z + vv * s.e2z;
-      }
-    }
-  }
-}
-
+template <int G>
 __global__ void __launch_bounds__(TRACE_THREADS) cluster_trace(TraceParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n) return;
-  FullState st{__ldg(p.tmax + lane), -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f,
-               0.0f, 0.0f, 0.0f};
+  const cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
+  const int lane = (blockIdx.x * TRACE_THREADS + threadIdx.x) / G;
+  if (lane >= p.n) return;  // the whole tile
+  const float t0 = __ldg(p.tmax + lane);
+  FullState mine{t0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 0.0f, 0.0f, 0.0f};
+  float t = t0, slot = -1.0f;
   // A lane whose bound is at most T_MIN can accept nothing (the TPU block
   // predicate max(t_max) > t_min, taken per lane).
-  if (st.t > T_MIN) {
+  if (t > T_MIN) {
     const float ox = __ldg(p.o + 3 * lane), oy = __ldg(p.o + 3 * lane + 1),
                 oz = __ldg(p.o + 3 * lane + 2);
     const float dx = __ldg(p.d + 3 * lane), dy = __ldg(p.d + 3 * lane + 1),
                 dz = __ldg(p.d + 3 * lane + 2);
     const float ix = trace_safe_inv(dx), iy = trace_safe_inv(dy), iz = trace_safe_inv(dz);
     for (int sp = 0; sp < p.S; ++sp) {
-      if (!slab_hit(p.super_bounds + sp * 8, ox, oy, oz, ix, iy, iz, st.t)) continue;
+      if (!slab_hit(p.super_bounds + sp * 8, ox, oy, oz, ix, iy, iz, t)) continue;
       const int lo = sp * p.SF;
       const int hi = min(lo + p.SF, p.C);
       for (int c = lo; c < hi; ++c) {
-        if (!slab_hit(p.bounds + c * 8, ox, oy, oz, ix, iy, iz, st.t)) continue;
-        trace_cluster(p, c, ox, oy, oz, dx, dy, dz, st);
+        if (!slab_hit(p.bounds + c * 8, ox, oy, oz, ix, iy, iz, t)) continue;
+        group_cluster_full<G, true>(tile, p.run_rows, p.row_w, p.subs, p.run, c, ox, oy, oz,
+                                    dx, dy, dz, t, slot, mine);
       }
     }
   }
+  const FullState st = group_payload<G>(tile, mine, t, slot);
+  if (tile.thread_rank() != 0) return;
   const int n = p.n;
   p.fout[0 * n + lane] = st.t;
   p.fout[1 * n + lane] = st.u;
@@ -149,20 +129,36 @@ __global__ void __launch_bounds__(TRACE_THREADS) cluster_trace(TraceParams p) {
   p.iout[1 * n + lane] = (int)st.mat;
 }
 
+template <int G>
+int launch(const TraceParams& p, cudaStream_t stream) {
+  const long long threads = (long long)p.n * G;
+  const int blocks = (int)((threads + TRACE_THREADS - 1) / TRACE_THREADS);
+  cluster_trace<G><<<blocks, TRACE_THREADS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace cmr
 
 extern "C" {
 
-// Launch on ``stream``; returns cudaGetLastError() right after the launch.
+// Launch on ``stream`` with ``group`` threads per ray (1, 2, 4, 8, 16 or
+// 32); returns cudaGetLastError() right after the launch.
 int cmr_cluster_trace_launch(const float* bounds, const float* super_bounds,
                              const float* run_rows, const float* o, const float* d,
                              const float* tmax, float* fout, int* iout, int n, int C, int S,
-                             int subs, int run, int row_w, int SF, void* stream) {
-  cmr::TraceParams p{bounds, super_bounds, run_rows, o, d, tmax, fout, iout,
-                     n, C, S, subs, run, row_w, SF};
-  const int blocks = (n + cmr::TRACE_THREADS - 1) / cmr::TRACE_THREADS;
-  cmr::cluster_trace<<<blocks, cmr::TRACE_THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+                             int subs, int run, int row_w, int SF, int group, void* stream) {
+  const cmr::TraceParams p{bounds, super_bounds, run_rows, o, d, tmax, fout, iout,
+                           n, C, S, subs, run, row_w, SF};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return cmr::launch<1>(p, s);
+    case 2: return cmr::launch<2>(p, s);
+    case 4: return cmr::launch<4>(p, s);
+    case 8: return cmr::launch<8>(p, s);
+    case 16: return cmr::launch<16>(p, s);
+    case 32: return cmr::launch<32>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* cmr_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

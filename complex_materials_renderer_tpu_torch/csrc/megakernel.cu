@@ -7,32 +7,53 @@
 // boundaries, free flight, HG scattering, the NEE shadow march, diffuse
 // shading, Russian roulette and the RNG all inside one launch.
 //
-// What bounds it on this card: operations. A lane reads and writes ~130
-// bytes of state and the grid (a few hundred KB for the shipped scenes)
-// stays in L2, while each bounce runs thousands of f32 slab and triangle
-// tests. Those tests are data-dependent and divergent: lanes of one warp
-// walk different clusters and die at different bounces, so the SMs also
-// idle on masked lanes and on dependent loads of the triangle rows, which
-// keeps the kernel well below the f32 rate (PERF.md).
+// What bounds it on this card: latency, not the f32 rate. A lane reads and
+// writes ~130 bytes of state and the grid (a few hundred KB for the
+// shipped scenes) stays in L2, while each bounce runs thousands of f32
+// slab and triangle tests. The main path's phase schedule
+// (render/megarender.py) launches 65,536 lanes for one bounce, then ever
+// narrower compacted wavefronts and a last phase of 1,024 lanes that runs
+// to termination. With one thread per lane every launch took about the
+// time of one thread's walk, whatever its width (PERF.md, the
+// launch-by-launch table). With the group walk below, what remains is
+// each lane's own chain: the box tests, the tile's reductions after each
+// cluster and the per-bounce physics. At the 65,536-lane launches the
+// registers (~126 a thread) hold 512 threads an SM, so a launch runs in
+// several waves; the narrow ones last about one lane's chain (2-13% of
+// the operation bound, PERF.md).
 //
-// What this first design does about it: one thread per lane and a lane
-// loop `for (it < max_iters && alive) bounce()`, so a dead lane costs
-// nothing beyond its warp's stragglers (the caller compacts the wavefront
-// between launches, as on the TPU). Each lane culls supers and clusters
-// against its OWN bound instead of the TPU kernel's block-wide minimum:
-// a culled box cannot hold a hit that beats the bound, and the strict
-// `t < t_best` update keeps the lowest slot on ties, as the linear walk
-// does, so the closest hits are the same. Triangle rows are read through
-// the read-only path (__ldg); the media table and the light row are
-// staged in shared memory; the NEE K-list stays in registers (K is a
-// template parameter, every loop over it unrolled). It allocates nothing.
-// Later work: warp-coherent traversal, rows staged in shared memory.
+// What the design does about it: a tile of G threads serves one lane, G a
+// template parameter of 1, 2, 4, 8, 16 or 32 that the wrapper picks from
+// the launch width (kernels/cluster_test.py ``group_size``), so a narrow
+// launch still puts lanes x G threads on the card. Both walks of a bounce,
+// the closest hit ('full') and the fused distance + NEE walk ('dnee'), are
+// the group walks of cluster_test.cuh: the box tests run on every thread
+// of the tile on the same values (uniform visits, each box gated against
+// the lane's OWN bound instead of the TPU kernel's block-wide minimum: a
+// culled box cannot hold a hit that beats the bound), the slots of a
+// visited cluster are strided over the tile, and the tile reduces after
+// each cluster to exactly the state of the one-thread walk (the
+// lexicographic (t, slot) minimum; for the NEE set the exclusive running
+// minimum of the opaque hits in slot order and the serial key insertion
+// sequence). So every box decision, and the result, is the serial one:
+// bit-equal to the plain version for every G. The per-bounce physics
+// (Fresnel, free flight, HG, the NEE march, Russian roulette, the RNG
+// draws) runs on every thread of the tile from the same values, so its
+// branches and draws are uniform and nothing is staged per lane; thread 0
+// of the tile writes the lane's state. The lane loop
+// `for (it < max_iters && alive) bounce()` leaves a dead lane's tile idle
+// beyond its warp's stragglers (the caller compacts the wavefront between
+// launches, as on the TPU). Triangle rows are read through the read-only
+// path (__ldg); the media table and the light row are staged in shared
+// memory; the NEE K-list stays in registers (K is a template parameter,
+// every loop over it unrolled). It allocates nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC -DCMR_NEE_MAX_MEDIA=<n>, one
 // library per --nee-bound value (the K-list length is a template
-// parameter; large values spill registers). --fmad=false and no --use_fast_math keep every product, 1/x and
-// sqrtf IEEE-rounded like the plain PyTorch version it is checked against.
+// parameter; large values spill registers), with every G instantiated.
+// --fmad=false and no --use_fast_math keep every product, 1/x and sqrtf
+// IEEE-rounded like the plain PyTorch version it is checked against.
 
 #include <cuda_runtime.h>
 
@@ -47,7 +68,7 @@
 namespace cmr {
 
 constexpr int K_NEE = 2 * CMR_NEE_MAX_MEDIA + 2;  // cluster_test.nee_list_len
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // threads per block, THREADS / G lanes
 constexpr int MAX_MEDIA = 63;
 constexpr int DRAWS_PER_BOUNCE = 8;
 
@@ -353,30 +374,36 @@ __device__ __forceinline__ float box_clamp(const float* misc, V3 o, V3 inv, floa
 }
 
 // Closest hit ('full'): the linear super -> cluster walk, each box gated
-// by the slab entry against the lane's current t_best.
-__device__ FullState trace_full(const Params& p, V3 o, V3 d, float tmax) {
+// by the slab entry against the lane's current t_best, each visited
+// cluster tested by the tile.
+template <int G>
+__device__ FullState trace_full(const cg::thread_block_tile<G>& tile, const Params& p, V3 o, V3 d,
+                                float tmax) {
   const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
-  FullState st{box_clamp(p.misc, o, inv, tmax), -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f,
-               0.0f, 0.0f, 0.0f};
+  const float t0 = box_clamp(p.misc, o, inv, tmax);
+  FullState mine{t0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 0.0f, 0.0f, 0.0f};
+  float t = t0, slot = -1.0f;
   for (int sp = 0; sp < p.S; ++sp) {
-    if (!slab_hit(p.super_bounds + sp * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, st.t)) continue;
+    if (!slab_hit(p.super_bounds + sp * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
     const int lo = sp * p.SF;
     const int hi = min(lo + p.SF, p.C);
     for (int c = lo; c < hi; ++c) {
-      if (!slab_hit(p.bounds + c * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, st.t)) continue;
-      test_cluster(p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z, d.x, d.y, d.z, st);
+      if (!slab_hit(p.bounds + c * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
+      group_cluster_full<G, false>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
+                                   d.x, d.y, d.z, t, slot, mine);
     }
   }
-  return st;
+  return group_payload<G>(tile, mine, t, slot);
 }
 
 // The fused 'dnee' walk: (t, slot) along set A (da, bound tmax_a, box
 // clamped) and the NEE K-list along set B (db, bound tmax_b) from one
 // origin. A box is visited when either set still needs it under its own
 // bound.
-template <int K>
-__device__ DneeState<K> trace_dnee(const Params& p, const float* media, V3 o, V3 da, float tmax_a,
-                                   V3 db, float tmax_b) {
+template <int G, int K>
+__device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const Params& p,
+                                   const float* media, V3 o, V3 da, float tmax_a, V3 db,
+                                   float tmax_b) {
   const V3 ia{safe_inv(da.x), safe_inv(da.y), safe_inv(da.z)};
   const V3 ib{safe_inv(db.x), safe_inv(db.y), safe_inv(db.z)};
   DneeState<K> st;
@@ -407,8 +434,8 @@ __device__ DneeState<K> trace_dnee(const Params& p, const float* media, V3 o, V3
         vc = slab_hit(cb, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
       }
       if (!vc) continue;
-      test_cluster<K>(p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z, da.x, da.y, da.z,
-                      db.x, db.y, db.z, media, p.M, st);
+      group_cluster_dnee<G, K>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
+                               da.x, da.y, da.z, db.x, db.y, db.z, media, p.M, st);
     }
   }
   return st;
@@ -525,11 +552,12 @@ __device__ __forceinline__ void shade_color(int background, V3 pt, float nx, flo
 }
 
 // One bounce iteration of a live lane (megakernel.py bounce :992-1370,
-// the default fused walk).
-template <int K>
-__device__ void bounce(const Params& p, const float* media, const float* misc, Lane& L, Rng& rng) {
+// the default fused walk), on every thread of the lane's tile.
+template <int G, int K>
+__device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, const float* media,
+                       const float* misc, Lane& L, Rng& rng) {
   const Params& P = p;  // NOLINT: short name for the launch parameters
-  FullState h = trace_full(P, L.o, L.d, T_MAX);
+  const FullState h = trace_full<G>(tile, P, L.o, L.d, T_MAX);
   const bool got_hit = h.slot >= 0.0f;  // the lane is alive
   const V3 n = norm3(h.nx, h.ny, h.nz);
   const Medium med = media_scan(media, P.M, h.mat);
@@ -574,7 +602,7 @@ __device__ void bounce(const Params& p, const float* media, const float* misc, L
     bound = fminf(fmaxf(bound, t_star), T_MAX);
   }
   const DneeState<K> dn =
-      trace_dnee<K>(P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
+      trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
   const float seg_len = dn.a.slot >= 0.0f ? dn.a.t : T_MAX;
 
   // free-flight sampling (volpath:691)
@@ -681,7 +709,7 @@ __device__ void bounce(const Params& p, const float* media, const float* misc, L
   L.alive = alive;
 }
 
-template <int K>
+template <int K, int G>
 __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   __shared__ float s_media[MAX_MEDIA * 9];
   __shared__ float s_misc[16];
@@ -689,8 +717,9 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   if (threadIdx.x < 16) s_misc[threadIdx.x] = p.misc[threadIdx.x];
   __syncthreads();
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
+  const cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
+  const int lane = (blockIdx.x * THREADS + threadIdx.x) / G;
+  if (lane >= p.n_lanes) return;  // the whole tile
   Lane L;
   L.alive = p.alive[lane] != 0;
   if (!L.alive) return;  // a dead lane never changes
@@ -711,9 +740,10 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   // loop equals the TPU kernel's per-block while_loop.
   for (int it = 0; it < p.max_iters && L.alive; ++it) {
     rng.it = it;
-    bounce<K>(p, s_media, s_misc, L, rng);
+    bounce<G, K>(tile, p, s_media, s_misc, L, rng);
   }
 
+  if (tile.thread_rank() != 0) return;
   p.org[3 * lane] = L.o.x;
   p.org[3 * lane + 1] = L.o.y;
   p.org[3 * lane + 2] = L.o.z;
@@ -731,25 +761,42 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   p.alive[lane] = L.alive ? 1 : 0;
 }
 
+template <int G>
+int launch(const Params& p, cudaStream_t stream) {
+  const long long threads = (long long)p.n_lanes * G;
+  const int blocks = (int)((threads + THREADS - 1) / THREADS);
+  megakernel<K_NEE, G><<<blocks, THREADS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace cmr
 
 extern "C" {
 
-// Launch on ``stream``; returns cudaGetLastError() right after the launch.
+// Launch on ``stream`` with ``group`` threads per lane (1, 2, 4, 8, 16 or
+// 32); returns cudaGetLastError() right after the launch.
 int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const float* run_rows,
                           const float* media9, const float* misc, const int* sob, int dim_base,
                           float* org, float* dir, float* thr, float* rad, long long* rng,
                           int* depth, unsigned char* alive, const long long* aux, int n_lanes,
                           int C, int S, int subs, int run, int row_w, int M, int SF,
                           int background, int max_depth, int rr_depth, int tir_kill,
-                          int analytic_direct, int ld, int max_iters, void* stream) {
-  cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base,
-                org, dir, thr, rad, rng, depth, alive, aux,
-                n_lanes, C, S, subs, run, row_w, M, SF,
-                background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters};
-  const int blocks = (n_lanes + cmr::THREADS - 1) / cmr::THREADS;
-  cmr::megakernel<cmr::K_NEE><<<blocks, cmr::THREADS, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+                          int analytic_direct, int ld, int max_iters, int group,
+                          void* stream) {
+  const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base,
+                      org, dir, thr, rad, rng, depth, alive, aux,
+                      n_lanes, C, S, subs, run, row_w, M, SF,
+                      background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return cmr::launch<1>(p, s);
+    case 2: return cmr::launch<2>(p, s);
+    case 4: return cmr::launch<4>(p, s);
+    case 8: return cmr::launch<8>(p, s);
+    case 16: return cmr::launch<16>(p, s);
+    case 32: return cmr::launch<32>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int cmr_megakernel_k_nee() { return cmr::K_NEE; }

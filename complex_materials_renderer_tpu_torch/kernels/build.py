@@ -6,8 +6,9 @@ build takes seconds, not minutes):
 
 - ``megakernel.cu`` (K1), one library per ``--nee-bound`` value
   (``-DCMR_NEE_MAX_MEDIA=n``: the NEE K-list length is a template
-  parameter);
-- ``cluster_trace.cu`` (K3);
+  parameter), each holding the kernel for every group size G (1, 2, 4, 8,
+  16 and 32 threads per lane), chosen at launch;
+- ``cluster_trace.cu`` (K3), with every G likewise;
 - ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``);
 - ``binned_round.cu`` (K5), one per (list length, ``--nee-bound``);
 - ``pair_sweep.cu`` (K6), one per ``--nee-bound``.
@@ -49,9 +50,9 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # kind -> (source, names of the -D values in the key, launch function, its argtypes)
 _KINDS = {
     "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_megakernel_launch",
-                   [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 15 + [_vp]),
+                   [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 16 + [_vp]),
     "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
-                      [_vp] * 8 + [_ci] * 7 + [_vp]),
+                      [_vp] * 8 + [_ci] * 8 + [_vp]),
     "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",
                        [_vp] * 7 + [_ci] * 4 + [_vp]),
     "binned_round": ("binned_round.cu", ("CMR_LIST_LEN", "CMR_NEE_MAX_MEDIA"),

@@ -49,6 +49,25 @@ _INF = float(np.float32(3e38))
 
 PAYLOADS = ("full", "dist", "occl", "nee", "dnee")
 
+# Threads per ray (G) of the group walk of the CUDA kernels K1 and K3
+# (csrc/cluster_test.cuh ``group_cluster_full``), each built for all of
+# these; and the threads a launch aims to put on the card: about the
+# H100's 132 SMs x 2,048 resident threads, rounded down to 2^18 so that
+# the main path's 65,536-lane launches take G = 4, which measured fastest
+# there (PERF.md).
+GROUP_SIZES = (1, 2, 4, 8, 16, 32)
+FILL_THREADS = 1 << 18
+
+
+def group_size(lanes: int) -> int:
+    """G for a K1 or K3 launch of ``lanes`` rays: the smallest G with
+    lanes x G >= FILL_THREADS, at most 32, so that a narrow launch still
+    fills the card (PERF.md has the times at every G)."""
+    for g in GROUP_SIZES:
+        if lanes * g >= FILL_THREADS:
+            return g
+    return GROUP_SIZES[-1]
+
 
 def nee_list_len(nee_max_media: int) -> int:
     """K-list length: enter+exit per media pair, plus the spares."""

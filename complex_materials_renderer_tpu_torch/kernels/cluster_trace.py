@@ -10,10 +10,10 @@ barycentric position). The far-edge acceptance is K3's own, with an
 additive epsilon (``cluster_test._mt``).
 
 On CUDA tensors ``trace_core`` launches the hand-written kernel of
-``csrc/cluster_trace.cu`` (or raises); on CPU tensors it runs
-``trace_core_plain``, a brute force over all slots, chunked over lanes,
-which keeps the lowest slot of least t as the kernel's strict
-``t < t_best`` walk does. The plain version is what the wavefront engine
+``csrc/cluster_trace.cu`` with ``group_size`` threads per ray (or raises);
+on CPU tensors it runs ``trace_core_plain``, a brute force over all slots,
+chunked over lanes, which keeps the lowest slot of least t as the
+kernel's strict ``t < t_best`` walk does. The plain version is what the wavefront engine
 and the AOVs run on the CPU, and what the kernel is held against.
 """
 
@@ -28,7 +28,7 @@ import torch
 from ..ops.vec import safe_normalize
 from ..render.hitinfo import T_MIN
 from .cluster_grid import DeviceClusterGrid
-from .cluster_test import payload_state0, slot_table, trace_slots
+from .cluster_test import group_size, payload_state0, slot_table, trace_slots
 from .intersect import Hit
 from .megakernel import _require
 
@@ -145,7 +145,7 @@ def _launch(o, d, grid: DeviceClusterGrid, eff_tmax, t_min):
             err = fn(p(grid.bounds), p(grid.super_bounds), p(grid.run_rows),
                      p(o), p(d), p(eff_tmax), p(fout), p(iout),
                      r, C, S, grid.runs_per_cluster, grid.run_size, row_w, grid.super_factor,
-                     ctypes.c_void_p(stream))
+                     group_size(r), ctypes.c_void_p(stream))
         trace_core.launches += 1
         if err != 0:
             raise RuntimeError(f"closest-hit kernel launch failed: {build.error_string(err)}")

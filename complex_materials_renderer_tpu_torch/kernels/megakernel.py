@@ -4,12 +4,13 @@ kernel launch.
 Counterpart of complex_materials_renderer_tpu/kernels/megakernel.py
 (``trace_paths_mega`` :1475, the ``pallas_call`` at :1594 with the body
 ``_make_kernel`` :348). On a CUDA state, ``trace_paths_mega`` launches the
-hand-written kernel of ``csrc/megakernel.cu`` (one thread per lane, the
-triangle tester K2 of ``csrc/cluster_test.cuh`` inlined); on a CPU state
-it runs ``trace_paths_mega_plain``, a vectorised PyTorch transcription of
-the Pallas body's ``bounce`` (:992-1370), ``nee_setup`` and
-``nee_resolve`` and of the helpers at :89-345, over all lanes at once,
-with a brute-force traversal over all slots (``cluster_test.trace_slots``).
+hand-written kernel of ``csrc/megakernel.cu`` (a tile of ``group_size``
+threads per lane, the triangle tester K2 of ``csrc/cluster_test.cuh``
+inlined); on a CPU state it runs ``trace_paths_mega_plain``, a vectorised
+PyTorch transcription of the Pallas body's ``bounce`` (:992-1370),
+``nee_setup`` and ``nee_resolve`` and of the helpers at :89-345, over all
+lanes at once, with a brute-force traversal over all slots
+(``cluster_test.trace_slots``).
 The plain version is what the CPU tests run and what the card's kernel is
 held against.
 
@@ -38,6 +39,7 @@ from ..ops import rng as rng_ops
 from ..render import hitinfo
 from .cluster_grid import DeviceClusterGrid
 from .cluster_test import (
+    group_size,
     nee_list_len,
     nee_unpack_mat,
     nee_unpack_t,
@@ -915,7 +917,7 @@ def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth
             lanes, C, S, grid.runs_per_cluster, grid.run_size, row_w,
             media9.shape[0], grid.super_factor,
             int(background), int(max_depth), int(rr_depth), int(bool(tir_kill)),
-            int(bool(analytic_direct)), int(bool(ld)), int(max_iters),
+            int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group_size(lanes),
             ctypes.c_void_p(stream),
         )
     trace_paths_mega.launches += 1

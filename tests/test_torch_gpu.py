@@ -13,7 +13,9 @@ card: rng, depth and alive equal except on at most 1e-3 of the lanes
 agree to the bit in practice). The closest-hit kernel K3 and its plain
 version: every output equal (both round every operation once, in the
 same order); so are the listing (K4), the round (K5) and the pair sweep
-(K6) and theirs. Renders on the card against the CPU: at most 2 flip pixels,
+(K6) and theirs. At every group size G (threads per ray of K1 and K3,
+forced through the wrappers' ``group_size``) K1 and K3 equal their plain
+versions to the bit. Renders on the card against the CPU: at most 2 flip pixels,
 atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
 (the camera rays of the two devices may differ by an ulp)."""
 
@@ -29,6 +31,7 @@ from complex_materials_renderer_tpu_torch.config import RenderOptions
 from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
 from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
 from complex_materials_renderer_tpu_torch.kernels.cluster_grid import device_cluster_grid
+from complex_materials_renderer_tpu_torch.kernels.cluster_test import GROUP_SIZES
 from complex_materials_renderer_tpu_torch.render.hitinfo import make_lights, make_scene_arrays
 from complex_materials_renderer_tpu_torch.renderer import Renderer
 from complex_materials_renderer_tpu_torch.scene import MediaTable, load_scene
@@ -133,6 +136,61 @@ def test_kernel_matches_plain(cuda, name, kw):
         lanes = kw["live_blocks"] * mk.BLOCK
         for f in ("org", "rad", "rng", "depth", "alive"):
             assert torch.equal(getattr(a, f)[lanes:], getattr(st, f)[lanes:])
+
+
+@pytest.fixture
+def force_group(monkeypatch):
+    """Makes K1 and K3 launch with G threads per ray, whatever their width."""
+
+    def force(g):
+        monkeypatch.setattr(mk, "group_size", lambda lanes: g)
+        monkeypatch.setattr(ctr, "group_size", lambda lanes: g)
+
+    return force
+
+
+@pytest.mark.parametrize("nee", [1, 10])
+@pytest.mark.parametrize("G", GROUP_SIZES)
+def test_kernel_matches_plain_at_group_size(cuda, force_group, G, nee):
+    """K1 at every group size on a narrow launch (1,024 lanes, the main
+    path's tail width) run to termination: bit-equal to the plain version.
+    At --nee-bound 1 the scene's medium box has a duplicate shell, so the
+    NEE K-list fills up and drops keys."""
+    scene, grid, lights = _scene(cuda, duplicate_shell=nee == 1)
+    media9 = mk.pack_media(scene.media, scene.scale, device=cuda)
+    misc = mk.pack_misc(lights, scene.world_lo, scene.world_hi, device=cuda)
+    st = _state(1024, cuda, seed=G + nee)
+    a = mk.MegaState(*(x.clone() for x in st))
+    b = mk.MegaState(*(x.clone() for x in st))
+    force_group(G)
+    mk.trace_paths_mega(grid, media9, misc, a, max_depth=8, rr_depth=4, nee_max_media=nee)
+    torch.cuda.synchronize()
+    mk.trace_paths_mega_plain(grid, media9, misc, b, max_depth=8, rr_depth=4, nee_max_media=nee)
+    for f in mk.MegaState._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert bool((a.depth > 1).any())
+
+
+@pytest.mark.parametrize("quads", [False, True])
+@pytest.mark.parametrize("G", GROUP_SIZES)
+def test_cluster_trace_matches_plain_at_group_size(cuda, force_group, G, quads):
+    """K3 at every group size on 1,024 rays: every output equal."""
+    _, grid, _ = _scene(cuda, quads=quads)
+    rs = np.random.default_rng(G)
+    n = 1024
+    o = np.stack([rs.uniform(-3, 3, n), rs.uniform(0.01, 3, n), rs.uniform(-3, 3, n)], -1)
+    d = rs.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (o, d))
+    t_max = torch.from_numpy(rs.uniform(0.05, 20.0, n).astype(np.float32)).to(cuda)
+    active = torch.from_numpy(rs.random(n) < 0.66).to(cuda)
+    force_group(G)
+    got = ctr.trace_core(o, d, grid, 1e-4, t_max, active)
+    torch.cuda.synchronize()
+    want = ctr.trace_core_plain(o, d, grid, torch.where(active, t_max, torch.zeros_like(t_max)))
+    for name, x, y in zip("t slot u v nx ny nz mat px py pz".split(), got, want):
+        assert torch.equal(x, y.to(x.dtype)), name
+    assert int((got[1] >= 0).sum()) > 0
 
 
 def test_wrapper_refuses_bad_inputs(cuda):
