@@ -35,14 +35,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3b. holds the binned and pair engines' kernels against their plain
    versions on the card, on 65,536-lane ray sets of showcase (primary
    rays; bounce-like rays; shadow rays from their hits): the listing K4
-   at list lengths 4, 8 and 12 with fresh and relisting t_lo, the round
-   K5's first round after the regroup sort for 'full', 'dist' and 'nee'
-   and with ``cap_iters=2``, the pair sweep K6 over a first generation's
-   pairs for 'dist', 'occl' and 'nee': keys, tlim, state and iterations
-   equal on every lane. Then whole traces: the binned 'full' trace
-   against K3 (slot equal on all but 1e-3 of the lanes: K2's scaled edge
-   epsilon is not K3's additive one), the pair trace against the binned
-   one ('dist' equal; 'nee' t_opq and the boundaries below it equal);
+   at list lengths 4, 8 and 12 with fresh and relisting t_lo; the round
+   K5 at every (G, S) it is built for (threads per lane, CTAs of a thread
+   block cluster) on the first round after the regroup sort for 'full',
+   'dist' and 'nee' and with ``cap_iters=2``, and on the narrowest round
+   of a whole 'full' and 'nee' trace; the pair sweep K6 at every G over a
+   first generation's pairs and over the pairs of 1,024 lanes for 'dist',
+   'occl' and 'nee': keys, tlim, state and iterations equal on every
+   lane. Then whole traces: the binned 'full' trace against K3 (slot
+   equal on all but 1e-3 of the lanes: K2's scaled edge epsilon is not
+   K3's additive one), the pair trace against the binned one ('dist'
+   equal; 'nee' t_opq and the boundaries below it equal);
 4. drives the main path: a default (megakernel) render of
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
    through ``Renderer``, timed after one warm-up, with K1's launch count
@@ -78,14 +81,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    lane-bounces, ms, bound) and K3 at 65,536 primary rays and 16,384,
    4,096 and 1,024 live bounce-like rays, each at the wrappers' G; then at
    every G the widest K3 launch and the narrowest, and K1's first, second
-   (both 65,536 lanes) and tail launches;
+   (both 65,536 lanes) and tail launches. Then K5 launch by launch over
+   one binned closest trace (lanes, live blocks, servings, the rule's G
+   and S, ms, the bound and the TPU algorithm's own work: every lane of a
+   served block tests the cluster) with its widest and narrowest launch at
+   every (G, S) and ``cudaOccupancyMaxActiveClusters`` of every K5
+   instance, and K6 launch by launch over one pair NEE trace (pairs, valid
+   pairs, distinct ids per block, G, ms, bound, TPU work) with its widest
+   and narrowest launch at every G;
 7. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
 after the kernel comparisons (phases 2-3b) and exits 4; ``--tables``
-builds, prints only the K1 and K3 launch tables of phase 6 and the timed
-main-path render of phase 4, and exits 4;
+builds, prints only the K1, K3, K5 and K6 launch tables of phase 6 and
+the timed main-path render of phase 4, and exits 4;
 ``--profile`` adds a torch.profiler breakdown of one pass of each engine.
 """
 
@@ -161,7 +171,7 @@ def ptxas_lines(log: str):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            name = re.sub(r"^_ZN3cmr\d+", "", fn)[:40]
+            name = re.sub(r"^_ZN3cmr\d+", "", fn)[:56]
             out.append((name, int(m.group(1)), spill))
             spill = 0
     return out
@@ -1067,9 +1077,7 @@ def fresh_tlo(eff):
 def first_round(r, payload, o, d, eff, L):
     """(K, rays, keys, state, lb) of a binned trace's first round, built as
     ``trace_binned`` builds it: the fresh state, the listing (plain) and the
-    regroup sort."""
-    import torch
-
+    regroup sort; lb, the live blocks, a host int."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
 
@@ -1079,8 +1087,7 @@ def first_round(r, payload, o, d, eff, L):
     bnd = ct.payload_bound(payload, bt.state_fields(state, payload, K), K).contiguous()
     keys, _ = bt.listing_plain(r.accel, rays, bnd, fresh_tlo(eff), L)
     live, keys, rays, state = bt.regroup(keys, rays, state)
-    lb = ((live + bt.BLOCK - 1) // bt.BLOCK).reshape(1).to(torch.int32)
-    return K, rays, keys, state, lb
+    return K, rays, keys, state, -(-int(live) // bt.BLOCK)
 
 
 def float_err(a_bits, b_bits, payload, K):
@@ -1122,36 +1129,56 @@ def k456_vs_plain(r, media9, sets):
                           f"{int((keys != bt.EMPTY).sum())}, lanes differing {bad}", flush=True)
                     if bad:
                         fail(f"K4 differs from its plain version (L={L}, {name}, {tname})")
-        for payload, L, cap in (("full", 8, 12), ("dist", 8, 12), ("nee", 8, 12), ("full", 8, 2)):
-            K, rays, keys, state, lb = first_round(r, payload, *sets[payload], L)
+        cases = [(f"{payload}, L=8, cap_iters={cap}",
+                  first_round(r, payload, *sets[payload], 8)[1:], payload, cap)
+                 for payload, cap in (("full", 12), ("dist", 12), ("nee", 12), ("full", 2))]
+        for payload in ("full", "nee"):  # narrow: the last round of a whole trace
+            K, (lb, rays, keys, state, _, cap) = narrow_round(r, media9, sets, payload)
+            cases.append((f"{payload}, the last round of its trace, cap_iters={cap}",
+                          (rays, keys, state, lb), payload, cap))
+        K = ct.nee_list_len(r.options.nee_max_media)
+        for label, (rays, keys, state, lb), payload, cap in cases:
             want = bt.round_plain(g, media9, lb, rays, keys, state, payload, K, cap)
-            got = bt.run_round(g, media9, lb, rays, keys.clone(), state.clone(), payload, K, cap)
-            torch.cuda.synchronize()
-            bad = [f for f, x, y in zip(("keys", "state", "iters"), got, want)
-                   if not torch.equal(x, y)]
-            err = float_err(got[1], want[1], payload, K)
-            errs["K5"] = max(errs["K5"], err)
-            print(f"   K5 {payload}, L={L}, cap_iters={cap}: live blocks {int(lb)}, servings "
-                  f"{int(got[2].sum())}, fields differing {bad}, worst float error {err:.3e}",
-                  flush=True)
-            if bad:
-                fail(f"K5 differs from its plain version ({payload}, cap_iters={cap}): {bad}")
+            for gs in bt.ROUND_GROUPS:
+                with forced(bt, "round_split", lambda _lb, gs=gs: split_of(gs)):
+                    got = bt.run_round(g, media9, lb, rays, keys.clone(), state.clone(), payload,
+                                       K, cap)
+                    torch.cuda.synchronize()
+                bad = [f for f, x, y in zip(("keys", "state", "iters"), got, want)
+                       if not torch.equal(x, y)]
+                err = float_err(got[1], want[1], payload, K)
+                errs["K5"] = max(errs["K5"], err)
+                G, S = split_of(gs)
+                print(f"   K5 {label}: live blocks {lb}, G={G} S={S}: servings "
+                      f"{int(got[2].sum())}, fields differing {bad}, worst float error {err:.3e}",
+                      flush=True)
+                if bad:
+                    fail(f"K5 differs from its plain version ({label}, G={G}, S={S}): {bad}")
+        sweeps = []
         for payload in ("dist", "occl", "nee"):
             o, d, eff = sets["nee" if payload == "nee" else "dist"]
-            K = ct.nee_list_len(r.options.nee_max_media)
             rays = rays6(o, d)
             keys, _ = bt.listing_plain(g, rays, eff, fresh_tlo(eff), PAIR_LIST)
-            pair_rays, cid, _ = ps.expand_pairs(keys, rays, eff, 8)
-            got = ps.sweep(g, media9, pair_rays, cid, payload, K)
-            torch.cuda.synchronize()
+            sweeps.append((payload, "first generation", ps.expand_pairs(keys, rays, eff, 8)[:2]))
+            # A small sweep: the pairs of the first 1,024 lanes.
+            keys, _ = bt.listing_plain(g, rays[:, :1024].contiguous(), eff[:1024],
+                                       fresh_tlo(eff[:1024]), PAIR_LIST)
+            sweeps.append((payload, "1,024 lanes", ps.expand_pairs(
+                keys, rays[:, :1024].contiguous(), eff[:1024], 8)[:2]))
+        for payload, label, (pair_rays, cid) in sweeps:
+            pairs = int((cid < bt.BIGC).sum())
             want = ps.sweep_plain(g, media9, pair_rays, cid, payload, K)
-            err = float_err(got, want, payload, K)
-            errs["K6"] = max(errs["K6"], err)
-            equal = torch.equal(got, want)
-            print(f"   K6 {payload}: pairs {int((cid < bt.BIGC).sum())} of {cid.shape[0]}, equal "
-                  f"{equal}, worst float error {err:.3e}", flush=True)
-            if not equal:
-                fail(f"K6 differs from its plain version ({payload})")
+            for gs in GROUPS:
+                with forced(ps, "group_size", lambda _p, gs=gs: gs):
+                    got = ps.sweep(g, media9, pair_rays, cid, payload, K, pairs)
+                    torch.cuda.synchronize()
+                err = float_err(got, want, payload, K)
+                errs["K6"] = max(errs["K6"], err)
+                equal = torch.equal(got, want)
+                print(f"   K6 {payload}, {label}: pairs {pairs} of {cid.shape[0]}, G={gs}: equal "
+                      f"{equal}, worst float error {err:.3e}", flush=True)
+                if not equal:
+                    fail(f"K6 differs from its plain version ({payload}, {label}, G={gs})")
     return errs
 
 
@@ -1270,6 +1297,7 @@ def time_k456(r, media9, sets):
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
 
     g = r.accel
@@ -1317,7 +1345,8 @@ def time_k456(r, media9, sets):
         plain_ms = cuda_time(lambda i: bt.round_plain(g, media9, lb, rays5, keys, state, "full", K,
                                                       12), 3)
         out["K5"] = (ms, plain_ms, b_ms, b_by)
-        print(f"   K5 at {n} primary lanes ({int(lb)} live blocks), first round of the closest "
+        print(f"   K5 at {n} primary lanes ({lb} live blocks, G, S = {bt.round_split(lb)}), first "
+              f"round of the closest "
               f"trace: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work "
               f"{holders:.0f} slot tests of lanes holding the served cluster; {nbytes} bytes; "
               f"bound {b_ms:.5f} ms ({b_by}), kernel at {b_ms / ms:.4f} of it", flush=True)
@@ -1330,15 +1359,297 @@ def time_k456(r, media9, sets):
         pairs_work = float(real[cid[valid].to(torch.int64)].sum())
         nbytes = cid.shape[0] * (8 + K + 1) * 4 + run_bytes
         b_ms, b_by = bound(nbytes, pairs_work * (ORIGIN_OPS + RAY_OPS))
-        cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K), 5)
-        ms = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K), 50)
+        pairs = int(valid.sum())
+        cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K, pairs), 5)
+        ms = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K, pairs), 50)
         plain_ms = cuda_time(lambda i: ps.sweep_plain(g, media9, pair_rays, cid, "nee", K), 3)
         out["K6"] = (ms, plain_ms, b_ms, b_by)
-        print(f"   K6 at {int(valid.sum())} pairs of {n} shadow lanes (L={PAIR_LIST}), 'nee': "
+        print(f"   K6 at {pairs} pairs of {n} shadow lanes (L={PAIR_LIST}, G={ct.group_size(pairs)}), "
+              f"'nee': "
               f"{ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work {pairs_work:.0f} "
               f"slot tests; {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), kernel at "
               f"{b_ms / ms:.4f} of it", flush=True)
     return out
+
+
+# --------------------------------------------------------------------------
+# K5 and K6 launch by launch, and at every G / S
+# --------------------------------------------------------------------------
+
+
+class forced:
+    """``module.name`` is ``value`` inside the block (a wrapper's rule or
+    the wrapper itself)."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+        return False
+
+
+def split_of(g):
+    """(G, S) of a K5 launch with G threads per lane."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    return g, bt.BLOCK * g // bt.ROUND_CTA
+
+
+def recorded_rounds(r, media9, sets, payload, cap_iters=12):
+    """The input of every K5 launch of one binned trace of ``sets[payload]``
+    (list 8; 'full' bounded by the scene box, as the closest trace is):
+    (lb, rays, keys, state, payload, cap_iters), recorded before each
+    launch."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    o, d, eff = sets[payload]
+    sc = r.scene_arrays
+    kw = {}
+    if payload == "full":
+        eff = torch.full((o.shape[0],), 1e4, device=o.device)
+        kw = dict(world_lo=sc.world_lo, world_hi=sc.world_hi)
+    calls = []
+    run = bt.run_round
+
+    def rec(grid, media9, lb, rays, keys, state, payload, K, cap):
+        calls.append((lb, rays.clone(), keys.clone(), state.clone(), payload, cap))
+        return run(grid, media9, lb, rays, keys, state, payload, K, cap)
+
+    rec.launches = 0  # the wrapper counts its launches under its module name
+
+    with uncounted(), forced(bt, "run_round", rec):
+        bt.trace_binned(r.accel, media9, o, d, eff, payload, cap_iters=cap_iters, **kw)
+        torch.cuda.synchronize()
+    return calls
+
+
+def narrow_round(r, media9, sets, payload):
+    """(K, the input of the narrowest K5 launch of one binned trace with
+    two servings a round (``CMR_BINNED_CAP=2``): the last round with the
+    fewest live blocks)."""
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    calls = recorded_rounds(r, media9, sets, payload, cap_iters=2)
+    lb = min(c[0] for c in calls)
+    return ct.nee_list_len(r.options.nee_max_media), [c for c in calls if c[0] == lb][-1]
+
+
+def round_work(g, media9, call, K, real):
+    """(servings, servings per live block, slot tests of the lanes holding
+    the served cluster, slot tests of every lane of a served block) of one
+    K5 launch, from its plain version. 'nee' serves only the holders, which
+    is exact, so its two counts agree."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    lb, rays, keys, state, payload, cap = call
+    served = []
+    bt.round_plain(g, media9, lb, rays, keys, state, payload, K, cap, served=served)
+    holders = every = 0.0
+    per_block = torch.zeros((keys.shape[1] // bt.BLOCK,), dtype=torch.int64, device=keys.device)
+    for c, cnt in served:
+        ok = c < bt.BIGC
+        slots = real[c[ok].to(torch.int64)]
+        holders += float((cnt[ok].double() * slots).sum())
+        every += float(bt.BLOCK * slots.sum())
+        per_block += ok
+    return int(per_block.sum()), per_block[:lb], holders, holders if payload == "nee" else every
+
+
+def time_round(g, media9, call, K, reps):
+    """Device ms of one K5 launch on a recorded input (updated in place:
+    each launch gets its own copy)."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    lb, rays, keys, state, payload, cap = call
+    copies = [(keys.clone(), state.clone()) for _ in range(reps + 3)]
+    launch = lambda i: bt.run_round(g, media9, lb, rays, *copies[i], payload, K, cap)  # noqa: E731
+    cuda_time(launch, 3)
+    return cuda_time(lambda i: launch(3 + i), reps)
+
+
+def bound_of(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_launch_table(r, media9, sets, reps=10):
+    """K5 launch by launch over one binned closest trace (showcase primary
+    rays, list 8), with the engine's 12 servings a round and with 2 (whose
+    late rounds are narrow): lanes, live blocks, servings and servings per
+    live block, the rule's G and S, device ms, the bound (the holders' slot
+    tests, or bytes) and the TPU algorithm's own work (every lane of a
+    served block tests the cluster); then the widest and the narrowest
+    launch at every G / S, and the cluster occupancy of every instance.
+    Returns (ms, bound ms) of the engine's trace."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import build
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    g = r.accel
+    K = ct.nee_list_len(r.options.nee_max_media)
+    real = real_slots(g)
+    run_bytes = g.run_rows.numel() * 4
+    tot_ms = tot_bound = 0.0
+    traces = {}
+    for cap in (12, 2):
+        calls = traces[cap] = recorded_rounds(r, media9, sets, "full", cap_iters=cap)
+        print(f"   K5 launches of one binned closest trace (showcase, {sets['full'][0].shape[0]} "
+              f"primary lanes, list 8, 'full', cap_iters={cap}):", flush=True)
+        print("     #  lanes  live blocks  payload  servings  ids per block (mean, max)  G  S"
+              "        ms   bound ms  bound by   TPU-work ms  share of bound", flush=True)
+        ms_sum = bound_sum = algo_sum = 0.0
+        with uncounted():
+            for i, call in enumerate(calls):
+                lb, rays, keys, state, payload, cap = call
+                servings, per_block, holders, every = round_work(g, media9, call, K, real)
+                lanes = lb * bt.BLOCK
+                nbytes = (lanes * (6 + 2 * (keys.shape[0] + state.shape[0])) * 4 + lb * 4
+                          + run_bytes)
+                b_ms, b_by = bound_of(nbytes, holders * (ORIGIN_OPS + RAY_OPS))
+                algo_ms = every * (ORIGIN_OPS + RAY_OPS) / PEAK_F32_OPS * 1e3
+                ms = time_round(g, media9, call, K, reps)
+                G, S = bt.round_split(lb)
+                ms_sum, bound_sum, algo_sum = ms_sum + ms, bound_sum + b_ms, algo_sum + algo_ms
+                print(f"    {i:2d} {lanes:6d} {lb:12d} {payload:>8s} {servings:9d} "
+                      f"{float(per_block.double().mean()):14.2f} {int(per_block.max()):4d} "
+                      f"{G:12d} {S:2d} {ms:9.4f} {b_ms:10.5f} {b_by:>10s} {algo_ms:12.5f} "
+                      f"{b_ms / ms:9.4f}", flush=True)
+        print(f"   K5 over the trace: {len(calls)} launches, {ms_sum:.4f} ms, bound "
+              f"{bound_sum:.5f} ms, TPU-work {algo_sum:.5f} ms", flush=True)
+        if cap == 12:
+            tot_ms, tot_bound = ms_sum, bound_sum
+    tight = traces[2]
+    lbs = [c[0] for c in tight]
+    with uncounted():
+        for label, call in (("widest", traces[12][0]),
+                            ("narrowest (cap_iters=2)", tight[len(lbs) - 1 - lbs[::-1].index(min(lbs))])):
+            times = []
+            for gs in bt.ROUND_GROUPS:
+                with forced(bt, "round_split", lambda _lb, gs=gs: split_of(gs)):
+                    times.append(time_round(g, media9, call, K, reps))
+            print(f"   K5 {label} launch ({call[0]} live blocks) by G, S: " + ", ".join(
+                f"G={gs} S={split_of(gs)[1]} {t:.4f} ms" for gs, t in zip(bt.ROUND_GROUPS, times))
+                + f"; the rule picks {bt.round_split(call[0])}", flush=True)
+    nee = r.options.nee_max_media
+    for L in BINNED_LISTS:
+        occ = [(payload, gs, build.round_max_clusters(L, nee, bt.PAYLOAD_IDS[payload], gs))
+               for payload in bt.PAYLOAD_IDS for gs in bt.ROUND_GROUPS]
+        print(f"   K5 cudaOccupancyMaxActiveClusters (L={L}, --nee-bound {nee}): " + ", ".join(
+            f"{payload} G={gs} S={split_of(gs)[1]}: {m}" for payload, gs, m in occ), flush=True)
+        if any(m < 1 for _, _, m in occ):
+            fail(f"a K5 instance's thread block cluster does not fit on the card (L={L})")
+    return tot_ms, tot_bound
+
+
+def recorded_sweeps(r, media9, sets, payload, list_len):
+    """The input of every K6 launch of one pair trace of ``sets[payload]``:
+    (pair rays, cluster ids, payload, valid pairs)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    o, d, eff = sets[payload]
+    calls = []
+    sweep = ps.sweep
+
+    def rec(grid, media9, rays, cid, payload, K, pairs=None):
+        calls.append((rays, cid, payload, pairs))
+        return sweep(grid, media9, rays, cid, payload, K, pairs)
+
+    rec.launches = 0  # the wrapper counts its launches under its module name
+
+    with uncounted(), forced(ps, "sweep", rec):
+        ps.trace_pairs(r.accel, media9, o, d, eff, payload, list_len=list_len)
+        torch.cuda.synchronize()
+    return calls
+
+
+def sweep_work(g, cid, payload, real):
+    """(pair servings of the kernel, slot tests of each valid pair's own
+    cluster, slot tests of the TPU algorithm: every pair of a block against
+    each of the block's distinct clusters; distinct ids of each block
+    holding a valid pair). 'nee' serves only the pair's own cluster, which
+    is exact, so its two slot counts agree."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    C = g.num_clusters
+    valid = cid < C
+    own = float(real[cid[valid].to(torch.int64)].sum())
+    blocks = torch.where(valid, cid, C).view(-1, bt.BLOCK).to(torch.int64)
+    present = torch.zeros((blocks.shape[0], C + 1), dtype=torch.bool, device=cid.device)
+    present.scatter_(1, blocks, True)
+    present = present[:, :C]
+    every = float(bt.BLOCK * (present.double() @ real).sum())
+    distinct = present.sum(1)
+    servings = int(valid.sum()) if payload == "nee" else int(bt.BLOCK * distinct.sum())
+    return servings, own, own if payload == "nee" else every, distinct[distinct > 0]
+
+
+def k6_launch_table(r, media9, sets, reps=20):
+    """K6 launch by launch over one pair NEE trace (showcase shadow rays,
+    list 4): pairs, valid pairs, distinct ids per block, the rule's G,
+    device ms, the bound (each valid pair's own cluster, or bytes) and the
+    TPU algorithm's own work; then the widest and the narrowest launch at
+    every G."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    g = r.accel
+    K = ct.nee_list_len(r.options.nee_max_media)
+    real = real_slots(g)
+    run_bytes = g.run_rows.numel() * 4
+    calls = recorded_sweeps(r, media9, sets, "nee", PAIR_LIST)
+
+    def timed(call):
+        rays, cid, payload, pairs = call
+        launch = lambda i: ps.sweep(g, media9, rays, cid, payload, K, pairs)  # noqa: E731
+        cuda_time(launch, 3)
+        return cuda_time(launch, reps)
+
+    print(f"   K6 launches of one pair NEE trace (showcase, {sets['nee'][0].shape[0]} shadow "
+          f"lanes, list {PAIR_LIST}):", flush=True)
+    print("     #   pairs    valid  payload  servings  ids per block (mean, max)   G        ms   "
+          "bound ms  bound by   TPU-work ms  share of bound", flush=True)
+    tot_ms = tot_bound = 0.0
+    with uncounted():
+        for i, call in enumerate(calls):
+            rays, cid, payload, pairs = call
+            servings, own, every, distinct = sweep_work(g, cid, payload, real)
+            b_ms, b_by = bound_of(cid.shape[0] * (8 + K + 1) * 4 + run_bytes,
+                                  own * (ORIGIN_OPS + RAY_OPS))
+            algo_ms = every * (ORIGIN_OPS + RAY_OPS) / PEAK_F32_OPS * 1e3
+            ms = timed(call)
+            tot_ms, tot_bound = tot_ms + ms, tot_bound + b_ms
+            print(f"    {i:2d} {cid.shape[0]:7d} {pairs:8d} {payload:>8s} {servings:9d} "
+                  f"{float(distinct.double().mean()):14.2f} {int(distinct.max()):4d} "
+                  f"{ct.group_size(pairs):12d} {ms:9.4f} {b_ms:10.5f} {b_by:>10s} "
+                  f"{algo_ms:12.5f} {b_ms / ms:9.4f}", flush=True)
+        print(f"   K6 over the trace: {len(calls)} launches, {tot_ms:.4f} ms, bound "
+              f"{tot_bound:.5f} ms", flush=True)
+        valid = [c[3] for c in calls]
+        for label, call in (("widest", calls[valid.index(max(valid))]),
+                            ("narrowest", calls[valid.index(min(valid))])):
+            times = []
+            for gs in GROUPS:
+                with forced(ps, "group_size", lambda _p, gs=gs: gs):
+                    times.append(timed(call))
+            print(f"   K6 {label} launch ({call[3]} pairs) by threads per pair: " + ", ".join(
+                f"G={gs} {t:.4f} ms" for gs, t in zip(GROUPS, times))
+                + f"; the rule picks G={ct.group_size(call[3])}", flush=True)
+    return tot_ms, tot_bound
 
 
 def profile_pass(r, engine):
@@ -1378,6 +1689,17 @@ def profile_pass(r, engine):
           f"device busy {busy:.2f} ms", flush=True)
     for e in sorted(rows, key=lambda e: -dev_ms(e))[:12]:
         print(f"     {dev_ms(e):10.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+    # Each kernel of the port summed over its instances (G, S, payload).
+    names = (("K1", "cmr::megakernel"), ("K3", "cmr::cluster_trace"), ("K4", "cmr::binned_listing"),
+             ("K5", "cmr::binned_round"), ("K6", "cmr::pair_sweep"))
+    sums = {k: [0.0, 0] for k, _ in names}
+    for e in rows:
+        for k, prefix in names:
+            if prefix in e.key:
+                sums[k][0] += dev_ms(e)
+                sums[k][1] += e.count
+    print("   the port's kernels in that pass: " + ", ".join(
+        f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in sums.items() if n), flush=True)
 
 
 def main() -> int:
@@ -1385,7 +1707,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="stop after the first kernel comparisons")
     ap.add_argument("--profile", action="store_true", help="add torch.profiler breakdowns")
     ap.add_argument("--tables", action="store_true",
-                    help="only build, print the K1 and K3 launch tables and time the main path")
+                    help="only build, print the K1, K3, K5 and K6 launch tables and time the "
+                    "main path")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -1426,10 +1749,15 @@ def main() -> int:
 
     main_opts = showcase_options(512, 512, 16)
     if args.tables:
-        phase("K1 and K3 launch tables")
+        phase("K1, K3, K5 and K6 launch tables")
         r = Renderer(*main_opts)
-        k1_step_table(r, *mega_inputs(r))
+        inputs = mega_inputs(r)
+        media9 = inputs[0]
+        k1_step_table(r, *inputs)
         k3_width_table(r)
+        sets = ray_sets(r)
+        k5_launch_table(r, media9, sets)
+        k6_launch_table(r, media9, sets)
         main_path(main_opts)
         print("chip_smoke: --tables stops here", flush=True)
         return 4  # nonzero: no result line is printed
@@ -1483,6 +1811,8 @@ def main() -> int:
     k1_step_table(r, media9, misc, base)
     k3_width_table(r)
     k456 = time_k456(r, media9, sets)
+    k5_launch_table(r, media9, sets)
+    k6_launch_table(r, media9, sets)
     if args.profile:
         phase("profile")
         for engine in ("mega", "wavefront", "binned", "pair"):

@@ -1,14 +1,17 @@
 // Pieces shared by the binned listing (K4), the binned round (K5) and the
 // pair sweep (K6): the packed-key constants of
 // complex_materials_renderer_tpu/kernels/binned_trace.py (:65-71) and
-// pairsweep.py (:78-80), the block-wide minimum that the round and the
-// sweep take over a 1024-lane block, and, for each payload of the two
-// serve loops, how its state is loaded, bounded, served and stored.
+// pairsweep.py (:78-80) and, for each payload of the two serve loops, how
+// its state is loaded, bounded, served by a tile of G threads (the group
+// walk of cluster_test.cuh) and stored. Every thread of a tile holds the
+// same state; the tile's thread 0 stores it.
 //
 // Payload state in memory: (ns, n) int32, one row per field, float fields
 // as their bit patterns (the 'nee' keys are int32 already), so one buffer
 // type carries every payload through the wrappers and the host sorts.
 #pragma once
+
+#include <type_traits>
 
 #include "cluster_test.cuh"
 
@@ -25,20 +28,6 @@ enum Payload { P_FULL = 0, P_DIST = 1, P_OCCL = 2, P_NEE = 3 };
 __device__ __forceinline__ float slab_inv(float v) {
   const float tiny = 1e-12f;
   return 1.0f / (fabsf(v) < tiny ? (v < 0.0f ? -tiny : tiny) : v);
-}
-
-// Minimum of v over the block's 1024 threads, returned to every thread.
-// ``red`` is 32 ints of shared memory; the first barrier keeps a warp of
-// the previous call from still reading it.
-__device__ __forceinline__ int block_min(int v, int* red) {
-  v = __reduce_min_sync(0xffffffffu, v);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int m = lane < (int)(blockDim.x >> 5) ? red[lane] : BIGC;
-  return __reduce_min_sync(0xffffffffu, m);
 }
 
 // What a serve loop needs of the grid.
@@ -89,10 +78,28 @@ __device__ __forceinline__ void store(const FullState& s, int* st, int n, int la
   put_f(st, 10, n, lane, s.pz);
 }
 
-__device__ __forceinline__ float bound_of(const FullState& s) { return s.t; }
+// The round's 'full' state on each thread of a tile: the tile's closest
+// (t, slot) and the thread's own closest hit with its payload (the loaded
+// state until the thread finds a closer hit); ``group_store`` takes the
+// payload of the tile's hit from the thread that found it.
+struct GroupFull {
+  FullState mine;
+  float t, slot;
+};
 
-__device__ __forceinline__ void serve(FullState& s, const Grid& g, int c, const Ray& r, bool) {
-  test_cluster(g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s);
+__device__ __forceinline__ void load(GroupFull& s, const int* st, int n, int lane) {
+  load(s.mine, st, n, lane);
+  s.t = s.mine.t;
+  s.slot = s.mine.slot;
+}
+
+__device__ __forceinline__ float bound_of(const GroupFull& s) { return s.t; }
+
+template <int G>
+__device__ __forceinline__ void group_serve(const cg::thread_block_tile<G>& tile, GroupFull& s,
+                                            const Grid& g, int c, const Ray& r, bool) {
+  group_cluster_full<G, false>(tile, g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz,
+                               r.dx, r.dy, r.dz, s.t, s.slot, s.mine);
 }
 
 // ---- 'dist': (t, slot) ----
@@ -113,8 +120,12 @@ __device__ __forceinline__ void seed(DistState& s, float t) {
   s.slot = -1.0f;
 }
 
-__device__ __forceinline__ void serve(DistState& s, const Grid& g, int c, const Ray& r, bool) {
-  test_cluster(g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s);
+template <int G>
+__device__ __forceinline__ void group_serve(const cg::thread_block_tile<G>& tile, DistState& s,
+                                            const Grid& g, int c, const Ray& r, bool) {
+  NoPayload none;
+  group_cluster_full<G, false>(tile, g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz,
+                               r.dx, r.dy, r.dz, s.t, s.slot, none);
 }
 
 // ---- 'occl': (t,) ----
@@ -130,11 +141,17 @@ __device__ __forceinline__ float bound_of(const OcclState& s) { return s.t; }
 
 __device__ __forceinline__ void seed(OcclState& s, float t) { s.t = t; }
 
-__device__ __forceinline__ void serve(OcclState& s, const Grid& g, int c, const Ray& r, bool) {
-  test_cluster(g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s);
+// The closest hit's t is the occluder's, whatever slot the tile reduces to.
+template <int G>
+__device__ __forceinline__ void group_serve(const cg::thread_block_tile<G>& tile, OcclState& s,
+                                            const Grid& g, int c, const Ray& r, bool) {
+  NoPayload none;
+  float slot = -1.0f;
+  group_cluster_full<G, false>(tile, g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz,
+                               r.dx, r.dy, r.dz, s.t, slot, none);
 }
 
-// ---- 'nee': K packed keys + t_opq; only accepting lanes insert ----
+// ---- 'nee': K packed keys + t_opq; only the accepting lanes are served ----
 template <int K>
 __device__ __forceinline__ void load(NeeState<K>& s, const int* st, int n, int lane) {
 #pragma unroll
@@ -161,11 +178,25 @@ __device__ __forceinline__ void seed(NeeState<K>& s, float t) {
   s.t_opq = t;
 }
 
-template <int K>
-__device__ __forceinline__ void serve(NeeState<K>& s, const Grid& g, int c, const Ray& r,
-                                      bool accept) {
-  test_cluster<K>(g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                  g.media, g.M, accept, s);
+template <int G, int K>
+__device__ __forceinline__ void group_serve(const cg::thread_block_tile<G>& tile, NeeState<K>& s,
+                                            const Grid& g, int c, const Ray& r, bool accept) {
+  if (accept)
+    group_cluster_nee<G, K>(tile, g.run_rows, g.row_w, g.subs, g.run, c, r.ox, r.oy, r.oz, r.dx,
+                            r.dy, r.dz, g.media, g.M, s);
+}
+
+// Thread 0 of the tile stores the state; 'full' takes the payload of the
+// tile's hit from the thread that found it.
+template <int G, class State>
+__device__ __forceinline__ void group_store(const cg::thread_block_tile<G>& tile,
+                                            const State& s, int* st, int n, int lane) {
+  if constexpr (std::is_same<State, GroupFull>::value) {
+    const FullState f = group_payload<G>(tile, s.mine, s.t, s.slot);
+    if (tile.thread_rank() == 0) store(f, st, n, lane);
+  } else if (tile.thread_rank() == 0) {
+    store(s, st, n, lane);
+  }
 }
 
 }  // namespace cmr

@@ -18,31 +18,32 @@
 //                       fused walk, ``group_cluster_dnee``)
 // The K keys live in registers: every loop over them is unrolled with
 // compile-time indices (a dynamically indexed per-thread array would go
-// to local memory). The 'nee' tester takes a per-lane accept flag (the
-// JAX tester's ``mask``, cluster_test.py:161-168, :307-308): the binned
-// round and the pair sweep test one cluster against lanes that may have
-// met it before, and the K-list insert is not idempotent.
+// to local memory). The binned round (K5) and the pair sweep (K6) test one
+// cluster against lanes that may have met it before, and the K-list insert
+// is not idempotent, so they serve 'nee' only on the lanes whose list holds
+// the cluster (the JAX tester's ``mask``, cluster_test.py:161-168,
+// :307-308: a masked lane changes nothing, so it is skipped).
 //
-// Two forms of the walk over one cluster:
-// - ``test_cluster``: one thread serves one ray and tests the slots in
-//   order (K5, K6);
-// - ``group_cluster_full`` / ``group_cluster_dnee``: a tile of G threads
-//   (cooperative_groups::thread_block_tile<G>, G in 1..32) serves one ray
-//   (K1, K3). Thread k tests slots k, k+G, ... of each run, so the tile's
-//   loads of a row are neighbouring addresses and a narrow launch still has
-//   G threads per ray to fill the card. Each slot's arithmetic is the one
-//   above. After every cluster the tile reduces to exactly the state the
-//   one-thread walk holds after that cluster, so every later box decision
-//   is the serial one and the results stay bit-equal to the plain versions:
-//     'full'/'dist': the lexicographic minimum of (t, slot) over the
-//       accepted slots (the serial strict t < t_best keeps the lowest slot
-//       on ties); the winner's payload comes from the thread that owns it;
-//     'nee' (set B of 'dnee'): a media key is valid only below t_opq as it
-//       stood before its slot, the exclusive running minimum of the opaque
-//       hits in slot order (the carried t_opq and a tile scan per round of
-//       G slots); the valid keys are inserted in slot order on every thread
-//       of the tile (a ballot, then one shuffle per key), the serial
-//       insertion sequence, so the K-list and t_opq equal the serial ones.
+// The walk over one cluster is a group walk: a tile of G threads
+// (cooperative_groups::thread_block_tile<G>, G in 1..32) serves one ray.
+// Thread k tests slots k, k+G, ... of each run, so the tile's loads of a
+// row are neighbouring addresses and a narrow launch still has G threads
+// per ray to fill the card. Each slot's arithmetic is the one above. After
+// every cluster the tile reduces to exactly the state the one-thread walk
+// over the slots in order holds after that cluster, so every later box
+// decision or list clear is the serial one and the results stay bit-equal
+// to the plain versions:
+//   'full'/'dist'/'occl' (``group_cluster_full``): the lexicographic
+//     minimum of (t, slot) over the accepted slots (the serial strict
+//     t < t_best keeps the lowest slot on ties); the winner's 'full'
+//     payload comes from the thread that owns it (``group_payload``);
+//   'nee' (``group_cluster_nee``, set B of ``group_cluster_dnee``): a media
+//     key is valid only below t_opq as it stood before its slot, the
+//     exclusive running minimum of the opaque hits in slot order (the
+//     carried t_opq and a tile scan per round of G slots); the valid keys
+//     are inserted in slot order on every thread of the tile (a ballot,
+//     then one shuffle per key), the serial insertion sequence, so the
+//     K-list and t_opq equal the serial ones.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -187,22 +188,12 @@ __device__ __forceinline__ void set_full(FullState& st, const Slot& s, float uu,
   st.pz = s.az + uu * s.e1z + vv * s.e2z;
 }
 
-__device__ __forceinline__ void update_full(FullState& st, const Slot& s, float uu, float vv,
-                                            float tt, float slot) {
-  if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) set_full(st, s, uu, vv, tt, slot);
-}
-
 __device__ __forceinline__ void update_dist(DistState& st, const Slot& s, float uu, float vv,
                                             float tt, float slot) {
   if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) {
     st.t = tt;
     st.slot = slot;
   }
-}
-
-__device__ __forceinline__ void update_occl(OcclState& st, const Slot& s, float uu, float vv,
-                                            float tt) {
-  if (inside(s, uu, vv) && tt > T_MIN && tt < st.t) st.t = tt;
 }
 
 // The packed key of a media boundary at tt of media row midx.
@@ -219,87 +210,6 @@ __device__ __forceinline__ void insert_key(NeeState<K>& st, int cand) {
     const int k = st.key[i];
     st.key[i] = min(cand, k);
     cand = max(cand, k);
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void update_nee(NeeState<K>& st, const Slot& s, float uu, float vv,
-                                           float tt, int midx, bool accept = true) {
-  const bool med = midx >= 0;
-  const bool valid_geom = inside(s, uu, vv) && tt > T_MIN && accept;
-  if (valid_geom && !med && tt < st.t_opq) st.t_opq = tt;
-  const bool valid = valid_geom && med && tt < st.t_opq;
-  insert_key<K>(st, valid ? nee_key(tt, midx) : KEY_EMPTY);
-}
-
-// One cluster c against one lane, slots in order.
-__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
-                                            int subs, int run, int c, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            FullState& st) {
-  for (int rr = 0; rr < subs; ++rr) {
-    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
-    const int r_off = (c * subs + rr) * run;
-    for (int j = 0; j < run; ++j) {
-      const Slot s = load_slot(row, run, j);
-      const Origin o = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
-      update_full(st, s, uu, vv, tt, (float)(r_off + j));
-    }
-  }
-}
-
-__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
-                                            int subs, int run, int c, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            DistState& st) {
-  for (int rr = 0; rr < subs; ++rr) {
-    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
-    const int r_off = (c * subs + rr) * run;
-    for (int j = 0; j < run; ++j) {
-      const Slot s = load_slot(row, run, j);
-      const Origin o = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
-      update_dist(st, s, uu, vv, tt, (float)(r_off + j));
-    }
-  }
-}
-
-__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
-                                            int subs, int run, int c, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            OcclState& st) {
-  for (int rr = 0; rr < subs; ++rr) {
-    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
-    for (int j = 0; j < run; ++j) {
-      const Slot s = load_slot(row, run, j);
-      const Origin o = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
-      update_occl(st, s, uu, vv, tt);
-    }
-  }
-}
-
-// 'nee' with the per-lane accept flag: a lane with accept == false changes
-// nothing.
-template <int K>
-__device__ __forceinline__ void test_cluster(const float* __restrict__ run_rows, int row_w,
-                                            int subs, int run, int c, float ox, float oy,
-                                            float oz, float dx, float dy, float dz,
-                                            const float* media, int M, bool accept,
-                                            NeeState<K>& st) {
-  for (int rr = 0; rr < subs; ++rr) {
-    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
-    for (int j = 0; j < run; ++j) {
-      const Slot s = load_slot(row, run, j);
-      const Origin o = origin_terms(s, ox, oy, oz);
-      float uu, vv, tt;
-      direction_terms(s, o, dx, dy, dz, uu, vv, tt);
-      update_nee<K>(st, s, uu, vv, tt, media_index(s.mat, media, M), accept);
-    }
   }
 }
 
@@ -358,17 +268,24 @@ __device__ __forceinline__ void tile_min_hit(const cg::thread_block_tile<G>& til
   }
 }
 
-// 'full' over cluster c for the tile's ray: thread k tests slots k, k+G,
-// ... of each run below the tile's bound (t, slot) as it stood at the
-// cluster's start, keeping the payload of its own closest hit in ``mine``;
-// then the tile takes the lexicographic minimum, the serial walk's state.
-template <int G, bool ADDITIVE>
+// The payload of 'dist' and 'occl': none beyond (t, slot).
+struct NoPayload {};
+
+__device__ __forceinline__ void set_full(NoPayload&, const Slot&, float, float, float, float) {}
+
+// The closest hit over cluster c for the tile's ray: thread k tests slots
+// k, k+G, ... of each run below the tile's bound (t, slot) as it stood at
+// the cluster's start, keeping the payload of its own closest hit in
+// ``mine`` (a FullState for 'full', NoPayload for 'dist' and 'occl'); then
+// the tile takes the lexicographic minimum, the serial walk's state. For
+// 'occl' t is the serial one whatever the slot.
+template <int G, bool ADDITIVE, class Payload>
 __device__ __forceinline__ void group_cluster_full(const cg::thread_block_tile<G>& tile,
                                                    const float* __restrict__ run_rows,
                                                    int row_w, int subs, int run, int c,
                                                    float ox, float oy, float oz, float dx,
                                                    float dy, float dz, float& t, float& slot,
-                                                   FullState& mine) {
+                                                   Payload& mine) {
   float bt = t, bs = slot;
   for (int rr = 0; rr < subs; ++rr) {
     const float* row = run_rows + (long long)(c * subs + rr) * row_w;
@@ -413,14 +330,84 @@ __device__ __forceinline__ FullState group_payload(const cg::thread_block_tile<G
   return st;
 }
 
+// One round of G slots of a NEE set: thread k holds its slot's opaque
+// hit ``own_opq`` (+inf: none), whether it is a media hit (``media_hit``),
+// its t and its key. A media hit is valid below t_opq as it stood before
+// its slot, the minimum of the carried ``opq`` and the opaque hits of the
+// round's earlier slots (an exclusive prefix minimum over the tile); the
+// valid keys are inserted on every thread in slot order. A round in which
+// no thread meets a medium or an opaque slot below ``opq`` changes nothing
+// and skips the scan (one vote).
+template <int G, int K>
+__device__ __forceinline__ void group_nee_round(const cg::thread_block_tile<G>& tile,
+                                                float own_opq, bool media_hit, float tb, int key,
+                                                float& opq, NeeState<K>& st) {
+  if (!tile.any(media_hit || own_opq < opq)) return;
+  const int k = tile.thread_rank();
+  float incl = own_opq;
+#pragma unroll
+  for (int dl = 1; dl < G; dl <<= 1) {
+    const float y = tile.shfl_up(incl, dl);
+    if (k >= dl) incl = fminf(incl, y);
+  }
+  const float prev = tile.shfl_up(incl, 1);
+  const float before = k == 0 ? opq : fminf(opq, prev);
+  opq = fminf(opq, tile.shfl(incl, G - 1));
+  unsigned valid = tile.ballot(media_hit && tb < before);
+  while (valid) {
+    const int src = __ffs(valid) - 1;
+    valid &= valid - 1;
+    insert_key<K>(st, tile.shfl(key, src));
+  }
+}
+
+// The NEE terms of a slot tested along direction d from origin terms o.
+__device__ __forceinline__ void nee_terms(const Slot& s, const Origin& o, float dx, float dy,
+                                          float dz, const float* media, int M, float& own_opq,
+                                          bool& media_hit, float& tb, int& key) {
+  float uu, vv, tt;
+  direction_terms(s, o, dx, dy, dz, uu, vv, tt);
+  const int midx = media_index(s.mat, media, M);
+  const bool valid_geom = inside(s, uu, vv) && tt > T_MIN;
+  if (valid_geom && midx < 0) own_opq = tt;
+  media_hit = valid_geom && midx >= 0;
+  tb = tt;
+  key = nee_key(tt, midx);
+}
+
+// 'nee' over cluster c for the tile's ray, in rounds of G slots of a run
+// (slot j0 + k on thread k). ``st`` is the same on every thread before and
+// after.
+template <int G, int K>
+__device__ __forceinline__ void group_cluster_nee(const cg::thread_block_tile<G>& tile,
+                                                  const float* __restrict__ run_rows, int row_w,
+                                                  int subs, int run, int c, float ox, float oy,
+                                                  float oz, float dx, float dy, float dz,
+                                                  const float* media, int M, NeeState<K>& st) {
+  const int k = tile.thread_rank();
+  float opq = st.t_opq;
+  for (int rr = 0; rr < subs; ++rr) {
+    const float* row = run_rows + (long long)(c * subs + rr) * row_w;
+    for (int j0 = 0; j0 < run; j0 += G) {
+      const int j = j0 + k;
+      float own_opq = __int_as_float(0x7f800000), tb = 0.0f;  // +inf: no opaque hit
+      bool media_hit = false;
+      int key = KEY_EMPTY;
+      if (j < run) {
+        const Slot s = load_slot(row, run, j);
+        nee_terms(s, origin_terms(s, ox, oy, oz), dx, dy, dz, media, M, own_opq, media_hit, tb,
+                  key);
+      }
+      group_nee_round<G, K>(tile, own_opq, media_hit, tb, key, opq, st);
+    }
+  }
+  st.t_opq = opq;
+}
+
 // 'dnee' over cluster c for the tile's ray sets A (da) and B (db), in
 // rounds of G slots of a run (slot j0 + k on thread k). Set A as
-// ``group_cluster_full`` without the payload. Set B: a media hit is valid
-// below t_opq as it stood before its slot, the minimum of the carried
-// t_opq and the opaque hits of the round's earlier slots (an exclusive
-// prefix minimum over the tile); the valid keys are inserted on every
-// thread in slot order. A round in which no thread meets a medium or an
-// opaque slot below t_opq changes nothing and skips the scan (one vote).
+// ``group_cluster_full`` without the payload, set B as
+// ``group_cluster_nee``; the two share the origin terms of each slot.
 // ``st`` is the same on every thread before and after.
 template <int G, int K>
 __device__ __forceinline__ void group_cluster_dnee(const cg::thread_block_tile<G>& tile,
@@ -447,31 +434,9 @@ __device__ __forceinline__ void group_cluster_dnee(const cg::thread_block_tile<G
         float uu, vv, tt;
         direction_terms(s, o, dxa, dya, dza, uu, vv, tt);
         update_dist(a, s, uu, vv, tt, (float)(r_off + j));
-        direction_terms(s, o, dxb, dyb, dzb, uu, vv, tt);
-        const int midx = media_index(s.mat, media, M);
-        const bool valid_geom = inside(s, uu, vv) && tt > T_MIN;
-        if (valid_geom && midx < 0) own_opq = tt;
-        media_hit = valid_geom && midx >= 0;
-        tb = tt;
-        key = nee_key(tt, midx);
+        nee_terms(s, o, dxb, dyb, dzb, media, M, own_opq, media_hit, tb, key);
       }
-      // Most rounds meet nothing: then t_opq and the K-list stay as they are.
-      if (!tile.any(media_hit || own_opq < opq)) continue;
-      float incl = own_opq;
-#pragma unroll
-      for (int dl = 1; dl < G; dl <<= 1) {
-        const float y = tile.shfl_up(incl, dl);
-        if (k >= dl) incl = fminf(incl, y);
-      }
-      const float prev = tile.shfl_up(incl, 1);
-      const float before = k == 0 ? opq : fminf(opq, prev);
-      opq = fminf(opq, tile.shfl(incl, G - 1));
-      unsigned valid = tile.ballot(media_hit && tb < before);
-      while (valid) {
-        const int src = __ffs(valid) - 1;
-        valid &= valid - 1;
-        insert_key<K>(st.b, tile.shfl(key, src));
-      }
+      group_nee_round<G, K>(tile, own_opq, media_hit, tb, key, opq, st.b);
     }
   }
   tile_min_hit<G>(tile, a.t, a.slot);

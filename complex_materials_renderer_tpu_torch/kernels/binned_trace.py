@@ -26,7 +26,8 @@ On CUDA tensors ``listing`` and ``run_round`` launch the kernels of
 tensors they run ``listing_plain`` and ``round_plain``. The plain round is
 block-faithful: it picks the served cluster per 1024-lane block as the
 kernel does, so the two agree on every lane. The JAX ``lax.while_loop``
-conditions are host syncs: one per generation and one per round.
+conditions are host syncs: one per generation and one per round, the
+round's being the count of live lanes, which sizes the round's launch.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ from .cluster_test import (
 from .megakernel import _require, _safe_inv
 
 BLOCK = 1024  # lanes of one round block (the TPU kernel's (8, 128) tile)
+# K5 on the card: threads per lane it is built for, threads of a CTA
+# (csrc/binned_round.cu SERVE_THREADS) and the threads a launch aims for.
+ROUND_GROUPS = (1, 2, 4, 8)
+ROUND_CTA = 512
+ROUND_FILL = 1 << 17
 EMPTY = 2147483647  # empty list slot / resolved-lane t_lo
 ID_BITS = 14  # cluster id field of a key
 ID_MASK = (1 << ID_BITS) - 1
@@ -270,14 +276,29 @@ def round_plain(grid: DeviceClusterGrid, media9: torch.Tensor, lb, rays: torch.T
     return keys, state, iters
 
 
-def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: torch.Tensor,
-              rays: torch.Tensor, keys: torch.Tensor, state: torch.Tensor, payload: str,
-              K_NEE: int, cap_iters: int):
+def round_split(live_blocks: int):
+    """(G, S) of a K5 launch over ``live_blocks`` blocks of 1024 lanes: G
+    threads per lane and thread block clusters of S = 1024 G / 512 CTAs of
+    512 threads, one cluster per block. G is the smallest of ROUND_GROUPS
+    with live lanes x G >= ROUND_FILL, so that the few live blocks of a late
+    round still spread over the card (PERF.md has the times at every G).
+    S = 16 (G = 8, 16 live blocks or fewer) is beyond the portable cluster
+    size of 8; the kernel asks the card for it (a card that cannot place
+    such a cluster refuses the launch, and the wrapper raises)."""
+    for g in ROUND_GROUPS:
+        if live_blocks * BLOCK * g >= ROUND_FILL:
+            break
+    return g, BLOCK * g // ROUND_CTA
+
+
+def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: int, rays: torch.Tensor,
+              keys: torch.Tensor, state: torch.Tensor, payload: str, K_NEE: int, cap_iters: int):
     """(keys, state, iters) after one round: the kernel of
     ``csrc/binned_round.cu`` on CUDA tensors, which updates ``keys`` and
     ``state`` in place (the Pallas call's aliases; launches counted in
-    ``run_round.launches``), ``round_plain`` on CPU tensors. ``lb`` is a
-    (1,) int32 tensor: the kernel reads it on the card, no sync."""
+    ``run_round.launches``), ``round_plain`` on CPU tensors. ``lb``, the
+    live blocks, is a host int: it sizes the grid and picks G and S
+    (``round_split``)."""
     _check_payload(payload)
     if rays.device.type == "cpu":
         return round_plain(grid, media9, lb, rays, keys, state, payload, K_NEE, cap_iters)
@@ -287,26 +308,28 @@ def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: torch.Tensor,
     L, n = keys.shape
     if n % BLOCK:
         raise ValueError(f"the round takes whole blocks of {BLOCK} lanes, got {n}")
+    if not isinstance(lb, int) or not 0 <= lb <= n // BLOCK:
+        raise ValueError(f"live blocks must be a host int in [0, {n // BLOCK}], got {lb!r}")
     if (K_NEE - 2) % 2 or K_NEE < 2:
         raise ValueError(f"K-list length {K_NEE} is not 2 * nee_bound + 2")
     C = grid.num_clusters
     row_w = grid.run_rows.shape[1]
     _require(grid.run_rows, "run_rows", torch.float32, (C * grid.runs_per_cluster, row_w), dev)
     _require(media9, "media9", torch.float32, (media9.shape[0], 9), dev)
-    _require(lb, "lb", torch.int32, (1,), dev)
     _require(rays, "rays", torch.float32, (6, n), dev)
     _require(keys, "keys", torch.int32, (L, n), dev)
     _require(state, "state", torch.int32, (n_state(payload, K_NEE), n), dev)
-    iters = torch.empty((n // BLOCK,), dtype=torch.int32, device=dev)
-    if n == 0:
+    iters = torch.zeros((n // BLOCK,), dtype=torch.int32, device=dev)
+    if lb == 0:
         return keys, state, iters
     fn = build.binned_round(L, (K_NEE - 2) // 2)
+    g, _ = round_split(lb)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(p(media9), media9.shape[0], p(lb), p(grid.run_rows), p(rays), p(keys), p(state),
-                 p(iters), n, C, grid.runs_per_cluster, grid.run_size, row_w,
-                 PAYLOAD_IDS[payload], int(cap_iters), ctypes.c_void_p(stream))
+        err = fn(p(media9), media9.shape[0], p(grid.run_rows), p(rays), p(keys), p(state),
+                 p(iters), n, lb, C, grid.runs_per_cluster, grid.run_size, row_w,
+                 PAYLOAD_IDS[payload], int(cap_iters), g, ctypes.c_void_p(stream))
     run_round.launches += 1
     if err != 0:
         raise RuntimeError(f"round kernel launch failed: {build.error_string(err)}")
@@ -374,15 +397,18 @@ def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
         bnd = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE).contiguous()
         keys, tlim = listing(grid, rays, bnd, tlo, L)
         stats[0] += 1
-        while bool((keys[0] != EMPTY).any()):
-            live, keys, rays, state, tlo, tlim, lane = regroup(keys, rays, state, tlo, tlim,
-                                                                lane)
-            lb = ((live + BLOCK - 1) // BLOCK).reshape(1).to(torch.int32)
-            keys, state, iters = run_round(grid, media9, lb, rays, keys.contiguous(),
-                                           state.contiguous(), payload, K_NEE, cap_iters)
+        # The round loop's one host read per round: the live lanes, which
+        # also size the round's launch.
+        live = int((keys[0] != EMPTY).sum())
+        while live:
+            _, keys, rays, state, tlo, tlim, lane = regroup(keys, rays, state, tlo, tlim, lane)
+            keys, state, iters = run_round(grid, media9, -(-live // BLOCK), rays,
+                                           keys.contiguous(), state.contiguous(), payload, K_NEE,
+                                           cap_iters)
             stats[1] += 1
             stats[2] += iters.sum()
             stats[3] += live
+            live = int((keys[0] != EMPTY).sum())
         bnd2 = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE)
         unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
         tlo = torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY))

@@ -10,8 +10,11 @@ build takes seconds, not minutes):
   16 and 32 threads per lane), chosen at launch;
 - ``cluster_trace.cu`` (K3), with every G likewise;
 - ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``);
-- ``binned_round.cu`` (K5), one per (list length, ``--nee-bound``);
-- ``pair_sweep.cu`` (K6), one per ``--nee-bound``.
+- ``binned_round.cu`` (K5), one per (list length, ``--nee-bound``), each
+  holding every payload at 1, 2, 4 and 8 threads per lane (thread block
+  clusters of 2, 4, 8 and 16 CTAs);
+- ``pair_sweep.cu`` (K6), one per ``--nee-bound``, each holding every
+  payload at every group size G.
 
 Lists and K-lists live in registers, so their lengths are compile-time;
 a library is built for any value asked for, at its first use. Libraries
@@ -57,9 +60,9 @@ _KINDS = {
                        [_vp] * 7 + [_ci] * 4 + [_vp]),
     "binned_round": ("binned_round.cu", ("CMR_LIST_LEN", "CMR_NEE_MAX_MEDIA"),
                      "cmr_binned_round_launch",
-                     [_vp, _ci] + [_vp] * 6 + [_ci] * 7 + [_vp]),
+                     [_vp, _ci] + [_vp] * 5 + [_ci] * 9 + [_vp]),
     "pair_sweep": ("pair_sweep.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_pair_sweep_launch",
-                   [_vp, _ci] + [_vp] * 4 + [_ci] * 5 + [_vp]),
+                   [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp]),
 }
 
 _lock = threading.Lock()
@@ -126,6 +129,9 @@ def _load(key, path: str):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _ci
+    if hasattr(lib, "cmr_binned_round_max_clusters"):
+        lib.cmr_binned_round_max_clusters.argtypes = [_ci, _ci, ctypes.POINTER(_ci)]
+        lib.cmr_binned_round_max_clusters.restype = _ci
     lib.cmr_error_string.argtypes = [_ci]
     lib.cmr_error_string.restype = ctypes.c_char_p
     return lib
@@ -196,13 +202,29 @@ def binned_listing(list_len: int):
     return lib.cmr_binned_listing_launch
 
 
-def binned_round(list_len: int, nee_max_media: int):
-    """The launch function of the round kernel (K5) for ``list_len`` and
-    ``nee_max_media``."""
+def _round_library(list_len: int, nee_max_media: int):
     lib = _library(("binned_round", list_len, nee_max_media))
     if lib.cmr_list_len() != list_len or lib.cmr_k_nee() != 2 * nee_max_media + 2:
         raise RuntimeError("round library built for another list or K-list length")
-    return lib.cmr_binned_round_launch
+    return lib
+
+
+def binned_round(list_len: int, nee_max_media: int):
+    """The launch function of the round kernel (K5) for ``list_len`` and
+    ``nee_max_media``."""
+    return _round_library(list_len, nee_max_media).cmr_binned_round_launch
+
+
+def round_max_clusters(list_len: int, nee_max_media: int, payload: int, group: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the round kernel's instance for
+    (payload id, threads per lane): how many of its thread block clusters
+    the card holds at once."""
+    out = _ci(0)
+    err = _round_library(list_len, nee_max_media).cmr_binned_round_max_clusters(
+        payload, group, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cluster occupancy query failed: {error_string(err)}")
+    return out.value
 
 
 def pair_sweep(nee_max_media: int):

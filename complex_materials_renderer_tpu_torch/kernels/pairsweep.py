@@ -12,6 +12,8 @@ Counterpart of complex_materials_renderer_tpu/kernels/pairsweep.py
    pair's ray and seed (the lane's best t, or its nearest opaque t);
 3. SWEEPS the pairs in 1024-pair blocks (``sweep``: K6): each block serves
    its distinct cluster ids smallest first against all its pairs;
+   the generation's one host read is its pair count, which sizes the
+   sweep's launch; a generation that lists no pair ends the trace;
 4. sends the results back to pair order (the inverse of the sort) and
    FOLDS them per lane; lanes whose list overflowed relist from their L-th
    key, as in the binned trace.
@@ -52,6 +54,7 @@ from .cluster_grid import DeviceClusterGrid
 from .cluster_test import (
     _DET_BIG,
     _DET_MIN,
+    group_size,
     nee_list_len,
     nee_unpack_mat,
     nee_unpack_t,
@@ -111,10 +114,13 @@ def sweep_plain(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tenso
 
 
 def sweep(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tensor, cid: torch.Tensor,
-          payload: str, K_NEE: int) -> torch.Tensor:
+          payload: str, K_NEE: int, pairs: int | None = None) -> torch.Tensor:
     """The (ns, P) ``state_bits`` of the pair sweep: the kernel of
     ``csrc/pair_sweep.cu`` on CUDA tensors (launches counted in
-    ``sweep.launches``), ``sweep_plain`` on CPU tensors."""
+    ``sweep.launches``), ``sweep_plain`` on CPU tensors. The kernel needs
+    ``pairs``, the number of valid pairs (cid < BIGC) as a host int: it
+    picks the threads per pair (``group_size``) and sizes the grid, and the
+    wrapper never reads it back from the card."""
     if payload not in SWEEP_PAYLOADS:
         raise ValueError(f"the sweep takes 'dist', 'occl' or 'nee', got {payload!r}")
     if rays.device.type == "cpu":
@@ -133,16 +139,19 @@ def sweep(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tensor, cid
     _require(media9, "media9", torch.float32, (media9.shape[0], 9), dev)
     _require(rays, "rays", torch.float32, (7, P), dev)
     _require(cid, "cid", torch.int32, (P,), dev)
+    if not isinstance(pairs, int) or not 0 <= pairs <= P:
+        raise ValueError(f"pairs must be a host int in [0, {P}], got {pairs!r}")
     state = torch.empty((n_state(payload, K_NEE), P), dtype=torch.int32, device=dev)
     if P == 0:
         return state
     fn = build.pair_sweep((K_NEE - 2) // 2)
+    cover = max(BLOCK, -(-pairs // BLOCK) * BLOCK)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(media9), media9.shape[0], p(grid.run_rows), p(rays), p(cid), p(state), P,
-                 grid.runs_per_cluster, grid.run_size, row_w, PAYLOAD_IDS[payload],
-                 ctypes.c_void_p(stream))
+                 cover, C, grid.runs_per_cluster, grid.run_size, row_w, PAYLOAD_IDS[payload],
+                 group_size(pairs), ctypes.c_void_p(stream))
     sweep.launches += 1
     if err != 0:
         raise RuntimeError(f"pair sweep launch failed: {build.error_string(err)}")
@@ -236,13 +245,16 @@ def trace_pairs(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
                       torch.full((rp,), EMPTY, dtype=torch.int32, device=dev))
 
     for _ in range(max_gens):
-        if not bool((tlo != EMPTY).any()):
-            break
         keys, tlim = listing(grid, rays, payload_bound(spayload, state, K_NEE).contiguous(), tlo,
                              L)
+        # The generation's one host read: its pair count, which also sizes
+        # the sweep; a generation that lists nothing changes nothing.
+        pairs = int((keys != EMPTY).sum())
+        if pairs == 0:
+            break
         seed = state[K_NEE] if spayload == "nee" else state[0]
         pair_rays, cid, orig = expand_pairs(keys, rays, seed, chunk_blocks)
-        out = sweep(grid, media9, pair_rays, cid, spayload, K_NEE)
+        out = sweep(grid, media9, pair_rays, cid, spayload, K_NEE, pairs)
         back = torch.empty_like(out)
         back[:, orig] = out
         results = state_fields(back[:, :L * rp].reshape(-1, L, rp), spayload, K_NEE)

@@ -15,7 +15,8 @@ version: every output equal (both round every operation once, in the
 same order); so are the listing (K4), the round (K5) and the pair sweep
 (K6) and theirs. At every group size G (threads per ray of K1 and K3,
 forced through the wrappers' ``group_size``) K1 and K3 equal their plain
-versions to the bit. Renders on the card against the CPU: at most 2 flip pixels,
+versions to the bit, and so do K5 at every (G, S) (``round_split``) and K6
+at every G. Renders on the card against the CPU: at most 2 flip pixels,
 atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
 (the camera rays of the two devices may differ by an ulp)."""
 
@@ -351,8 +352,7 @@ def test_listing_matches_plain(cuda, L):
         assert int((keys[0] != bt.EMPTY).sum()) > (1000 if relist else 4000)
 
 
-@pytest.mark.parametrize("payload", ["full", "dist", "occl", "nee"])
-def test_round_matches_plain(cuda, payload):
+def _round_check(cuda, payload):
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
 
     grid, media9, K, rays, _, _, keys, state = _binned_setup(cuda, payload)
@@ -360,10 +360,9 @@ def test_round_matches_plain(cuda, payload):
     blocks = -(-int(live) // bt.BLOCK)
     assert blocks >= 2
     for lb, cap in ((blocks, 12), (blocks - 1, 2)):
-        lb_t = torch.tensor([lb], dtype=torch.int32, device=cuda)
-        want = bt.round_plain(grid, media9, lb_t, rays, keys, state, payload, K, cap)
+        want = bt.round_plain(grid, media9, lb, rays, keys, state, payload, K, cap)
         before = bt.run_round.launches
-        got = bt.run_round(grid, media9, lb_t, rays, keys.clone(), state.clone(), payload, K, cap)
+        got = bt.run_round(grid, media9, lb, rays, keys.clone(), state.clone(), payload, K, cap)
         torch.cuda.synchronize()
         assert bt.run_round.launches == before + 1
         for name, x, y in zip(("keys", "state", "iters"), got, want):
@@ -371,18 +370,56 @@ def test_round_matches_plain(cuda, payload):
         assert int(got[2].max()) > 1 and not torch.equal(got[1], state)
 
 
-@pytest.mark.parametrize("payload", ["dist", "occl", "nee"])
-def test_sweep_matches_plain(cuda, payload):
+@pytest.mark.parametrize("payload", ["full", "dist", "occl", "nee"])
+def test_round_matches_plain(cuda, payload):
+    _round_check(cuda, payload)
+
+
+@pytest.mark.parametrize("payload", ["full", "dist", "occl", "nee"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_round_matches_plain_at_split(cuda, monkeypatch, G, payload):
+    """K5 with G threads per lane in clusters of 2G CTAs, whatever the
+    live width."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    monkeypatch.setattr(bt, "round_split", lambda lb: (G, bt.BLOCK * G // bt.ROUND_CTA))
+    _round_check(cuda, payload)
+
+
+def _sweep_check(cuda, payload, shuffle=False):
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
 
     # A fresh lane's seed is its bound: its t (closest payloads) or t_opq.
     grid, media9, K, rays, bnd, _, keys, _ = _binned_setup(cuda, payload)
     pair_rays, cid, _ = ps.expand_pairs(keys, rays, bnd, chunk_blocks=2)
+    if shuffle:  # each block's pairs in a random order: the kernel does not rely on it
+        g = torch.Generator().manual_seed(5)
+        perm = torch.cat([b * bt.BLOCK + torch.randperm(bt.BLOCK, generator=g)
+                          for b in range(cid.shape[0] // bt.BLOCK)]).to(cuda)
+        pair_rays, cid = pair_rays[:, perm].contiguous(), cid[perm].contiguous()
     before = ps.sweep.launches
-    got = ps.sweep(grid, media9, pair_rays, cid, payload, K)
+    got = ps.sweep(grid, media9, pair_rays, cid, payload, K, int((cid < bt.BIGC).sum()))
     torch.cuda.synchronize()
     assert ps.sweep.launches == before + 1
     assert torch.equal(got, ps.sweep_plain(grid, media9, pair_rays, cid, payload, K))
+
+
+@pytest.mark.parametrize("payload", ["dist", "occl", "nee"])
+def test_sweep_matches_plain(cuda, payload):
+    _sweep_check(cuda, payload)
+
+
+@pytest.mark.parametrize("payload", ["dist", "occl", "nee"])
+@pytest.mark.parametrize("G", GROUP_SIZES)
+def test_sweep_matches_plain_at_group_size(cuda, monkeypatch, G, payload):
+    """K6 with G threads per pair, on the listed pairs and on the same
+    pairs shuffled within their blocks."""
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+
+    monkeypatch.setattr(ps, "group_size", lambda pairs: G)
+    _sweep_check(cuda, payload)
+    _sweep_check(cuda, payload, shuffle=True)
 
 
 def test_binned_kernels_refuse_bad_inputs(cuda):
@@ -394,12 +431,14 @@ def test_binned_kernels_refuse_bad_inputs(cuda):
         bt.listing(grid, rays, bnd.double(), tlo, 4)
     with pytest.raises(ValueError, match="expected"):
         bt.listing(grid, rays, bnd, tlo.cpu(), 4)
-    lb = torch.tensor([2], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="whole blocks"):
-        bt.run_round(grid, media9, lb, rays[:, :1000], keys[:, :1000], state[:, :1000], "dist",
+        bt.run_round(grid, media9, 2, rays[:, :1000], keys[:, :1000], state[:, :1000], "dist",
                      K, 4)
     with pytest.raises(ValueError, match="expected"):
-        bt.run_round(grid, media9, lb.cpu(), rays, keys, state, "dist", K, 4)
+        bt.run_round(grid, media9, 2, rays, keys.cpu(), state, "dist", K, 4)
+    with pytest.raises(ValueError, match="live blocks"):
+        bt.run_round(grid, media9, torch.tensor([2], dtype=torch.int32, device=cuda), rays, keys,
+                     state, "dist", K, 4)
     cid = torch.full((2048,), bt.BIGC, dtype=torch.int32, device=cuda)
     seeds = torch.cat([rays, bnd[None]]).contiguous()
     with pytest.raises(TypeError, match="expected"):

@@ -125,41 +125,84 @@ def _tile_min(ts, ss):
     return t, s
 
 
+def closest_cluster(sl, O, D, t, slot, G, run, additive_eps=False, mine=None):
+    """One cluster of the group walk's closest hit: each thread's strict
+    walk over its own slots (k, k+G, ... of each run of ``run`` slots) below
+    the tile's (t, slot) at the cluster's start, then the lexicographic
+    minimum over the tile. ``mine`` (per thread, the 'full' payload of its
+    own closest hit) is updated in place. Returns the tile's (t, slot)."""
+    uu, vv, tt, inside = ct._mt(sl, O, D, additive_eps)
+    ts, ss = [], []
+    for k in range(G):
+        bt, bs = t.clone(), slot.clone()
+        for j in range(sl.ax.shape[0]):
+            if (j % run) % G != k:
+                continue
+            ok = inside[:, j] & (tt[:, j] > T_MIN) & (tt[:, j] < bt)
+            bt = torch.where(ok, tt[:, j], bt)
+            bs = torch.where(ok, torch.full_like(bs, float(sl.slot0 + j)), bs)
+            if mine is not None:
+                col = torch.full((O[0].shape[0],), j, dtype=torch.int64)
+                mine[k] = [torch.where(ok, a, b)
+                           for a, b in zip(_payload(sl, uu, vv, tt, col), mine[k])]
+        ts.append(bt)
+        ss.append(bs)
+    return _tile_min(ts, ss)
+
+
+def owner_payload(mine, slot):
+    """The 'full' state of the tile's hit ``slot``, from the first thread
+    whose own closest hit it is (with no hit every thread holds the
+    initial payload; thread 0 is taken)."""
+    out = list(mine[0])
+    for k in range(len(mine) - 1, -1, -1):
+        own = mine[k][1] == slot
+        out = [torch.where(own, a, b) for a, b in zip(mine[k], out)]
+    return out
+
+
 def group_closest(grid, O, D, tmax, G, full, additive_eps):
     """The group walk's closest hit over every cluster in order:
     (t, slot[, payload...]) as the tile holds it after the last cluster."""
     state0 = ct.payload_state0("full", tmax.clone())
     t, slot = state0[0], state0[1]
-    mine = [list(state0) for _ in range(G)]  # each thread's own closest hit, with payload
-    run = grid.run_size
+    mine = [list(state0) for _ in range(G)] if full else None
     for c in range(grid.num_clusters):
-        sl = _cluster_slots(grid, c)
-        uu, vv, tt, inside = ct._mt(sl, O, D, additive_eps)
-        ts, ss = [], []
-        for k in range(G):
-            bt, bs = t.clone(), slot.clone()
-            for j in range(sl.ax.shape[0]):
-                if (j % run) % G != k:
-                    continue
-                ok = inside[:, j] & (tt[:, j] > T_MIN) & (tt[:, j] < bt)
-                bt = torch.where(ok, tt[:, j], bt)
-                bs = torch.where(ok, torch.full_like(bs, float(sl.slot0 + j)), bs)
-                if full:
-                    col = torch.full((O[0].shape[0],), j, dtype=torch.int64)
-                    mine[k] = [torch.where(ok, a, b)
-                               for a, b in zip(_payload(sl, uu, vv, tt, col), mine[k])]
-            ts.append(bt)
-            ss.append(bs)
-        t, slot = _tile_min(ts, ss)
+        t, slot = closest_cluster(_cluster_slots(grid, c), O, D, t, slot, G, grid.run_size,
+                                  additive_eps, mine)
     if not full:
         return t, slot
-    # The owner: the thread whose own closest hit is the tile's slot (with no
-    # hit every thread holds the initial payload; thread 0 is taken).
-    out = list(mine[0])
-    for k in range(G - 1, -1, -1):
-        own = mine[k][1] == slot
-        out = [torch.where(own, a, b) for a, b in zip(mine[k], out)]
-    return (t, slot) + tuple(out[2:])
+    return (t, slot) + tuple(owner_payload(mine, slot)[2:])
+
+
+def nee_cluster(sl, O, D, keys, opq, G, K, med_ids, run):
+    """One cluster of the group walk's NEE set, in rounds of G slots of each
+    run: returns (K keys, t_opq) as the tile holds them after it."""
+    n = O[0].shape[0]
+    keys = list(keys)
+    _, _, tt, inside = ct._mt(sl, O, D)
+    med = ct.media_index(sl.mat, med_ids) >= 0.0
+    mat_i = torch.clamp(ct.media_index(sl.mat, med_ids), min=0.0).to(torch.int32)
+    for r0 in range(0, sl.ax.shape[0], run):
+        for j0 in range(0, run, G):
+            cols = torch.arange(r0 + j0, r0 + min(j0 + G, run))  # thread k: column k
+            t_r = tt[:, cols]
+            valid_geom = inside[:, cols] & (t_r > T_MIN)
+            own_opq = torch.where(valid_geom & ~med[cols], t_r, torch.full_like(t_r, np.inf))
+            # t_opq before each thread's slot: the carried bound and the
+            # round's earlier opaque hits (an exclusive prefix minimum).
+            incl = torch.cummin(own_opq, dim=1).values
+            excl = torch.cat([torch.full((n, 1), np.inf), incl[:, :-1]], dim=1)
+            before = torch.minimum(opq[:, None], excl)
+            valid = valid_geom & med[cols] & (t_r < before)
+            key = (t_r.view(torch.int32) & ~ct.NEE_MAT_MASK) | mat_i[cols]
+            for k in range(cols.shape[0]):  # the valid keys in slot order
+                cand = torch.where(valid[:, k], key[:, k],
+                                   torch.full_like(key[:, k], ct.KEY_EMPTY))
+                for i in range(K):
+                    keys[i], cand = torch.minimum(cand, keys[i]), torch.maximum(cand, keys[i])
+            opq = torch.minimum(opq, incl[:, -1])
+    return keys, opq
 
 
 def group_nee(grid, O, D, tmax, G, K, med_ids):
@@ -168,31 +211,9 @@ def group_nee(grid, O, D, tmax, G, K, med_ids):
     n = O[0].shape[0]
     keys = [torch.full((n,), ct.KEY_EMPTY, dtype=torch.int32) for _ in range(K)]
     opq = tmax.clone()
-    run = grid.run_size
     for c in range(grid.num_clusters):
-        sl = _cluster_slots(grid, c)
-        _, _, tt, inside = ct._mt(sl, O, D)
-        med = ct.media_index(sl.mat, med_ids) >= 0.0
-        mat_i = torch.clamp(ct.media_index(sl.mat, med_ids), min=0.0).to(torch.int32)
-        for r0 in range(0, sl.ax.shape[0], run):
-            for j0 in range(0, run, G):
-                cols = torch.arange(r0 + j0, r0 + min(j0 + G, run))  # thread k: column k
-                t_r = tt[:, cols]
-                valid_geom = inside[:, cols] & (t_r > T_MIN)
-                own_opq = torch.where(valid_geom & ~med[cols], t_r, torch.full_like(t_r, np.inf))
-                # t_opq before each thread's slot: the carried bound and the
-                # round's earlier opaque hits (an exclusive prefix minimum).
-                incl = torch.cummin(own_opq, dim=1).values
-                excl = torch.cat([torch.full((n, 1), np.inf), incl[:, :-1]], dim=1)
-                before = torch.minimum(opq[:, None], excl)
-                valid = valid_geom & med[cols] & (t_r < before)
-                key = (t_r.view(torch.int32) & ~ct.NEE_MAT_MASK) | mat_i[cols]
-                for k in range(cols.shape[0]):  # the valid keys in slot order
-                    cand = torch.where(valid[:, k], key[:, k],
-                                       torch.full_like(key[:, k], ct.KEY_EMPTY))
-                    for i in range(K):
-                        keys[i], cand = torch.minimum(cand, keys[i]), torch.maximum(cand, keys[i])
-                opq = torch.minimum(opq, incl[:, -1])
+        keys, opq = nee_cluster(_cluster_slots(grid, c), O, D, keys, opq, G, K, med_ids,
+                                grid.run_size)
     return tuple(keys) + (opq,)
 
 
