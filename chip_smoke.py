@@ -35,7 +35,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3b. holds the binned and pair engines' kernels against their plain
    versions on the card, on 65,536-lane ray sets of showcase (primary
    rays; bounce-like rays; shadow rays from their hits): the listing K4
-   at list lengths 4, 8 and 12 with fresh and relisting t_lo; the round
+   at list lengths 4, 8 and 12 with fresh and relisting t_lo, at every
+   instance (the one-thread walk, the tile walk at every G, the rule's
+   launch); the round
    K5 at every (G, S) it is built for (threads per lane, CTAs of a thread
    block cluster) on the first round after the regroup sort for 'full',
    'dist' and 'nee' and with ``cap_iters=2``, and on the narrowest round
@@ -46,6 +48,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    equal on all but 1e-3 of the lanes: K2's scaled edge epsilon is not
    K3's additive one), the pair trace against the binned one ('dist'
    equal; 'nee' t_opq and the boundaries below it equal);
+3c. builds the many-cluster scene through ``Renderer``: showcase's
+   triangles, materials and media tiled 16 x 16 on the ground plane
+   (352,768 triangles; auto width and super fan-out: about 2,750 clusters
+   in about 170 supers, both printed), seen by a low camera across the
+   tiles; holds K4 on its 65,536-lane ray sets as on showcase's, adding a
+   sparse relist (about 1.5% of the lanes) on the primary rays, runs
+   the whole-trace checks of 3b on it, and drives its binned closest and
+   NEE traces with every launch count set to 0 just before and read just
+   after (each K4 launch there must be the tile walk's);
 4. drives the main path: a default (megakernel) render of
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
    through ``Renderer``, timed after one warm-up, with K1's launch count
@@ -74,9 +85,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    each bound from its input: for K1 and K3 a plain pass finds, for each
    ray set, the clusters whose box the ray meets before its final hit (or
    its own bound), and counts their real slots and boxes at the f32
-   operations of the CUDA tests; K4 counts the listing's box tests, K5
-   the slot tests of the lanes holding each served cluster, K6 those of
-   each valid pair's own cluster. Then K1 launch by launch over one
+   operations of the CUDA tests; K4's bound is a floor for any exact
+   listing (per listing lane, the boxes of the clusters it meets whose key
+   ends at or below its final tlim, and one super box for each super
+   holding them; or the bytes), printed beside the one-thread walk's work
+   (every super, every cluster of a super met) and an empty kernel's time
+   on the same grid (the launch floor), and K4 is timed before and after
+   the redesign (the one-thread walk and the tile walk in turns: old, new,
+   new, old); K5 counts the slot tests of the lanes holding each served
+   cluster, K6 those of each valid pair's own cluster. K4, K5 and K6 are
+   timed so on the many-cluster scene too, and K4 on its sparse relist;
+   then K4 (both walks in turns) on showcase tiled 2 x 1, 2 x 2, 3 x 3
+   and 4 x 4, grids of a few supers where the rule's cut between the
+   walks lies. Then K4 launch by launch over
+   one binned closest trace and one binned NEE trace of each scene
+   (generation, listing lanes, keys listed, lists full, the tile walk's
+   and the one-thread walk's ms, the empty launch, the bound, the rule's G
+   over its CTAs). Then K1 launch by launch over one
    parity sample step of the main path (width, cap, G, lanes alive,
    lane-bounces, ms, bound) and K3 at 65,536 primary rays and 16,384,
    4,096 and 1,024 live bounce-like rays, each at the wrappers' G; then at
@@ -89,13 +114,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    instance, and K6 launch by launch over one pair NEE trace (pairs, valid
    pairs, distinct ids per block, G, ms, bound, TPU work) with its widest
    and narrowest launch at every G;
-7. prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+7. prints a ``{"kernels": [...]}`` line (K4 in two rows: showcase's
+   renders with the walk the rule launches there, and the tile walk on
+   the many-cluster scene with the launches of its traces), the
+   ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
-after the kernel comparisons (phases 2-3b) and exits 4; ``--tables``
-builds, prints only the K1, K3, K5 and K6 launch tables of phase 6 and
-the timed main-path render of phase 4, and exits 4;
+after the kernel comparisons (phases 2-3c) and exits 4; ``--tables``
+builds, prints only the K1, K3, K4 (both scenes, and the few-super
+tilings), K5 and K6 launch tables of phase 6 and the timed main-path
+render of phase 4, and exits 4;
 ``--profile`` adds a torch.profiler breakdown of one pass of each engine.
 """
 
@@ -150,7 +179,15 @@ ATOL = 1e-4
 RTOL = 1e-4
 K3_ATOL = 1e-6
 WAVEFRONT_FLIP_FRAC = 24 / 4096  # the golden gate's flip budget, per pixel
-GROUPS = (1, 2, 4, 8, 16, 32)  # threads per ray that K1 and K3 are built for
+GROUPS = (1, 2, 4, 8, 16, 32)  # threads per ray that K1, K3 and K4's tile walk are built for
+ONE_THREAD = (0, 128, 0)  # K4's one-thread walk (variant 0) as ``listing_split`` gives it
+# The many-cluster scene (``tiled_options``): 16 x 16 copies of showcase,
+# 352,768 triangles, a low camera across them.
+TILES = 16
+FEW_TILES = ((2, 1), (2, 2), (3, 3), (4, 4))  # tilings of a few supers, where K4's rule is cut
+TILE_PITCH = (12.5, 9.5)
+TILE_SEED = 6
+TILED_CAMERA = ((-8.0, 4.0, 8.0), (100.0, -20.0, -100.0))
 # Device sleep queued ahead of each timed launch: about 10 ms at the H100's
 # clock, far longer than a wrapper's host work.
 SLEEP_CYCLES = 20_000_000
@@ -251,6 +288,44 @@ def showcase_options(width, height, spp, obj="showcase", **kw):
     base.update(kw)
     scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
     return scene, dataclasses.replace(scene.options, **base)
+
+
+def tiled_options(width, height, spp, tiles=(TILES, TILES), **kw):
+    """(scene, options) of the many-cluster scene: showcase's triangles,
+    materials and media tiled ``tiles`` (TILES x TILES) on the ground plane at
+    TILE_PITCH (showcase's floor is 12 x 9), each tile shifted by a jitter
+    in [0, 0.5) along x and z drawn from TILE_SEED; showcase's light; a low
+    camera looking across the tiles' diagonal (TILED_CAMERA). Built through
+    ``Renderer`` like showcase: auto width, partition and super fan-out."""
+    scene, opt = showcase_options(width, height, spp, **kw)
+    rs = np.random.default_rng(TILE_SEED)
+    offs = np.asarray([(TILE_PITCH[0] * i + rs.uniform(0.0, 0.5), 0.0,
+                        -TILE_PITCH[1] * j - rs.uniform(0.0, 0.5))
+                       for i in range(tiles[0]) for j in range(tiles[1])], np.float32)
+    tris = (scene.triangles[None] + offs[:, None, None, :]).reshape(-1, 3, 3)
+    scene = scene._replace(triangles=np.ascontiguousarray(tris, np.float32),
+                           mat_ids=np.tile(scene.mat_ids, len(offs)))
+    return scene, dataclasses.replace(opt, camera_pos=TILED_CAMERA[0],
+                                      camera_look_at=TILED_CAMERA[1])
+
+
+def tiled_scene(tiles=(TILES, TILES)):
+    """(renderer, ray sets) of the many-cluster scene (or another tiling)
+    at the main path's 512x512, 16 spp, with its cluster and super counts
+    printed."""
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    t0 = time.perf_counter()
+    scene, opt = tiled_options(512, 512, 16, tiles)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = Renderer(scene, opt)
+    g = r.accel
+    print(f"   showcase tiled {tiles[0]} x {tiles[1]}, {scene.triangles.shape[0]} triangles: "
+          f"{g.num_clusters} clusters of width "
+          f"{g.width}, {g.num_supers} supers of {g.super_factor} ({g.num_opaque_supers} opaque); "
+          f"built and uploaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    return r, ray_sets(r)
 
 
 def band_state(r, rng_mode):
@@ -1115,20 +1190,7 @@ def k456_vs_plain(r, media9, sets):
     errs = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
     with uncounted():
         for name, (o, d, eff) in sets.items():
-            rays = rays6(o, d)
-            fresh = fresh_tlo(eff)
-            relist = bt.listing_plain(g, rays, eff, fresh, 2)[0][1].contiguous()
-            for L in BINNED_LISTS:
-                for tname, tlo in (("fresh", fresh), ("relisting", relist)):
-                    keys, tlim = bt.listing(g, rays, eff, tlo, L)
-                    torch.cuda.synchronize()
-                    wk, wt = bt.listing_plain(g, rays, eff, tlo, L)
-                    bad = int(((keys != wk).any(0) | (tlim != wt)).sum())
-                    print(f"   K4 L={L}, {name} rays, {tname} t_lo: lanes {rays.shape[1]}, "
-                          f"listing {int((tlo != bt.EMPTY).sum())}, keys listed "
-                          f"{int((keys != bt.EMPTY).sum())}, lanes differing {bad}", flush=True)
-                    if bad:
-                        fail(f"K4 differs from its plain version (L={L}, {name}, {tname})")
+            k4_vs_plain(g, f"showcase {name}", rays6(o, d), eff, sparse=name == "full")
         cases = [(f"{payload}, L=8, cap_iters={cap}",
                   first_round(r, payload, *sets[payload], 8)[1:], payload, cap)
                  for payload, cap in (("full", 12), ("dist", 12), ("nee", 12), ("full", 2))]
@@ -1180,6 +1242,90 @@ def k456_vs_plain(r, media9, sets):
                 if not equal:
                     fail(f"K6 differs from its plain version ({payload}, {label}, G={gs})")
     return errs
+
+
+def k4_configs(n, supers):
+    """(label, ``listing_split`` value; None: the rule's) of every K4
+    instance for a launch over ``n`` lanes of a grid of ``supers`` supers:
+    the one-thread walk (variant 0), the tile walk with G chosen per CTA
+    (its span from ``listing_span``) and at each fixed G (span LIST_CTA /
+    G), and the rule's launch."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    return ([("one-thread", ONE_THREAD), ("tile", (1, bt.listing_span(n, supers), 0))]
+            + [(f"G={gs}", (1, ct.LIST_CTA // gs, gs)) for gs in GROUPS] + [("rule", None)])
+
+
+def tile_split(g, n):
+    """The tile walk's launch over ``n`` lanes of grid ``g``, G per CTA."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    return 1, bt.listing_span(n, g.num_supers), 0
+
+
+def k4_forced(cfg):
+    """K4 launches as ``cfg`` (a ``listing_split`` value; None: the rule)."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    return forced(bt, "listing_split",
+                  bt.listing_split if cfg is None else (lambda _n, _s, cfg=cfg: cfg))
+
+
+def relist_tlo(g, rays, eff):
+    """The second generation's t_lo of a fresh listing: each lane's second
+    key (EMPTY where the lane listed fewer)."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    return bt.listing_plain(g, rays, eff, fresh_tlo(eff), 2)[0][1].contiguous()
+
+
+def sparse_tlo(tlo, frac=0.015, seed=11):
+    """``tlo`` on about ``frac`` of the lanes (drawn from ``seed``), EMPTY
+    elsewhere: a sparse relist, its few live lanes scattered over all."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    gen = torch.Generator(device=tlo.device).manual_seed(seed)
+    pick = torch.rand(tlo.shape, generator=gen, device=tlo.device) < frac
+    return torch.where(pick, tlo, bt.EMPTY).to(torch.int32).contiguous()
+
+
+def k4_vs_plain(g, label, rays, eff, sparse=False):
+    """K4 against ``listing_plain`` on the card at every list length of
+    BINNED_LISTS, with fresh and relisting t_lo (and, with ``sparse``, a
+    relist on about 1.5% of the lanes), at every instance of
+    ``k4_configs``: keys and tlim equal on every lane. Returns the largest
+    |key difference| seen (0)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    worst = 0.0
+    fresh = fresh_tlo(eff)
+    relist = relist_tlo(g, rays, eff)
+    tlos = [("fresh", fresh), ("relisting", relist)]
+    if sparse:
+        tlos.append(("sparse relisting", sparse_tlo(relist)))
+    for L in BINNED_LISTS:
+        for tname, tlo in tlos:
+            wk, wt = bt.listing_plain(g, rays, eff, tlo, L)
+            torch.cuda.synchronize()
+            bad = {}
+            for cname, cfg in k4_configs(rays.shape[1], g.num_supers):
+                with k4_forced(cfg):
+                    keys, tlim = bt.listing(g, rays, eff, tlo, L)
+                    torch.cuda.synchronize()
+                bad[cname] = int(((keys != wk).any(0) | (tlim != wt)).sum())
+                worst = max(worst, float((keys.long() - wk.long()).abs().max()))
+            print(f"   K4 L={L}, {label} rays, {tname} t_lo: lanes {rays.shape[1]}, listing "
+                  f"{int((tlo != bt.EMPTY).sum())}, keys listed {int((wk != bt.EMPTY).sum())}, "
+                  f"lists full {int((wt != bt.EMPTY).sum())}; lanes differing: " + ", ".join(
+                      f"{c} {b}" for c, b in bad.items()), flush=True)
+            if any(bad.values()):
+                fail(f"K4 differs from its plain version (L={L}, {label}, {tname}): {bad}")
+    return worst
 
 
 def whole_traces(r, media9, sets):
@@ -1287,13 +1433,133 @@ def real_slots(g):
     return real
 
 
-def time_k456(r, media9, sets):
+def k4_work(g, rays, bound, tlo, tlim, chunk=4096):
+    """(box tests a floor, box tests of the one-thread walk, box tests of
+    the tile walk with its culls left out) of a listing. Per listing lane,
+    the floor tests the boxes of the clusters the lane meets whose key is at
+    or below its final ``tlim`` (every exact listing must test them) and
+    one super box for each super holding them; the one-thread walk (variant
+    0) tests every super and every cluster of a super the lane meets; the
+    tile walk tests every group box, every super of a group the lane meets
+    and every cluster of a super it meets (its culls only remove tests)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    C, S, SF, GS = g.num_clusters, g.num_supers, g.super_factor, ct.LIST_SUPER_GROUP
+    ids = torch.arange(C, dtype=torch.int32, device=rays.device)
+    owner = (ids // SF).to(torch.int64)
+    _, per_super = grid_counts(g)
+    sb = g.super_bounds
+    groups = torch.stack([torch.cat([sb[k:k + GS, 0:3].amin(0), sb[k:k + GS, 3:6].amax(0),
+                                     sb[k, 6:8]]) for k in range(0, S, GS)])
+    per_group = torch.tensor([min(GS, S - k) for k in range(0, S, GS)], dtype=torch.float64,
+                             device=rays.device)
+    live = (tlo != bt.EMPTY).nonzero().squeeze(1)
+    floor = walk = tile = 0.0
+    for lo in range(0, live.numel(), chunk):
+        idx = live[lo:lo + chunk]
+        O = tuple(rays[a, idx] for a in range(3))
+        INV = tuple(bt._safe_inv(rays[3 + a, idx]) for a in range(3))
+        _, hit_g = bt._entries(groups, O, INV, bound[idx])
+        _, hit_s = bt._entries(sb, O, INV, bound[idx])
+        tn, hit = bt._entries(g.bounds, O, INV, bound[idx])
+        hit = hit & hit_s[:, owner]
+        key = (tn.view(torch.int32) & ~bt.ID_MASK) | ids
+        need = hit & (key <= tlim[idx, None])
+        holders = torch.zeros((idx.numel(), S), dtype=torch.int32, device=rays.device)
+        holders.index_add_(1, owner, need.to(torch.int32))
+        floor += float(need.sum()) + float((holders > 0).sum())
+        met = float((hit_s.double() @ per_super).sum())
+        walk += idx.numel() * S + met
+        tile += idx.numel() * groups.shape[0] + float((hit_g.double() @ per_group).sum()) + met
+    return floor, walk, tile
+
+
+def k4_bound(g, rays, bound, tlo, tlim, L):
+    """(bound ms, bound by, (floor, one-thread walk, tile walk) box tests,
+    bytes) of a listing: the larger of its bytes (each lane reads 8 words
+    and writes L + 1; every box once) and the floor's box tests
+    (``k4_work``) at SLAB_OPS each."""
+    n = rays.shape[1]
+    work = k4_work(g, rays, bound, tlo, tlim)
+    nbytes = n * (8 + L + 1) * 4 + (g.num_clusters + g.num_supers) * 32
+    b_ms, b_by = bound_of(nbytes, work[0] * SLAB_OPS)
+    return b_ms, b_by, work, nbytes
+
+
+def work_ms(tests):
+    """Device ms of ``tests`` box tests at SLAB_OPS each at the card's f32
+    rate."""
+    return tests * SLAB_OPS / PEAK_F32_OPS * 1e3
+
+
+def empty_ms(n, supers, L, reps=30):
+    """Device ms of an empty kernel on the grid of the tile walk's launch
+    over ``n`` lanes, launched and timed as the kernel is: the launch
+    floor."""
+    import ctypes
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import build
+
+    fn = build.listing_empty(L)
+    span = bt.listing_span(n, supers)
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+
+    def launch(_i):
+        err = fn(n, span, stream())
+        if err:
+            fail(f"the empty kernel did not launch: {build.error_string(err)}")
+
+    cuda_time(launch, 3)
+    return cuda_time(launch, reps)
+
+
+def time_k4(g, label, rays, eff, tlo, L, reps=50):
+    """K4 per launch on one input: the one-thread walk (variant 0, the
+    kernel before the redesign) and the tile walk (G per CTA) in turns
+    (old, new, new, old), the plain version, the empty launch, and the
+    bound (``k4_bound``) beside both walks' work. Returns (ms, plain ms,
+    bound ms, bound by) of the walk the rule launches (``listing_split``)."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    n = rays.shape[1]
+    _, tlim = bt.listing_plain(g, rays, eff, tlo, L)
+    b_ms, b_by, (floor, walk, tile), nbytes = k4_bound(g, rays, eff, tlo, tlim, L)
+    times = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        with k4_forced(ONE_THREAD if which == "old" else tile_split(g, n)):
+            cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), 5)
+            times[which].append(cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), reps))
+    old, new = (sum(times[k]) / 2 for k in ("old", "new"))
+    plain_ms = cuda_time(lambda i: bt.listing_plain(g, rays, eff, tlo, L), 3)
+    floor_ms = empty_ms(n, g.num_supers, L)
+    print(f"   K4 at {n} lanes ({label}, {int((tlo != bt.EMPTY).sum())} listing, L={L}; the "
+          f"rule launches {bt.listing_split(n, g.num_supers)}): tile walk {tile_split(g, n)} "
+          f"{times['new'][0]:.5f}, "
+          f"{times['new'][1]:.5f} ms; one-thread walk {times['old'][0]:.5f}, "
+          f"{times['old'][1]:.5f} ms (in turns: old, new, new, old); plain {plain_ms:.3f} ms; "
+          f"empty launch {floor_ms:.5f} ms; floor {floor:.0f} box tests, one-thread walk's work "
+          f"{walk:.0f} = {work_ms(walk):.5f} ms, tile walk's without its culls {tile:.0f} = "
+          f"{work_ms(tile):.5f} ms; {nbytes} bytes; bound {b_ms:.5f} ms "
+          f"({b_by}), tile walk at {b_ms / new:.4f} of it, one-thread walk at {b_ms / old:.4f}",
+          flush=True)
+    rule = new if bt.listing_split(n, g.num_supers)[0] == 1 else old
+    return rule, plain_ms, b_ms, b_by
+
+
+def time_k456(r, media9, sets, label="showcase"):
     """K4, K5 and K6 per launch at their widest launches on the engines'
     paths (65,536 lanes), each plain version on the same input, and the
     bounds from the work that input needs: K4 the listing of the binned
-    closest trace (L = 8, primary rays, fresh), K5 that trace's first round,
-    K6 the pair engine's NEE sweep (L = 4, shadow rays). Returns
-    {kernel: (ms, plain ms, bound ms, bound by)}."""
+    closest trace (L = 8, primary rays, fresh; ``time_k4``), K5 that
+    trace's first round, K6 the pair engine's NEE sweep (L = 4, shadow
+    rays). Returns {kernel: (ms, plain ms, bound ms, bound by)}, K4's of
+    the walk the rule launches."""
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
@@ -1304,29 +1570,12 @@ def time_k456(r, media9, sets):
     real = real_slots(g)
     run_bytes = g.run_rows.numel() * 4
     out = {}
-
-    def bound(nbytes, ops):
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_F32_OPS * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     with uncounted():
         # K4
         o, d, eff = sets["full"]
         rays, tlo, L = rays6(o, d), fresh_tlo(eff), 8
         n = rays.shape[1]
-        need, sup, _ = boxes_met(g, (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]), eff, eff)
-        _, per_super = grid_counts(g)
-        slabs = float(need.sum()) * g.num_supers + float((sup.double() @ per_super).sum())
-        nbytes = n * (8 + L + 1) * 4 + (g.num_clusters + g.num_supers) * 32
-        b_ms, b_by = bound(nbytes, slabs * SLAB_OPS)
-        cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), 5)
-        ms = cuda_time(lambda i: bt.listing(g, rays, eff, tlo, L), 50)
-        plain_ms = cuda_time(lambda i: bt.listing_plain(g, rays, eff, tlo, L), 3)
-        out["K4"] = (ms, plain_ms, b_ms, b_by)
-        print(f"   K4 at {n} primary lanes, L={L}: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; "
-              f"needed work {slabs:.0f} box tests; {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), "
-              f"kernel at {b_ms / ms:.4f} of it", flush=True)
+        out["K4"] = time_k4(g, label, rays, eff, tlo, L)
         # K5
         K, rays5, keys, state, lb = first_round(r, "full", o, d, eff, L)
         served = []
@@ -1337,7 +1586,7 @@ def time_k456(r, media9, sets):
             holders += float((cnt[ok].double() * real[c[ok].to(torch.int64)]).sum())
         ns = state.shape[0]
         nbytes = n * (6 + 2 * (L + ns)) * 4 + (n // bt.BLOCK) * 4 + run_bytes
-        b_ms, b_by = bound(nbytes, holders * (ORIGIN_OPS + RAY_OPS))
+        b_ms, b_by = bound_of(nbytes, holders * (ORIGIN_OPS + RAY_OPS))
         copies = [(keys.clone(), state.clone()) for _ in range(25)]
         launch = lambda i: bt.run_round(g, media9, lb, rays5, *copies[i], "full", K, 12)  # noqa: E731
         cuda_time(launch, 5)
@@ -1345,9 +1594,8 @@ def time_k456(r, media9, sets):
         plain_ms = cuda_time(lambda i: bt.round_plain(g, media9, lb, rays5, keys, state, "full", K,
                                                       12), 3)
         out["K5"] = (ms, plain_ms, b_ms, b_by)
-        print(f"   K5 at {n} primary lanes ({lb} live blocks, G, S = {bt.round_split(lb)}), first "
-              f"round of the closest "
-              f"trace: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work "
+        print(f"   K5 at {n} primary lanes ({label}, {lb} live blocks, G, S = "
+              f"{bt.round_split(lb)}), first round of the closest trace: {ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work "
               f"{holders:.0f} slot tests of lanes holding the served cluster; {nbytes} bytes; "
               f"bound {b_ms:.5f} ms ({b_by}), kernel at {b_ms / ms:.4f} of it", flush=True)
         # K6
@@ -1358,14 +1606,14 @@ def time_k456(r, media9, sets):
         valid = cid < bt.BIGC
         pairs_work = float(real[cid[valid].to(torch.int64)].sum())
         nbytes = cid.shape[0] * (8 + K + 1) * 4 + run_bytes
-        b_ms, b_by = bound(nbytes, pairs_work * (ORIGIN_OPS + RAY_OPS))
+        b_ms, b_by = bound_of(nbytes, pairs_work * (ORIGIN_OPS + RAY_OPS))
         pairs = int(valid.sum())
         cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K, pairs), 5)
         ms = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K, pairs), 50)
         plain_ms = cuda_time(lambda i: ps.sweep_plain(g, media9, pair_rays, cid, "nee", K), 3)
         out["K6"] = (ms, plain_ms, b_ms, b_by)
-        print(f"   K6 at {pairs} pairs of {n} shadow lanes (L={PAIR_LIST}, G={ct.group_size(pairs)}), "
-              f"'nee': "
+        print(f"   K6 at {pairs} pairs of {n} shadow lanes ({label}, L={PAIR_LIST}, "
+              f"G={ct.group_size(pairs)}), 'nee': "
               f"{ms:.4f} ms per launch; plain {plain_ms:.3f} ms; needed work {pairs_work:.0f} "
               f"slot tests; {nbytes} bytes; bound {b_ms:.5f} ms ({b_by}), kernel at "
               f"{b_ms / ms:.4f} of it", flush=True)
@@ -1480,6 +1728,172 @@ def bound_of(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def recorded_listings(r, media9, sets, payload, list_len=8):
+    """The input of every K4 launch of one binned trace of ``sets[payload]``
+    ('full' bounded by the scene box, as the closest trace is): (rays,
+    bound, t_lo), recorded before each launch."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    o, d, eff = sets[payload]
+    sc = r.scene_arrays
+    kw = {}
+    if payload == "full":
+        eff = torch.full((o.shape[0],), 1e4, device=o.device)
+        kw = dict(world_lo=sc.world_lo, world_hi=sc.world_hi)
+    calls = []
+    run = bt.listing
+
+    def rec(grid, rays, bound, tlo, L):
+        calls.append((rays.clone(), bound.clone(), tlo.clone()))
+        return run(grid, rays, bound, tlo, L)
+
+    rec.launches = 0  # the wrapper counts its launches under its module name
+
+    with uncounted(), forced(bt, "listing", rec):
+        bt.trace_binned(r.accel, media9, o, d, eff, payload, list_len=list_len, **kw)
+        torch.cuda.synchronize()
+    return calls
+
+
+def rule_groups(g, n, tlo):
+    """What the rule launches: the one-thread walk, or the tile walk's G
+    over its CTAs that hold a listing lane, as "G=4 x1020, G=32 x4"."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import cluster_test as ct
+
+    if bt.listing_split(n, g.num_supers)[0] == 0:
+        return "one-thread walk"
+    span = bt.listing_span(n, g.num_supers)
+    live = (tlo != bt.EMPTY).to(torch.int32)
+    live = torch.cat([live, live.new_zeros((-n) % span)]).view(-1, span).sum(1)
+    mix = {}
+    for c in live[live > 0].tolist():
+        gs = ct.listing_group(c, g.num_supers)
+        mix[gs] = mix.get(gs, 0) + 1
+    return ", ".join(f"G={gs} x{k}" for gs, k in sorted(mix.items()))
+
+
+def k4_launch_table(r, media9, sets, label, reps=20):
+    """K4 launch by launch over one binned closest trace ('full', primary
+    rays) and one binned NEE trace ('nee', shadow rays), list 8: the
+    generation (0 fresh, later ones relists), listing lanes, keys listed,
+    lists full, what the rule launches (the one-thread walk, or the tile
+    walk's G over its CTAs), device ms of the tile walk (G per CTA) and
+    of the one-thread walk, the empty launch, the bound (the floor of
+    ``k4_work``, or bytes) and the work of the one-thread walk and of the
+    tile walk without its culls at SLAB_OPS a box; then the widest and the
+    narrowest launch of each trace at every instance of ``k4_configs``.
+    Returns (tile walk ms, one-thread walk ms, bound ms) over the closest
+    trace."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    g = r.accel
+    L = 8
+    total = None
+    for payload in ("full", "nee"):
+        calls = recorded_listings(r, media9, sets, payload, L)
+        print(f"   K4 launches of one binned {payload} trace ({label}: {g.num_clusters} clusters, "
+              f"{g.num_supers} supers; {sets[payload][0].shape[0]} lanes, list {L}):", flush=True)
+        print("     gen  listing  keys listed  lists full  tile walk ms  one-thread ms  empty ms"
+              "   bound ms  bound by  work ms: one-thread  tile (no culls)  share of bound  the "
+              "rule launches", flush=True)
+        sums = [0.0, 0.0, 0.0]
+        with uncounted():
+            for i, (rays, bnd, tlo) in enumerate(calls):
+                n = rays.shape[1]
+                keys, tlim = bt.listing_plain(g, rays, bnd, tlo, L)
+                b_ms, b_by, (_, walk, tile), _ = k4_bound(g, rays, bnd, tlo, tlim, L)
+                ms = {}
+                for which, cfg in (("new", tile_split(g, n)), ("old", ONE_THREAD)):
+                    with k4_forced(cfg):
+                        launch = lambda _i: bt.listing(g, rays, bnd, tlo, L)  # noqa: E731
+                        cuda_time(launch, 3)
+                        ms[which] = cuda_time(launch, reps)
+                e_ms = empty_ms(n, g.num_supers, L)
+                sums = [sums[0] + ms["new"], sums[1] + ms["old"], sums[2] + b_ms]
+                print(f"     {i:3d} {int((tlo != bt.EMPTY).sum()):8d} "
+                      f"{int((keys != bt.EMPTY).sum()):12d} {int((tlim != bt.EMPTY).sum()):11d} "
+                      f"{ms['new']:13.5f} {ms['old']:14.5f} {e_ms:9.5f} {b_ms:10.5f} {b_by:>9s} "
+                      f"{work_ms(walk):19.5f} {work_ms(tile):16.5f} {b_ms / ms['new']:15.4f}  "
+                      f"{rule_groups(g, n, tlo)}", flush=True)
+        print(f"   K4 over the {payload} trace ({label}): {len(calls)} launches "
+              f"({len(calls) - 1} relists), tile walk {sums[0]:.5f} ms, one-thread walk "
+              f"{sums[1]:.5f} ms, bound {sums[2]:.5f} ms", flush=True)
+        listing = [int((c[2] != bt.EMPTY).sum()) for c in calls]
+        with uncounted():
+            ends = {listing.index(min(listing)): "narrowest", listing.index(max(listing)): "widest"}
+            for i, which in ends.items():
+                rays, bnd, tlo = calls[i]
+                times = []
+                configs = k4_configs(rays.shape[1], g.num_supers)
+                for _, cfg in configs:
+                    with k4_forced(cfg):
+                        launch = lambda _i: bt.listing(g, rays, bnd, tlo, L)  # noqa: E731
+                        cuda_time(launch, 3)
+                        times.append(cuda_time(launch, reps))
+                print(f"   K4 {payload} trace ({label}), {which} launch ({listing[i]} listing "
+                      f"lanes) by instance: " + ", ".join(
+                          f"{c} {t:.5f} ms" for (c, _), t in zip(configs, times)), flush=True)
+        total = total or tuple(sums)
+    return total
+
+
+def k4_few_supers(reps=50):
+    """K4 on tilings of showcase of a few supers (FEW_TILES), where the
+    rule's cut between the one-thread walk and the tile walk lies: on each,
+    the two walks in turns (``time_k4``) on the fresh listing of the
+    closest trace's 65,536 primary lanes and of the NEE trace's shadow
+    rays, list 8, with what the rule launches."""
+    with uncounted():
+        for tiles in FEW_TILES:
+            r, sets = tiled_scene(tiles)
+            for payload in ("full", "nee"):
+                o, d, eff = sets[payload]
+                time_k4(r.accel, f"tiled {tiles[0]} x {tiles[1]}, {payload}", rays6(o, d), eff,
+                        fresh_tlo(eff), 8, reps)
+
+
+def tiled_path(r, media9, sets, list_len=8):
+    """The many-cluster scene's binned traces as the binned engine makes
+    them: a closest trace ('full', bounded by the scene box) of the primary
+    rays and a NEE trace of the shadow rays, every launch count set to 0
+    just before and read just after. Returns K4's launches; fails unless
+    there were some and the rule launched the tile walk at each."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    variants = []
+    rule = bt.listing_split
+
+    def recorded(n, supers):
+        split = rule(n, supers)
+        variants.append(split[0])
+        return split
+
+    sc = r.scene_arrays
+    reset_launch_counts()
+    with forced(bt, "listing_split", recorded):
+        for payload in ("full", "nee"):
+            o, d, eff = sets[payload]
+            kw = {}
+            if payload == "full":
+                eff = torch.full((o.shape[0],), 1e4, device=o.device)
+                kw = dict(world_lo=sc.world_lo, world_hi=sc.world_hi)
+            bt.trace_binned(r.accel, media9, o, d, eff, payload, list_len=list_len, **kw)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"   many-cluster path (a binned closest and a binned NEE trace, list {list_len}): "
+          f"launches {counts}; K4's walks by variant {sorted(set(variants))}", flush=True)
+    if counts["K4"] < 1 or counts["K4"] != len(variants) or set(variants) != {1}:
+        fail(f"the many-cluster traces should launch K4's tile walk: {counts}, {variants}")
+    return counts["K4"]
 
 
 def k5_launch_table(r, media9, sets, reps=10):
@@ -1707,8 +2121,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="stop after the first kernel comparisons")
     ap.add_argument("--profile", action="store_true", help="add torch.profiler breakdowns")
     ap.add_argument("--tables", action="store_true",
-                    help="only build, print the K1, K3, K5 and K6 launch tables and time the "
-                    "main path")
+                    help="only build, print the K1, K3, K4, K5 and K6 launch tables and time "
+                    "the main path")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -1749,13 +2163,17 @@ def main() -> int:
 
     main_opts = showcase_options(512, 512, 16)
     if args.tables:
-        phase("K1, K3, K5 and K6 launch tables")
+        phase("K1, K3, K4, K5 and K6 launch tables")
         r = Renderer(*main_opts)
         inputs = mega_inputs(r)
         media9 = inputs[0]
         k1_step_table(r, *inputs)
         k3_width_table(r)
         sets = ray_sets(r)
+        k4_launch_table(r, media9, sets, "showcase")
+        rt, sets_t = tiled_scene()
+        k4_launch_table(rt, media9, sets_t, "tiled")
+        k4_few_supers()
         k5_launch_table(r, media9, sets)
         k6_launch_table(r, media9, sets)
         main_path(main_opts)
@@ -1781,6 +2199,13 @@ def main() -> int:
     sets = ray_sets(r)
     errs = k456_vs_plain(r, media9, sets)
     whole_traces(r, media9, sets)
+
+    phase(f"many-cluster scene: showcase tiled {TILES} x {TILES}, K4 against plain")
+    rt, sets_t = tiled_scene()
+    err_t = max(k4_vs_plain(rt.accel, f"tiled {payload}", rays6(o, d), eff,
+                            sparse=payload == "full") for payload, (o, d, eff) in sets_t.items())
+    whole_traces(rt, media9, sets_t)
+    tiled_k4 = tiled_path(rt, media9, sets_t)
     if args.quick:
         print("chip_smoke: --quick stops here", flush=True)
         return 4  # nonzero: no result line is printed
@@ -1811,6 +2236,15 @@ def main() -> int:
     k1_step_table(r, media9, misc, base)
     k3_width_table(r)
     k456 = time_k456(r, media9, sets)
+    k456_t = time_k456(rt, media9, sets_t, "tiled")
+    with uncounted():
+        o, d, eff = sets_t["full"]
+        rays = rays6(o, d)
+        time_k4(rt.accel, "tiled, sparse relist", rays, eff,
+                sparse_tlo(relist_tlo(rt.accel, rays, eff)), 8)
+    k4_launch_table(r, media9, sets, "showcase")
+    k4_launch_table(rt, media9, sets_t, "tiled")
+    k4_few_supers()
     k5_launch_table(r, media9, sets)
     k6_launch_table(r, media9, sets)
     if args.profile:
@@ -1848,22 +2282,28 @@ def main() -> int:
         "source": f"{PACKAGE}/csrc/{src}",
         "replaces": replaces,
         "launches": launches,
-        "max_abs_err": errs[kid],
-        "ms": k456[kid][0],
-        "plain_ms": k456[kid][1],
-        "bound_ms": k456[kid][2],
-        "bound_by": k456[kid][3],
+        "max_abs_err": err,
+        "ms": timed[kid][0],
+        "plain_ms": timed[kid][1],
+        "bound_ms": timed[kid][2],
+        "bound_by": timed[kid][3],
         "library_ms": None,
-    } for kid, name, src, replaces, launches in (
-        ("K4", "per-lane candidate-cluster listing (K4)", "binned_listing.cu",
+    } for kid, name, src, replaces, launches, err, timed in (
+        ("K4", "per-lane candidate-cluster listing (K4; on showcase's grid of one super the "
+         "rule launches its one-thread walk, timed at 65,536 lanes; launches: the binned and "
+         "pair renders)", "binned_listing.cu",
          "complex_materials_renderer_tpu/kernels/binned_trace.py:88",
-         engines["binned"][0]["K4"] + engines["pair"][0]["K4"]),
+         engines["binned"][0]["K4"] + engines["pair"][0]["K4"], errs["K4"], k456),
+        ("K4", "K4 tiled: per-lane candidate-cluster listing, its tile walk on the "
+         "many-cluster scene (timed at 65,536 lanes; launches: a binned closest and a binned "
+         "NEE trace of that scene)", "binned_listing.cu",
+         "complex_materials_renderer_tpu/kernels/binned_trace.py:88", tiled_k4, err_t, k456_t),
         ("K5", "binned round (K5, with the triangle tester K2 inlined)", "binned_round.cu",
          "complex_materials_renderer_tpu/kernels/binned_trace.py:199",
-         engines["binned"][0]["K5"]),
+         engines["binned"][0]["K5"], errs["K5"], k456),
         ("K6", "cluster-major pair sweep (K6, with the triangle tester K2 inlined)",
          "pair_sweep.cu", "complex_materials_renderer_tpu/kernels/pairsweep.py:111",
-         engines["pair"][0]["K6"]),
+         engines["pair"][0]["K6"], errs["K6"], k456),
     )]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

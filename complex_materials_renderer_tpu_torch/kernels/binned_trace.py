@@ -40,6 +40,9 @@ import torch
 from ..render.hitinfo import T_MIN
 from .cluster_grid import DeviceClusterGrid
 from .cluster_test import (
+    LIST_CTA,
+    group_size,
+    listing_group,
     nee_list_len,
     nee_unpack_mat,
     nee_unpack_t,
@@ -48,7 +51,7 @@ from .cluster_test import (
     slot_table,
     trace_slots,
 )
-from .megakernel import _require, _safe_inv
+from .megakernel import MAX_SUPERS, _require, _safe_inv
 
 BLOCK = 1024  # lanes of one round block (the TPU kernel's (8, 128) tile)
 # K5 on the card: threads per lane it is built for, threads of a CTA
@@ -176,11 +179,40 @@ def listing_plain(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tens
     return keys, keys[L - 1].clone()
 
 
+def listing_span(lanes: int, supers: int) -> int:
+    """Lanes of a CTA of K4's tile walk over ``lanes`` lanes of a grid of
+    ``supers`` supers: a CTA whose lanes all list gets the G of
+    ``listing_group`` at the width's ``group_size`` (65,536 lanes: 64 lanes
+    a CTA at G = 4), so that a launch whose lanes all list puts about
+    FILL_THREADS threads on the card."""
+    return LIST_CTA // listing_group(LIST_CTA // group_size(lanes), supers)
+
+
+# The most supers on which K4 takes the one-thread walk: on showcase tiled
+# to 1, 2, 3 and 7 supers the tile walk's prologue and its box levels cost
+# more than its culls and tiles save, from 12 supers on they do not (PERF.md).
+LIST_ONE_THREAD_SUPERS = 7
+
+
+def listing_split(lanes: int, supers: int):
+    """(variant, span, group) of a K4 launch over ``lanes`` lanes of a grid
+    of ``supers`` supers (csrc/binned_listing.cu). The one-thread walk
+    (variant 0, 128 lanes a CTA) on a grid of at most
+    LIST_ONE_THREAD_SUPERS supers, and on a grid of more than MAX_SUPERS,
+    whose boxes do not fit the tile walk's shared memory. Otherwise the
+    tile walk (variant 1) over ``listing_span`` lanes a CTA, each CTA
+    choosing G from its own listing lanes (group 0)."""
+    if supers <= LIST_ONE_THREAD_SUPERS or supers > MAX_SUPERS:
+        return 0, 128, 0
+    return 1, listing_span(lanes, supers), 0
+
+
 def listing(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tensor,
             tlo: torch.Tensor, list_len: int):
     """(keys (L, n) int32, tlim (n,) int32) of the listing: the kernel of
     ``csrc/binned_listing.cu`` on CUDA tensors (launches counted in
-    ``listing.launches``), ``listing_plain`` on CPU tensors."""
+    ``listing.launches``; variant and tiles from ``listing_split``),
+    ``listing_plain`` on CPU tensors."""
     if list_len < 1:
         raise ValueError(f"list_len must be >= 1, got {list_len}")
     if rays.device.type == "cpu":
@@ -195,16 +227,21 @@ def listing(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tensor,
     _require(rays, "rays", torch.float32, (6, n), dev)
     _require(bound, "bound", torch.float32, (n,), dev)
     _require(tlo, "tlo", torch.int32, (n,), dev)
+    for t, name in ((grid.bounds, "bounds"), (grid.super_bounds, "super_bounds")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads float4 rows)")
     keys = torch.empty((list_len, n), dtype=torch.int32, device=dev)
     tlim = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return keys, tlim
     fn = build.binned_listing(list_len)
+    variant, span, group = listing_split(n, S)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(grid.bounds), p(grid.super_bounds), p(rays), p(bound), p(tlo), p(keys),
-                 p(tlim), n, C, S, grid.super_factor, ctypes.c_void_p(stream))
+                 p(tlim), n, C, S, grid.super_factor, variant, span, group,
+                 ctypes.c_void_p(stream))
     listing.launches += 1
     if err != 0:
         raise RuntimeError(f"listing kernel launch failed: {build.error_string(err)}")

@@ -9,7 +9,9 @@ build takes seconds, not minutes):
   parameter), each holding the kernel for every group size G (1, 2, 4, 8,
   16 and 32 threads per lane), chosen at launch;
 - ``cluster_trace.cu`` (K3), with every G likewise;
-- ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``);
+- ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``),
+  each holding both variants (the one-thread walk and the tile walk) at
+  every group size;
 - ``binned_round.cu`` (K5), one per (list length, ``--nee-bound``), each
   holding every payload at 1, 2, 4 and 8 threads per lane (thread block
   clusters of 2, 4, 8 and 16 CTAs);
@@ -57,7 +59,7 @@ _KINDS = {
     "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
                       [_vp] * 8 + [_ci] * 8 + [_vp]),
     "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",
-                       [_vp] * 7 + [_ci] * 4 + [_vp]),
+                       [_vp] * 7 + [_ci] * 7 + [_vp]),
     "binned_round": ("binned_round.cu", ("CMR_LIST_LEN", "CMR_NEE_MAX_MEDIA"),
                      "cmr_binned_round_launch",
                      [_vp, _ci] + [_vp] * 5 + [_ci] * 9 + [_vp]),
@@ -129,6 +131,9 @@ def _load(key, path: str):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _ci
+    if hasattr(lib, "cmr_binned_listing_empty"):
+        lib.cmr_binned_listing_empty.argtypes = [_ci, _ci, _vp]
+        lib.cmr_binned_listing_empty.restype = _ci
     if hasattr(lib, "cmr_binned_round_max_clusters"):
         lib.cmr_binned_round_max_clusters.argtypes = [_ci, _ci, ctypes.POINTER(_ci)]
         lib.cmr_binned_round_max_clusters.restype = _ci
@@ -200,6 +205,12 @@ def binned_listing(list_len: int):
     if lib.cmr_list_len() != list_len:
         raise RuntimeError("listing library built for another list length")
     return lib.cmr_binned_listing_launch
+
+
+def listing_empty(list_len: int):
+    """The launch function of an empty kernel on the grid of a listing
+    launch (the launch floor beside K4's bound)."""
+    return _library(("binned_listing", list_len)).cmr_binned_listing_empty
 
 
 def _round_library(list_len: int, nee_max_media: int):

@@ -69,6 +69,25 @@ def group_size(lanes: int) -> int:
     return GROUP_SIZES[-1]
 
 
+# The listing kernel K4's tile walk (csrc/binned_listing.cu): threads of a
+# CTA, and supers of a group box (the walk's top level).
+LIST_CTA = 256
+LIST_SUPER_GROUP = 8
+
+
+def listing_group(live: int, supers: int) -> int:
+    """G of a K4 CTA that holds ``live`` listing lanes of a grid of
+    ``supers`` supers: the largest power of two, at most 32, with live x G
+    <= LIST_CTA and G <= supers, so that the few live lanes of a sparse
+    relist each get a tile of up to 32 threads while a grid of few supers
+    gets no more threads a lane than it has supers to test at once (the
+    kernel applies the same rule per CTA)."""
+    g = GROUP_SIZES[-1]
+    while g > 1 and (live * g > LIST_CTA or g > supers):
+        g //= 2
+    return g
+
+
 def nee_list_len(nee_max_media: int) -> int:
     """K-list length: enter+exit per media pair, plus the spares."""
     return 2 * nee_max_media + NEE_DUP_SPARE

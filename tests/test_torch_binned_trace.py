@@ -1,6 +1,7 @@
 """The port's binned tracer (kernels/binned_trace.py) against the JAX
-package's on the CPU: the plain listing (K4) and the plain round (K5)
-against the JAX kernels run interpreted, key for key and lane for lane;
+package's on the CPU: the plain listing (K4; also on a stack of coincident
+boxes, whose keys tie on their entry) and the plain round (K5) against the
+JAX kernels run interpreted, key for key and lane for lane;
 ``trace_binned`` for 'full', 'dist' and 'nee'; the overflow generations;
 the guards.
 
@@ -150,6 +151,52 @@ def test_listing_plain_matches_jax_kernel(L, relist):
     np.testing.assert_array_equal(keys_t.numpy(), keys_j)
     np.testing.assert_array_equal(tlim_t.numpy(), tlim_j)
     assert (keys_j[0] != tbt.EMPTY).sum() > (40 if relist else 100)
+
+
+def _coincident_stack():
+    """Copies of one unit cube shell (12 triangles, a cluster each at width
+    16), some shifted along x by 0.25-0.75: runs of clusters share one box,
+    so many listing keys tie on their entry field and the id decides."""
+    rs = np.random.default_rng(9)
+    q = np.float32([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]])
+    faces = []
+    for axis in range(3):
+        for side in (0.0, 1.0):
+            f = np.roll(q, axis, axis=1)
+            f[:, axis] = side
+            faces += [f[[0, 1, 2]], f[[0, 2, 3]]]
+    cube = np.stack(faces)
+    shifts = np.where(rs.random(24) < 0.5, 0.0, rs.integers(1, 4, 24) * np.float32(0.25))
+    tris = np.concatenate([cube + np.float32([s, 0.0, 0.0]) for s in shifts])
+    return grids(tris, np.zeros(len(tris), np.int32), cluster_size=16, super_factor=4)
+
+
+@pytest.mark.parametrize("L", [4, 12])
+def test_listing_plain_matches_jax_kernel_on_coincident_boxes(L):
+    """The coincident-box stack: equal entry fields among a lane's keys,
+    broken by the cluster id, fresh and relisting."""
+    jgrid, tgrid = _coincident_stack()
+    n = 1024
+    rs = np.random.default_rng(13)
+    o = rs.uniform(-1.5, 2.5, size=(n, 3)).astype(np.float32)
+    d = rs.uniform(0.1, 0.9, size=(n, 3)) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    rays6 = np.ascontiguousarray(np.concatenate([o.T, d.T]))
+    bound = np.full(n, 1e4, np.float32)
+    tlo = np.full(n, -1, np.int32)
+    for relist in (False, True):
+        if relist:
+            first, _ = tbt.listing(tgrid, torch.from_numpy(rays6), torch.from_numpy(bound),
+                                   torch.from_numpy(tlo), 2)
+            tlo = first[1].numpy()
+        keys_t, tlim_t = tbt.listing(tgrid, torch.from_numpy(rays6), torch.from_numpy(bound),
+                                     torch.from_numpy(tlo), L)
+        keys_j, tlim_j = _jax_listing(jgrid, rays6, bound, tlo, L)
+        np.testing.assert_array_equal(keys_t.numpy(), keys_j)
+        np.testing.assert_array_equal(tlim_t.numpy(), tlim_j)
+    high = keys_j.astype(np.int64) & ~tbt.ID_MASK
+    ties = (high[1:] == high[:-1]) & (keys_j[1:] != tbt.EMPTY)
+    assert ties.any(axis=0).sum() > 100  # lanes whose keys tie on the entry
 
 
 @pytest.mark.parametrize("payload", ["full", "dist", "nee"])

@@ -12,8 +12,11 @@ card: rng, depth and alive equal except on at most 1e-3 of the lanes
 1e-4 and rtol 1e-4 elsewhere (the smoke test's gate; on the card the two
 agree to the bit in practice). The closest-hit kernel K3 and its plain
 version: every output equal (both round every operation once, in the
-same order); so are the listing (K4), the round (K5) and the pair sweep
-(K6) and theirs. At every group size G (threads per ray of K1 and K3,
+same order); so are the listing (K4, its one-thread walk and its tile
+walk at every G, on a soup and on a tiled showcase of many supers, with
+fresh, relisting and sparse relisting t_lo; the one-thread walk the rule
+takes on a grid of more than 1,024 supers), the round (K5) and the pair
+sweep (K6) and theirs. At every group size G (threads per ray of K1 and K3,
 forced through the wrappers' ``group_size``) K1 and K3 equal their plain
 versions to the bit, and so do K5 at every (G, S) (``round_split``) and K6
 at every G. Renders on the card against the CPU: at most 2 flip pixels,
@@ -335,21 +338,113 @@ def _binned_setup(device, payload, n=8192, L=4, nee_max_media=2, seed=3):
     return grid, media9, K, rays, bnd, tlo, keys, state
 
 
-@pytest.mark.parametrize("L", [2, 8, 12])
-def test_listing_matches_plain(cuda, L):
+def _tiled_showcase(device, tiles=4, **kw):
+    """Showcase's triangles tiled ``tiles`` x ``tiles`` on the ground plane
+    at width 32: a grid of hundreds of clusters in tens of supers (at the
+    default fan-out; ``kw`` goes to ``build_clusters``)."""
+    obj = os.path.join(REPO, "scenes", "showcase.obj")
+    scene = load_scene(obj, RenderOptions(obj_path=obj))
+    offs = np.asarray([(12.5 * i, 0.0, -9.5 * k) for i in range(tiles) for k in range(tiles)],
+                      np.float32)
+    tris = (scene.triangles[None] + offs[:, None, None, :]).reshape(-1, 3, 3)
+    return device_cluster_grid(
+        build_clusters(tris, np.tile(scene.mat_ids, tiles * tiles), cluster_size=32, **kw),
+        device)
+
+
+def _listing_setup(device, scene, n=8192, seed=4):
+    """(grid, rays (6, n), bound, fresh t_lo) of a listing: the soup's
+    closest-trace inputs, or rays over a tiled showcase from around its
+    box, aimed at random points in it (every 13th lane parked): "tiled" 4
+    x 4 at the default fan-out, "supers" 6 x 6 at one cluster a super
+    (1,551 supers, more than the tile walk's shared memory holds)."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
 
-    grid, _, _, rays, bnd, tlo, _, _ = _binned_setup(cuda, "full")
-    for relist in (False, True):
-        if relist:
-            tlo = bt.listing_plain(grid, rays, bnd, tlo, 2)[0][1].contiguous()
+    if scene == "soup":
+        grid, _, _, rays, bnd, tlo, _, _ = _binned_setup(device, "full")
+        return grid, rays, bnd, tlo
+    grid = _tiled_showcase(device) if scene == "tiled" else _tiled_showcase(device, 6,
+                                                                           super_factor=1)
+    rs = np.random.default_rng(seed)
+    b = grid.bounds.cpu().numpy()
+    real = b[:, 0] < 1e29
+    lo, hi = b[real, 0:3].min(0), b[real, 3:6].max(0)
+    o = lo + (hi - lo) * rs.uniform(-0.1, 1.1, (n, 3))
+    o[:, 1] = rs.uniform(0.5, 8.0, n)
+    d = lo + (hi - lo) * rs.uniform(0.0, 1.0, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([o.T, d.T]).astype(np.float32)).to(device)
+    bound = np.full(n, 1e3, np.float32)
+    bound[::13] = 0.0
+    bound = torch.from_numpy(bound).to(device)
+    tlo = torch.where(bound > 1e-4, -1, bt.EMPTY).to(torch.int32)
+    return grid, rays.contiguous(), bound, tlo
+
+
+# Each K4 instance as ``listing_split`` gives it: the one-thread walk, the
+# tile walk at every G (LIST_CTA / G lanes a CTA), and None: the rule.
+LISTING_SPLITS = [(0, 128, 0)] + [(1, 256 // g, g) for g in GROUP_SIZES] + [None]
+
+
+@pytest.mark.parametrize("split", LISTING_SPLITS, ids=lambda s: "rule" if s is None else
+                         f"v{s[0]}-G{s[2]}")
+@pytest.mark.parametrize("scene", ["soup", "tiled"])
+@pytest.mark.parametrize("L", [2, 8, 12])
+def test_listing_matches_plain(cuda, monkeypatch, L, scene, split):
+    """K4 at each instance, on fresh, relisting and sparse relisting t_lo
+    (under 2% of the lanes list): keys and tlim equal on every lane."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    if split is not None:
+        monkeypatch.setattr(bt, "listing_split", lambda n, supers: split)
+    grid, rays, bnd, fresh = _listing_setup(cuda, scene)
+    relist = bt.listing_plain(grid, rays, bnd, fresh, 2)[0][1].contiguous()
+    lane = torch.arange(fresh.shape[0], device=cuda)
+    sparse = torch.where(lane % 64 == 5, relist, bt.EMPTY).to(torch.int32).contiguous()
+    for name, tlo in (("fresh", fresh), ("relisting", relist), ("sparse", sparse)):
+        listing = int((tlo != bt.EMPTY).sum())
         before = bt.listing.launches
         keys, tlim = bt.listing(grid, rays, bnd, tlo, L)
         torch.cuda.synchronize()
         assert bt.listing.launches == before + 1
         want_keys, want_tlim = bt.listing_plain(grid, rays, bnd, tlo, L)
-        assert torch.equal(keys, want_keys) and torch.equal(tlim, want_tlim)
-        assert int((keys[0] != bt.EMPTY).sum()) > (1000 if relist else 4000)
+        assert torch.equal(keys, want_keys) and torch.equal(tlim, want_tlim), name
+        listed = int((keys[0] != bt.EMPTY).sum())
+        if scene == "soup" and name != "sparse":
+            assert listed > (1000 if name == "relisting" else 4000), name
+        else:
+            assert listed > listing // 4, name
+        if name == "sparse":
+            assert 0 < listing < 0.02 * fresh.shape[0]
+        else:
+            assert listing > (1000 if name == "relisting" else 4000), name
+    if scene == "tiled":
+        assert grid.num_supers >= 16
+
+
+@pytest.mark.parametrize("L", [2, 8])
+def test_listing_many_supers_matches_plain(cuda, L):
+    """K4 on a grid of more supers than the tile walk holds: the rule
+    launches the one-thread walk, equal to the plain version on every lane
+    with fresh and relisting t_lo; the tile walk forced there is refused."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+
+    grid, rays, bnd, fresh = _listing_setup(cuda, "supers")
+    assert grid.num_supers > bt.MAX_SUPERS
+    assert bt.listing_split(rays.shape[1], grid.num_supers)[0] == 0
+    relist = bt.listing_plain(grid, rays, bnd, fresh, 2)[0][1].contiguous()
+    for name, tlo in (("fresh", fresh), ("relisting", relist)):
+        before = bt.listing.launches
+        keys, tlim = bt.listing(grid, rays, bnd, tlo, L)
+        torch.cuda.synchronize()
+        assert bt.listing.launches == before + 1
+        want_keys, want_tlim = bt.listing_plain(grid, rays, bnd, tlo, L)
+        assert torch.equal(keys, want_keys) and torch.equal(tlim, want_tlim), name
+        assert int((keys[0] != bt.EMPTY).sum()) > int((tlo != bt.EMPTY).sum()) // 4, name
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bt, "listing_split", lambda n, supers: (1, 64, 0))
+        with pytest.raises(RuntimeError, match="listing kernel launch failed"):
+            bt.listing(grid, rays, bnd, fresh, L)
 
 
 def _round_check(cuda, payload):
