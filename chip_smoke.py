@@ -78,6 +78,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    warm-up with its K3-K6 launch counts (each count set to 0 just before
    the render), held against the megakernel image of the same render
    under the wavefront's gate, and showcase_gate through each engine;
+5c. drives adaptive sampling: ``render_samples_mega`` at exactly the
+   uniform (pixel, sample) pairs of showcase 120x120 at 2 spp (28,800
+   lanes), averaged per pixel, must equal ``render_beauty_mega`` of the
+   same render bit for bit on the mega, binned and pair engines in
+   counter and ld, in one wave and in waves of 10,240 lanes (three, the
+   last padded), as the adaptive path runs 16 waves a call (each call's
+   launches counted from 0: K1; K4 and K5; K3, K4 and K6); then
+   ``--spp-mode adaptive --rng counter`` on showcase 512x512 at 16 spp,
+   timed after a small warm-up, with K1's launches, the rounds and the
+   per-pixel counts: the budget must be exact, the image finite and its
+   mean within 2% of the uniform counter render's;
+5d. drives sharding: ``render_beauty_sharded`` over a mesh of four
+   logical shards on cuda:0, the megakernel per shard, on showcase
+   512x512 at 4 spp: four tiles in parity bit-equal to the single render
+   of the frame, 2 x 2 in counter within atol 1e-6, each timed beside the
+   single render with K1's launches; then ``render_multihost`` in a
+   one-process NCCL world (a file store) equal to ``render_beauty_sharded``
+   on the same mesh (NCCL across several cards needs more than the one
+   card here);
 6. times K1, K3, K4, K5 and K6 with CUDA events at their widest launches
    on their paths (65,536 lanes: K1 one bounce, K3 and K4 the closest
    trace of the primary rays, K5 its first round, K6 the pair engine's
@@ -124,8 +143,18 @@ Any failed phase exits nonzero before the last line. ``--quick`` stops
 after the kernel comparisons (phases 2-3c) and exits 4; ``--tables``
 builds, prints only the K1, K3, K4 (both scenes, and the few-super
 tilings), K5 and K6 launch tables of phase 6 and the timed main-path
-render of phase 4, and exits 4;
+render of phase 4, times the main path at 2^16, 2^17 and 2^18 lanes a
+pass (``LANES_PER_PASS``, which ``CMR_LANES_PER_PASS`` sets), and exits 4;
 ``--profile`` adds a torch.profiler breakdown of one pass of each engine.
+``--cards`` (a host with an even number of cards, at least 2) builds and
+drives only what needs several cards: the Renderer's sharded band loop
+(``--shard auto``, one tile a card, the cards in turn) against
+``--shard none`` on showcase 512x512 at 16 spp, parity bit-equal and
+counter within atol 1e-6, each timed after a warm-up with K1's launches;
+then a two-process NCCL ``render_multihost`` (a file store; each process
+holds half the cards; 2 x (cards / 2) in counter, the 'sample' axis
+across the processes) whose image, on both processes, must equal
+``render_beauty_sharded`` over the same cards bit for bit; and exits 4.
 """
 
 from __future__ import annotations
@@ -269,14 +298,17 @@ class uncounted:
         return False
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(every: bool = False):
+    """The first card's ``name, power.limit`` (with ``every``, a list of
+    every card's)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    lines = out.stdout.strip().splitlines()
+    return lines if every else lines[0]
 
 
 def showcase_options(width, height, spp, obj="showcase", **kw):
@@ -1428,6 +1460,346 @@ def engine_path(main_opts, engine, mega_img):
     return counts, rate
 
 
+ADAPTIVE_CHECK = 120  # side of the frame at which render_samples_mega is held bit-equal
+ADAPTIVE_WAVE = 10240  # its wave in the several-wave case: 28,800 lanes in three waves
+ADAPTIVE_MEAN_TOL = 0.02  # the adaptive image mean against the uniform one's, relative
+SHARDS = 4  # logical shards of the sharding phase's mesh on cuda:0
+PASS_WIDTHS = (1 << 16, 1 << 17, 1 << 18)  # lanes a pass timed by --tables
+
+
+def adaptive_lanes_check(main_opts):
+    """render_samples_mega at exactly the uniform (pixel, sample) pairs of
+    showcase ADAPTIVE_CHECK^2 at 2 spp, averaged per pixel, against
+    render_beauty_mega of the same render: bit-equal, on each engine of
+    the mega family, in counter and ld, in one wave and in waves of
+    ADAPTIVE_WAVE lanes (the last one padded). Each call's launches are
+    counted from 0; the engine's kernels must have run."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    n = ADAPTIVE_CHECK
+    r = Renderer(scene, dataclasses.replace(opt, width=n, height=n))
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    ys, xs = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    pix = torch.from_numpy(np.repeat(np.stack([xs.reshape(-1), ys.reshape(-1)], -1), 2, axis=0))
+    sidx = torch.from_numpy(np.tile(np.arange(2), n * n))
+    val = torch.ones(2 * n * n, dtype=torch.bool)
+    need = {"mega": ("K1",), "binned": ("K4", "K5"), "pair": ("K3", "K4", "K6")}
+    for engine, kernels in need.items():
+        for rng in ("counter", "ld"):
+            kw = dict(rng_mode=rng, trace_engine=engine, max_depth=opt.max_depth,
+                      rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media)
+            with uncounted():
+                img = mr.render_beauty_mega(*objs, (n, n), 2, **kw).cpu().numpy()
+            for wave in (1 << 16, ADAPTIVE_WAVE):
+                with uncounted():
+                    reset_launch_counts()
+                    rad = mr.render_samples_mega(*objs, pix, sidx, val, (n, n),
+                                                 chunk_lanes=wave, **kw)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                per_px = rad.cpu().numpy().reshape(n * n, 2, 3).mean(1).reshape(n, n, 3)
+                equal = bool(np.array_equal(per_px, img))
+                waves = -(-2 * n * n // min(wave, 2 * n * n))
+                print(f"   render_samples_mega {engine}, {rng}, showcase {n}x{n}@2 at the "
+                      f"uniform pairs, {waves} wave(s): per-pixel mean bit-equal to "
+                      f"render_beauty_mega {equal}; launches "
+                      + ", ".join(f"{k} {counts[k]}" for k in kernels), flush=True)
+                if not equal:
+                    fail(f"render_samples_mega ({engine}, {rng}, {waves} waves) differs from "
+                         "the uniform render")
+                for k in kernels:
+                    if counts[k] <= 0:
+                        fail(f"render_samples_mega ({engine}) launched {k} no time")
+
+
+def adaptive_path(main_opts):
+    """The adaptive render of showcase at the main path's size and budget,
+    counter RNG, the default engine: timed after a small warm-up, with
+    K1's launches counted from 0, the rounds and the per-pixel counts;
+    the budget must be exact, the image finite and its mean within
+    ADAPTIVE_MEAN_TOL of the uniform counter render's."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    opt = dataclasses.replace(opt, spp_mode="adaptive", rng="counter")
+    r = Renderer(scene, opt)
+    t0 = time.perf_counter()
+    with uncounted():
+        Renderer(scene, dataclasses.replace(opt, width=64, height=64, num_samples=2)).render()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rounds = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render_adaptive(snapshot_cb=lambda avg, f: rounds.append(avg))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()["K1"]
+    counts = r.sample_counts
+    paths = opt.width * opt.height * opt.num_samples
+    with uncounted():
+        uniform = Renderer(scene, dataclasses.replace(opt, spp_mode="uniform")).render()
+    mean, umean = float(np.mean(img)), float(np.mean(uniform))
+    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} adaptive, counter: warm-up "
+          f"(64x64@2) {warm:.3f} s, timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K1 "
+          f"launches {launches}; rounds {len(rounds)} (average spp after each: "
+          f"{', '.join(f'{a:.3f}' for a in rounds)}); samples {int(counts.sum())} of {paths}, "
+          f"per pixel min {int(counts.min())}, max {int(counts.max())}; image mean {mean:.6f} "
+          f"against the uniform counter render's {umean:.6f} (limit "
+          f"{ADAPTIVE_MEAN_TOL:.0%})", flush=True)
+    if launches <= 0:
+        fail("the adaptive path launched the megakernel no time")
+    if int(counts.sum()) != paths or int(counts.min()) < 1:
+        fail("the adaptive render did not spend exactly its budget over every pixel")
+    if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
+        fail("adaptive image is not finite or has the wrong shape")
+    if abs(mean - umean) > ADAPTIVE_MEAN_TOL * abs(umean):
+        fail("the adaptive image mean differs from the uniform one by more than "
+             f"{ADAPTIVE_MEAN_TOL:.0%}")
+    return paths / dt / 1e6
+
+
+def timed_render(fn):
+    """(result, seconds) of ``fn()`` between two device synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharding_path(r):
+    """render_beauty_sharded over SHARDS logical shards on cuda:0, the
+    megakernel per shard: SHARDS tiles in parity bit-equal to the single
+    render of the frame, 2 x (SHARDS / 2) in counter within atol 1e-6, each
+    timed beside its single render with K1's launches counted from 0; then
+    render_multihost in a one-process NCCL world (a file store) equal to
+    render_beauty_sharded on the same mesh."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from complex_materials_renderer_tpu_torch.parallel import multihost
+    from complex_materials_renderer_tpu_torch.parallel.sharding import (
+        make_render_mesh,
+        render_beauty_sharded,
+    )
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    opt = r.options
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media)
+    res, spp = (opt.width, opt.height), 4
+    dev = torch.device("cuda", 0)
+    cases = (("parity", 1), ("counter", 2))
+    for rng, sp in cases:
+        mesh = make_render_mesh([dev] * SHARDS, sample_parallel=sp)
+        with uncounted():
+            render_beauty_sharded(*objs, (64, 64), spp, rng_mode=rng, mesh=mesh, engine="mega",
+                                  **kw)  # warm-up
+            ref, t_single = timed_render(lambda: mr.render_beauty_mega(
+                *objs, res, spp, rng_mode=rng, **kw))
+        reset_launch_counts()
+        img, t_sharded = timed_render(lambda: render_beauty_sharded(
+            *objs, res, spp, rng_mode=rng, mesh=mesh, engine="mega", **kw))
+        launches = launch_counts()["K1"]
+        a, b = img.cpu().numpy(), ref.cpu().numpy()
+        err = float(np.abs(a - b).max())
+        ok = err == 0.0 if rng == "parity" else err <= 1e-6
+        print(f"   sharded mega, showcase {res[0]}x{res[1]}@{spp} {rng}, mesh {mesh.shape} on "
+              f"cuda:0: {t_sharded:.3f} s (single render {t_single:.3f} s); K1 launches "
+              f"{launches}; worst difference from the single render {err:.3e} (limit "
+              f"{'0, bit-equal' if rng == 'parity' else '1e-6'})", flush=True)
+        if launches <= 0:
+            fail("the sharded path launched the megakernel no time")
+        if a.shape != (res[1], res[0], 3) or not np.isfinite(a).all() or not ok:
+            fail(f"the sharded render ({rng}) differs from the single render")
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one process: loopback only
+    mesh_devices = [dev] * SHARDS
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.init_distributed("file://" + os.path.join(tmp, "store"), 1, 0)
+        try:
+            backend = multihost.group_backend("cuda")
+            reset_launch_counts()
+            img, dt = timed_render(lambda: multihost.render_multihost(
+                *objs, res, spp, sample_parallel=2, devices=mesh_devices, rng_mode="counter",
+                engine="mega", **kw))
+            launches = launch_counts()["K1"]
+        finally:
+            dist.destroy_process_group()
+    with uncounted():
+        ref = render_beauty_sharded(*objs, res, spp, rng_mode="counter", engine="mega",
+                                    mesh=make_render_mesh(mesh_devices, 2), **kw).cpu().numpy()
+    equal = bool(np.array_equal(img, ref))
+    print(f"   render_multihost, one-process world (file store; cuda tensors over {backend}), "
+          f"{SHARDS} shards on "
+          f"cuda:0, 2 x {SHARDS // 2}, counter: {dt:.3f} s; K1 launches {launches}; equal to "
+          f"render_beauty_sharded {equal}. NCCL across several cards is checked by --cards "
+          "on a host with several: this run has one card", flush=True)
+    if backend != "nccl" or launches <= 0 or not equal:
+        fail("render_multihost in a one-process NCCL world differs from render_beauty_sharded")
+    return t_sharded
+
+
+CARDS_SPP = 16  # samples of --cards' Renderer renders
+CARDS_MULTIHOST_SPP = 4  # samples of its two-process render
+
+
+def cards_path():
+    """--cards: the sharded Renderer over every card against one card, and
+    a two-process NCCL render_multihost (see the module's docstring)."""
+    import tempfile
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.parallel.sharding import (
+        make_render_mesh,
+        render_beauty_sharded,
+    )
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        fail(f"--cards needs an even number of cards, at least 2; {n} visible")
+    scene, opt = showcase_options(512, 512, CARDS_SPP)
+    paths = opt.width * opt.height * CARDS_SPP
+    for rng in ("parity", "counter"):
+        o = dataclasses.replace(opt, rng=rng)
+        single_r = Renderer(scene, dataclasses.replace(o, shard="none"))
+        sharded_r = Renderer(scene, dataclasses.replace(o, shard="auto"))
+        devices = sharded_r._shard_devices()
+        if len(devices) != n:
+            fail(f"--shard auto spreads over {len(devices)} devices, not the {n} cards")
+        with uncounted():
+            for r in (single_r, sharded_r):
+                Renderer(scene, dataclasses.replace(r.options, width=64, height=64,
+                                                    num_samples=2)).render()  # warm-up
+            single, t_single = timed_render(single_r.render)
+        reset_launch_counts()
+        sharded, t_sharded = timed_render(sharded_r.render)
+        launches = launch_counts()["K1"]
+        err = float(np.abs(sharded - single).max())
+        ok = err == 0.0 if rng == "parity" else err <= 1e-6
+        print(f"   Renderer showcase 512x512@{CARDS_SPP} {rng}: --shard auto over {n} cards "
+              f"{t_sharded:.4f} s = {paths / t_sharded / 1e6:.4f} Mpaths/s; --shard none on "
+              f"cuda:0 {t_single:.4f} s = {paths / t_single / 1e6:.4f} Mpaths/s; K1 launches "
+              f"(sharded) {launches}; worst difference {err:.3e} (limit "
+              f"{'0, bit-equal' if rng == 'parity' else '1e-6'})", flush=True)
+        if launches <= 0:
+            fail("the sharded Renderer launched the megakernel no time")
+        if sharded.shape != single.shape or not np.isfinite(sharded).all() or not ok:
+            fail(f"--shard auto over {n} cards ({rng}) differs from --shard none")
+
+    r = Renderer(scene, dataclasses.replace(opt, num_samples=CARDS_MULTIHOST_SPP, rng="counter"))
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
+              rng_mode="counter", engine="mega")
+    res = (opt.width, opt.height)
+    mesh = make_render_mesh([torch.device("cuda", i) for i in range(n)], 2)
+    with uncounted():
+        render_beauty_sharded(*objs, (64, 64), CARDS_MULTIHOST_SPP, mesh=mesh, **kw)  # warm-up
+        ref, t_ref = timed_render(lambda: render_beauty_sharded(
+            *objs, res, CARDS_MULTIHOST_SPP, mesh=mesh, **kw))
+    ref = ref.cpu().numpy()
+    print(f"   render_beauty_sharded over the {n} cards, mesh {mesh.shape}, counter "
+          f"{res[0]}x{res[1]}@{CARDS_MULTIHOST_SPP}: {t_ref:.4f} s", flush=True)
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the processes share one host
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{i}.npy") for i in range(2)]
+        store = "file://" + os.path.join(tmp, "store")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cards-worker",
+                                   str(i), store, outs[i]], env=env, cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for i, (p, log) in enumerate(zip(procs, logs)):
+            for line in log.strip().splitlines()[-12:]:
+                print(f"   [rank {i}] {line}", flush=True)
+            if p.returncode != 0:
+                fail(f"the render_multihost process of rank {i} exited {p.returncode}")
+        imgs = [np.load(o) for o in outs]
+    equal = [bool(np.array_equal(img, ref)) for img in imgs]
+    print(f"   two-process NCCL render_multihost, {n // 2} cards a process, 2 x {n // 2}: "
+          f"each rank's image equal to render_beauty_sharded over the same cards {equal}",
+          flush=True)
+    if not all(equal):
+        fail("the two-process render_multihost differs from render_beauty_sharded")
+
+
+def cards_worker(rank: int, store: str, out: str) -> int:
+    """One process of --cards' two-process render: half the cards, the
+    group joined through ``store``, the image saved to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from complex_materials_renderer_tpu_torch.parallel import multihost
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    half = torch.cuda.device_count() // 2
+    devices = [torch.device("cuda", rank * half + i) for i in range(half)]
+    scene, opt = showcase_options(512, 512, CARDS_MULTIHOST_SPP, rng="counter",
+                                  device=str(devices[0]))
+    r = Renderer(scene, opt)
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
+              sample_parallel=2, devices=devices, rng_mode="counter", engine="mega")
+    multihost.init_distributed(store, 2, rank)
+    try:
+        backend = multihost.group_backend("cuda")
+        multihost.render_multihost(*objs, (64, 64), CARDS_MULTIHOST_SPP, **kw)  # warm-up
+        reset_launch_counts()
+        img, dt = timed_render(lambda: multihost.render_multihost(
+            *objs, (opt.width, opt.height), CARDS_MULTIHOST_SPP, **kw))
+        launches = launch_counts()["K1"]
+    finally:
+        dist.destroy_process_group()
+    np.save(out, img)
+    print(f"devices {[str(d) for d in devices]}, backend for cuda tensors {backend}: "
+          f"{dt:.4f} s; K1 launches {launches}", flush=True)
+    return 0 if backend == "nccl" and launches > 0 else 1
+
+
+def pass_width_table(main_opts, smi):
+    """The main path timed at PASS_WIDTHS lanes a pass: the renderer's
+    LANES_PER_PASS, which CMR_LANES_PER_PASS sets at import (a measurement,
+    not a change of default)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch import renderer as rmod
+
+    scene, opt = main_opts
+    saved = rmod.LANES_PER_PASS
+    paths = opt.width * opt.height * opt.num_samples
+    try:
+        for lanes in PASS_WIDTHS:
+            rmod.LANES_PER_PASS = lanes
+            r = rmod.Renderer(scene, opt)
+            r.render()  # warm-up
+            img, dt = timed_render(r.render)
+            print(f"   main path at {lanes} lanes a pass ({rmod._auto_row_chunk(opt.width)} rows, "
+                  f"{rmod._auto_sample_chunk(opt.width, opt.height)} samples a call): "
+                  f"{dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; image mean "
+                  f"{float(np.mean(img)):.6f} ({smi})", flush=True)
+    finally:
+        rmod.LANES_PER_PASS = saved
+
+
 def real_slots(g):
     real, _ = grid_counts(g)
     return real
@@ -2123,6 +2495,10 @@ def main() -> int:
     ap.add_argument("--tables", action="store_true",
                     help="only build, print the K1, K3, K4, K5 and K6 launch tables and time "
                     "the main path")
+    ap.add_argument("--cards", action="store_true",
+                    help="only build and drive the paths that need several cards")
+    ap.add_argument("--cards-worker", nargs=3, metavar=("RANK", "STORE", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
@@ -2136,6 +2512,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.cards_worker:
+        rank, store, out = args.cards_worker
+        return cards_worker(int(rank), store, out)
 
     phase("device")
     smi = nvidia_smi_line()
@@ -2161,6 +2540,13 @@ def main() -> int:
 
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
+    if args.cards:
+        phase("several cards: the sharded Renderer, a two-process NCCL render_multihost")
+        print("   " + "\n   ".join(nvidia_smi_line(every=True)), flush=True)
+        cards_path()
+        print("chip_smoke: --cards stops here", flush=True)
+        return 4  # nonzero: no result line is printed
+
     main_opts = showcase_options(512, 512, 16)
     if args.tables:
         phase("K1, K3, K4, K5 and K6 launch tables")
@@ -2177,6 +2563,7 @@ def main() -> int:
         k5_launch_table(r, media9, sets)
         k6_launch_table(r, media9, sets)
         main_path(main_opts)
+        pass_width_table(main_opts, smi)
         print("chip_smoke: --tables stops here", flush=True)
         return 4  # nonzero: no result line is printed
 
@@ -2229,6 +2616,14 @@ def main() -> int:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             golden_gate(engine=engine)
+
+    phase(f"adaptive sampling: render_samples_mega at the uniform pairs, showcase 512x512 @ "
+          f"16 spp --spp-mode adaptive")
+    adaptive_lanes_check(main_opts)
+    adaptive_path(main_opts)
+
+    phase(f"sharding: {SHARDS} logical shards on cuda:0, render_multihost over NCCL")
+    sharding_path(r)
 
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)

@@ -3,8 +3,7 @@
 Counterpart of complex_materials_renderer_tpu/config.py (the reference
 ``Options`` class and CLI parser, source/utils.hpp:21-35,
 source/utils.cpp:36-89). Defaults and flags are those of the JAX package,
-plus ``--device`` (cuda | cpu). Options of the JAX package that this port
-does not run yet are parsed all the same and refused by the renderer.
+plus ``--device`` (cuda | cpu).
 """
 
 from __future__ import annotations
@@ -37,7 +36,8 @@ class RenderOptions:
 
     # --- extensions of the JAX package ---
     aov: str = "beauty"  # beauty | depth | normal | topology
-    backend: str = "auto"  # auto (= cluster) | cluster (the CUDA kernels) | bvh (plain PyTorch walk)
+    backend: str = "auto"  # auto (cluster on cuda, bvh on cpu) | cluster (the CUDA
+    # kernels) | bvh (plain PyTorch walk)
     engine: str = "auto"  # auto | mega (fused kernel) | wavefront | binned | pair
     tir: str = "reflect"  # reflect | kill (reference-faithful TIR termination)
     direct: str = "scatter"  # scatter (reference estimator) | analytic
@@ -51,8 +51,8 @@ class RenderOptions:
     # gets -s samples) | adaptive (same TOTAL budget, per-pixel counts
     # proportional to measured per-pixel std after a uniform warmup —
     # lower image RMSE at equal cost; counter/ld RNG + mega-family
-    # engines only. renderer._render_adaptive)
-    shard: str = "auto"  # auto | none — tile-shard over available devices
+    # engines only. Renderer.render_adaptive)
+    shard: str = "auto"  # auto | none — tile-shard over the visible cards
     leaf_size: int = 4  # BVH max triangles per leaf
     cluster_size: int = 0  # tracer cluster width; 0 = auto (128,
     # shrunk to 16*ceil(T/16) for scenes that fit in one cluster: the
@@ -86,9 +86,9 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t--rng\tparity (reference-matching PCG stream) | counter (decorrelated,
 \t\tsample-parallel) | ld (Owen-scrambled Sobol: same image in the
 \t\tlimit, converges fastest; sample-parallel)
-\t--backend\tauto (default: cluster) | cluster (the CUDA kernels) | bvh (threaded-BVH
-\t\twalk in plain PyTorch: portable, slow on the card)
-\t--engine\tauto (default: mega on the cluster backend, wavefront on bvh) | mega
+\t--backend\tauto (default: cluster on cuda, bvh on cpu) | cluster (the CUDA kernels)
+\t\t| bvh (threaded-BVH walk in plain PyTorch: portable, slow on the card)
+\t--engine\tauto (default: mega on cuda with the cluster backend, else wavefront) | mega
 \t\t(fused path kernel) | wavefront (bounce-by-bounce loop) | binned (bounce
 \t\tloop, per-lane candidate lists served in rounds; CMR_BINNED_LIST,
 \t\tCMR_BINNED_CAP) | pair (bounce loop, cluster-major pair sweep)
@@ -96,12 +96,17 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t--direct\tMedia direct-light estimator: scatter (default, reference
 \t\testimator) | analytic (closed-form expectation: same image in the
 \t\tlimit, less noise in media, same RNG stream)
-\t--shard\tauto (tile-shard across devices; not ported yet, so auto with
-\t\tseveral visible cards raises) or none
+\t--shard\tauto (default: with several visible cards, rows tile-sharded over
+\t\tall of them, rendered card by card: the same image at about one
+\t\tcard's speed; one card renders alone) | none. Sharded renders take
+\t\tpair through the wavefront loop and ignore --tir, as the JAX package
+\t\tdoes; --spp-mode adaptive refuses auto with several cards
 \t--nee-bound\tMax media crossings along shadow rays (default: 4)
 \t--sample-chunk\tSamples per bounded device pass (default: 0 = auto)
 \t--spp-mode\tuniform (default: every pixel gets -s samples) | adaptive
-\t\t(per-pixel budget by measured noise; not ported yet)
+\t\t(same total budget, per-pixel counts by measured noise; refuses
+\t\t--checkpoint, then --rng parity, then engines outside mega|binned|pair,
+\t\tthen --shard auto with several cards)
 \t--cluster-size\tCluster width in triangles (default:
 \t\t0 = auto: 128, shrunk for scenes that fit in one cluster)
 \t--super-factor\tClusters per super-cluster culling group (default: auto)

@@ -1,0 +1,220 @@
+"""Tile and sample sharding of the beauty pass.
+
+Counterpart of complex_materials_renderer_tpu/parallel/sharding.py, where
+``shard_map`` runs one shard per device of a ('sample', 'tile') mesh.
+Here a mesh is a small grid of ``torch.device``s and each shard is one
+call of the engine's own beauty pass:
+
+- the frame's rows are split over 'tile': shard t renders
+  ``ceil(H / n_tile)`` rows from ``row_offset + t * rows_per_tile`` (the
+  last shard's rows past the frame are rendered and cropped), with no
+  communication while tracing;
+- the samples are split over 'sample': shard s renders
+  ``num_samples / n_sample`` samples from ``sample_offset + s *
+  samples_per_dev``, which needs a stateless RNG (counter or ld); the
+  partial images of a tile are averaged over 'sample', the ``pmean``;
+- the scene tables, accel, camera and lights are copied once to each
+  distinct device of the mesh.
+
+A device may appear in the mesh more than once: each appearance is a
+shard of its own (the tests build 8 shards on the one CPU this way).
+The shards run one after the other, device by device, each under its
+device's guard. The pass loop is host-bound (ROADMAP P9): shards of
+distinct cards in threads of their own rendered slower than in turn
+(PERF.md).
+Seeds derive from the global (pixel, sample), so a tile split renders
+the single-device image bit for bit, and a sample split differs from it
+only by the order of the mean's sums.
+
+Two quirks of the reference are kept (ROADMAP R5, R6): ``engine='pair'``
+renders through the wavefront ``render_beauty`` (sharding.py:103-116 of
+the JAX package takes only mega and binned to the megarender pass loop),
+and ``tir`` is not passed to the shards, so a sharded render always
+reflects at total internal reflection (sharding.py:118-135).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from functools import partial
+
+import torch
+
+@dataclasses.dataclass(frozen=True)
+class RenderMesh:
+    """A ('sample', 'tile') grid of devices: ``devices[s][t]`` renders
+    sample slice s of tile t. ``shape`` maps each axis name to its size,
+    as ``jax.sharding.Mesh.shape`` does."""
+
+    devices: tuple  # (n_sample, n_tile) tuple of tuples of torch.device
+
+    @property
+    def shape(self) -> dict:
+        return {"sample": len(self.devices), "tile": len(self.devices[0])}
+
+
+def visible_devices() -> list:
+    """Every visible CUDA device; raises when there is none."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise RuntimeError(
+            "no CUDA device is available; pass the devices of the mesh "
+            "explicitly (e.g. [torch.device('cpu')] * 8) to shard on the CPU"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_device(device) -> torch.device:
+    """``device`` as a torch.device with an index on CUDA; raises when it
+    is not there. ``cpu`` and ``cpu:0`` stay distinct: the tests take them
+    for two devices."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"a mesh device must be cuda or cpu, got {device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"the mesh names {dev}, but no CUDA device is available")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"the mesh names cuda:{index}, but only {torch.cuda.device_count()} "
+            "CUDA device(s) are visible"
+        )
+    return torch.device("cuda", index)
+
+
+def make_render_mesh(devices=None, sample_parallel: int = 1) -> RenderMesh:
+    """A ('sample', 'tile') mesh over ``devices`` (default: every visible
+    CUDA device), ``sample_parallel`` rows of ``len(devices) /
+    sample_parallel`` tiles."""
+    devices = [mesh_device(d) for d in (visible_devices() if devices is None else devices)]
+    n = len(devices)
+    if n == 0:
+        raise ValueError("a render mesh needs at least one device")
+    sample_parallel = max(1, sample_parallel)
+    if n % sample_parallel:
+        raise ValueError(f"{n} devices not divisible by sample axis {sample_parallel}")
+    n_tile = n // sample_parallel
+    return RenderMesh(tuple(tuple(devices[s * n_tile:(s + 1) * n_tile])
+                            for s in range(sample_parallel)))
+
+
+def to_device(obj, device):
+    """``obj`` with every tensor in it (through dataclasses and named
+    tuples) on ``device``; everything else is kept as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(x, device) for x in obj))
+    return obj
+
+
+def replicate(objs, devices) -> dict:
+    """{device: ``objs`` with their tensors on it} for each distinct
+    device of ``devices``."""
+    return {d: [to_device(x, d) for x in objs] for d in dict.fromkeys(devices)}
+
+
+def mesh_cells(mesh: RenderMesh) -> list:
+    """Every (s, t) shard of ``mesh``, sample-major."""
+    return [(s, t) for s in range(mesh.shape["sample"]) for t in range(mesh.shape["tile"])]
+
+
+def _beauty_fn(engine: str):
+    """The per-shard beauty pass of ``engine`` (sharding.py:103-116):
+    mega and binned run the megarender pass loop, every other engine the
+    wavefront loop, pair included (ROADMAP R5)."""
+    if engine in ("mega", "binned"):
+        from ..render.megarender import render_beauty_mega
+
+        return partial(render_beauty_mega, trace_engine=engine)
+    from ..render.integrator import render_beauty
+
+    return render_beauty
+
+
+def render_cells(cells, tables: dict, resolution, num_samples: int, mesh: RenderMesh,
+                 max_depth: int = 32, rr_depth: int = 16, nee_max_media: int = 4,
+                 rng_mode: str = "parity", row_offset: int = 0, full_resolution=None,
+                 sample_offset: int = 0, engine: str = "wavefront",
+                 direct: str = "scatter") -> dict:
+    """Render the shards ``cells`` ((s, t) pairs) of ``mesh`` from
+    ``tables`` ({device: (camera, scene, accel, lights)}, see
+    ``replicate``); returns {(s, t): (rows_per_tile, W, 3) float32 image
+    on the shard's device}, rendered device by device in the calling
+    thread."""
+    width, height = resolution
+    full_resolution = tuple(full_resolution) if full_resolution else (width, height)
+    n_tile = mesh.shape["tile"]
+    n_sample = mesh.shape["sample"]
+    if n_sample > 1 and rng_mode not in ("counter", "ld"):
+        raise ValueError(
+            "sample-parallel rendering requires an order-independent "
+            "rng mode ('counter' or 'ld')"
+        )
+    if num_samples % n_sample:
+        raise ValueError(f"{num_samples} samples not divisible by sample axis {n_sample}")
+    rows_per_tile = math.ceil(height / n_tile)
+    samples_per_dev = num_samples // n_sample
+    beauty = _beauty_fn(engine)
+
+    by_device: dict = {}
+    for s, t in cells:
+        by_device.setdefault(mesh.devices[s][t], []).append((s, t))
+    images: dict = {}
+    for device, own in by_device.items():
+        guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with guard:
+            for s, t in own:
+                images[(s, t)] = beauty(
+                    *tables[device], (width, rows_per_tile), samples_per_dev,
+                    max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+                    rng_mode=rng_mode, row_offset=row_offset + t * rows_per_tile,
+                    full_resolution=full_resolution,
+                    sample_offset=sample_offset + s * samples_per_dev, direct=direct,
+                )
+    return images
+
+
+def combine_cells(images: dict, n_sample: int, n_tile: int, height: int,
+                  device) -> torch.Tensor:
+    """The (height, W, 3) image on ``device`` from every shard's image:
+    the mean over 'sample' of each tile, the tiles stacked, the pad rows
+    cropped."""
+    tiles = []
+    for t in range(n_tile):
+        parts = torch.stack([images[(s, t)].to(device) for s in range(n_sample)])
+        tiles.append(parts.mean(dim=0))
+    return torch.cat(tiles)[:height]
+
+
+def render_beauty_sharded(camera, scene, accel, lights, resolution, num_samples: int,
+                          max_depth: int = 32, rr_depth: int = 16, nee_max_media: int = 4,
+                          rng_mode: str = "parity", mesh: RenderMesh | None = None,
+                          row_offset: int = 0, full_resolution=None, sample_offset: int = 0,
+                          engine: str = "wavefront", direct: str = "scatter") -> torch.Tensor:
+    """Render (H, W, 3), rows sharded over 'tile', samples over 'sample'
+    (sharding.py:50). ``row_offset``, ``full_resolution`` and
+    ``sample_offset`` place this call as a band and sample chunk of a
+    larger render, as in the single-device passes. ``engine``: mega and
+    binned run the megarender pass loop on each shard, any other the
+    wavefront loop. Returns a tensor on the mesh's first device."""
+    if mesh is None:
+        mesh = make_render_mesh()
+    cells = mesh_cells(mesh)
+    tables = replicate((camera, scene, accel, lights), [mesh.devices[s][t] for s, t in cells])
+    images = render_cells(
+        cells, tables, resolution, num_samples, mesh,
+        max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+        rng_mode=rng_mode, row_offset=row_offset, full_resolution=full_resolution,
+        sample_offset=sample_offset, engine=engine, direct=direct,
+    )
+    return combine_cells(images, mesh.shape["sample"], mesh.shape["tile"], resolution[1],
+                         mesh.devices[0][0])

@@ -1,8 +1,9 @@
 """Beauty-pass loop around the path-tracing megakernel (kernels/megakernel.py).
 
 Counterpart of complex_materials_renderer_tpu/render/megarender.py
-(``render_beauty_mega`` :339, ``_make_advance`` :213). The bounce loop
-runs as a short PHASE SCHEDULE of kernel calls:
+(``render_beauty_mega`` :339, ``render_samples_mega`` :591,
+``_make_advance`` :213). The bounce loop runs as a short PHASE SCHEDULE of
+kernel calls:
 
 - phase 1 advances every lane a bounce or two in one kernel call;
 - between phases the wavefront is compacted (live lanes first, by a stable
@@ -24,6 +25,7 @@ tracer (render/binnedrender.py) or the pair sweep (render/pairrender.py).
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache, partial
 
 import numpy as np
@@ -45,9 +47,9 @@ from .hitinfo import Lights, SceneArrays
 from .integrator import coherence_key
 
 TILE = 32  # pixels per tile side; 32x32 = one 1024-lane block
-# Widest wave one step of the counter/ld sample loop runs (megarender.py:47
-# of the JAX package reads it from CMR_STEP_LANES; here it is a constant).
-STEP_LANES = 1 << 16
+# Widest wave one step of the counter/ld sample loop runs, read once at
+# import from CMR_STEP_LANES as the JAX package does (megarender.py:47).
+STEP_LANES = int(os.environ.get("CMR_STEP_LANES", 1 << 16))
 
 
 @lru_cache(maxsize=32)
@@ -432,3 +434,96 @@ def render_beauty_mega(
     if return_rng:
         return img, final_rng[inv]
     return img
+
+
+def render_samples_mega(
+    camera: Camera,
+    scene: SceneArrays,
+    grid: DeviceClusterGrid,
+    lights: Lights,
+    pixel_xy,
+    sample_idx,
+    valid,
+    full_resolution,
+    max_depth: int = 32,
+    rr_depth: int = 16,
+    nee_max_media: int = 4,
+    rng_mode: str = "counter",
+    tir: str = "reflect",
+    schedule_mode: str = "auto",
+    schedule: str = "",
+    sortkey: str = "dir",
+    debug: str = "",
+    trace_engine: str = "mega",
+    binned_list: int = 8,
+    binned_cap: int = 12,
+    direct: str = "scatter",
+    chunk_lanes: int = 1 << 16,
+):
+    """One camera sample per lane at caller-chosen (pixel, sample index)
+    pairs: the entry point of adaptive sampling (megarender.py:591 of the
+    JAX package).
+
+    ``pixel_xy`` (L, 2) integer full-frame pixel coordinates,
+    ``sample_idx`` (L,) u32 per-pixel sample numbers (carried in int64),
+    ``valid`` (L,) bool: invalid lanes trace nothing and return exactly 0.
+    Returns (L, 3) float32 radiance on the device of ``grid``. Only the
+    stateless RNG modes are defined here (each (pixel, sample) stream is
+    derived on its own), so a lane's radiance is the uniform path's for the
+    same pair. Lanes run in waves of ``chunk_lanes``, each padded to whole
+    1024-lane blocks, through the engine's pass loop.
+    """
+    if rng_mode not in ("counter", "ld"):
+        raise ValueError(
+            "render_samples_mega requires a stateless RNG mode "
+            f"(counter | ld), got {rng_mode!r}"
+        )
+    if debug:
+        raise NotImplementedError(
+            f"CMR_MEGA_DEBUG={debug!r}: the TPU timing ablations are not "
+            "ported (ROADMAP Queue 1, item 15)"
+        )
+    dev = grid.device
+    full_w, full_h = full_resolution
+    pixel_xy = torch.as_tensor(pixel_xy).to(dev, torch.int64)
+    sample_idx = torch.as_tensor(sample_idx).to(dev, torch.int64) & rng_ops.MASK32
+    valid = torch.as_tensor(valid).to(dev, torch.bool)
+    n = pixel_xy.shape[0]
+    ch = min(chunk_lanes, -(-n // BLOCK) * BLOCK)
+    ch = max(BLOCK, (ch // BLOCK) * BLOCK)
+    n_steps = -(-n // ch)
+    pad = n_steps * ch - n
+    if pad:
+        pixel_xy = torch.cat([pixel_xy, pixel_xy.new_zeros((pad, 2))])
+        sample_idx = torch.cat([sample_idx, sample_idx.new_zeros((pad,))])
+        valid = torch.cat([valid, valid.new_zeros((pad,))])
+
+    media9 = pack_media(scene.media, scene.scale, device=dev)
+    misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
+    dynamic = _resolve_dynamic(schedule_mode, grid)
+    sched = _phase_schedule(ch, max_depth, schedule)
+    kern = _make_kern(
+        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
+        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
+        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
+    )
+    advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
+
+    out = torch.zeros((n_steps * ch, 3), dtype=torch.float32, device=dev)
+    lane = torch.arange(ch, dtype=torch.int64, device=dev)
+    for base in range(0, n_steps * ch, ch):
+        pix = pixel_xy[base:base + ch]
+        val = valid[base:base + ch]
+        lin = pix[:, 1] * full_w + pix[:, 0]
+        s_lane = sample_idx[base:base + ch]
+        if rng_mode == "ld":
+            # Camera jitter = Sobol dims 0, 1; bounce draws start at dim 2,
+            # the uniform path's stream for the same (pixel, sample).
+            words, d0 = rng_ops.seed_ld(lin, s_lane), 2
+        else:
+            words, d0 = rng_ops.seed_counter(lin, s_lane), 0
+        state = _camera_state(camera, pix, words, (full_w, full_h), ld=rng_mode == "ld")
+        state = state._replace(alive=state.alive & val)
+        rad, _ = advance(state, lane, ch, dim0=d0)
+        out[base:base + ch] = torch.where(val[:, None], rad, 0.0)
+    return out[:n]

@@ -9,12 +9,17 @@ an optional checkpoint that resumes to the same image.
 
 Engines: ``mega`` (the megakernel), ``binned`` and ``pair`` (the
 wavefront bounce over the binned tracer or the pair sweep, under the
-megakernel's pass loop), all on the cluster backend only, and ``wavefront`` (the
-bounce-by-bounce loop, both backends); ``auto`` takes ``mega`` on the
-cluster backend and ``wavefront`` on the BVH. Backends: ``cluster`` (=
-``auto``) and ``bvh``. The other paths of the JAX package raise
-``NotImplementedError`` naming their ROADMAP item: adaptive sampling and
-sharding over several devices.
+megakernel's pass loop), all on the cluster backend only, and
+``wavefront`` (the bounce-by-bounce loop, both backends). Backends:
+``cluster`` and ``bvh``. ``auto`` picks as the JAX package does, with the
+card in the TPU's role: the cluster backend and the megakernel on
+``cuda``, the BVH and the wavefront loop on the CPU.
+
+``--spp-mode adaptive`` spreads the same total budget over the pixels by
+their measured noise (``render_adaptive``, the mega-family engines and a
+stateless RNG only). ``--shard auto`` with more than one visible card
+renders bands tile-sharded over all of them, card by card in this
+process (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -40,14 +45,11 @@ from .scene import Scene
 from .utils.device import resolve_device
 from .utils.timing import PhaseTimer
 
-# Pass shaping (renderer.py:39-40 of the JAX package): LANES_PER_PASS bounds
-# the wavefront width, PATHS_PER_PASS the lanes x samples of one pass.
-LANES_PER_PASS = 1 << 16
-PATHS_PER_PASS = 1 << 20
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch/CUDA package yet ({item})")
+# Pass shaping, read once at import from the environment with the JAX
+# package's defaults (renderer.py:39-40): LANES_PER_PASS bounds the
+# wavefront width, PATHS_PER_PASS the lanes x samples of one pass.
+LANES_PER_PASS = int(os.environ.get("CMR_LANES_PER_PASS", 1 << 16))
+PATHS_PER_PASS = int(os.environ.get("CMR_PATHS_PER_PASS", 1 << 20))
 
 
 def _mega_env_knobs() -> dict:
@@ -60,6 +62,18 @@ def _mega_env_knobs() -> dict:
         sortkey=os.environ.get("CMR_MEGA_SORTKEY", "dir"),
         debug=os.environ.get("CMR_MEGA_DEBUG", ""),
     )
+
+
+def _engine_knobs(engine: str) -> dict:
+    """Keyword arguments of the megarender pass loop for a mega-family
+    engine: the tuning knobs and the trace engine, with the binned
+    engine's list length and serving cap (CMR_BINNED_LIST, CMR_BINNED_CAP)."""
+    knobs = _mega_env_knobs()
+    knobs["trace_engine"] = engine
+    if engine == "binned":
+        knobs["binned_list"] = int(os.environ.get("CMR_BINNED_LIST", 8))
+        knobs["binned_cap"] = int(os.environ.get("CMR_BINNED_CAP", 12))
+    return knobs
 
 
 def resolve_partition(partition: str, num_tris: int, width: int,
@@ -105,7 +119,12 @@ class Renderer:
         self.timer = PhaseTimer()
         if opt.backend not in ("auto", "cluster", "bvh"):
             raise ValueError(f"--backend must be auto|cluster|bvh, got {opt.backend!r}")
-        if opt.backend == "bvh":
+        # auto: the CUDA kernels on the card, the portable BVH walk on the
+        # CPU (renderer.py:92-95, with the card in the TPU's role).
+        backend = opt.backend
+        if backend == "auto":
+            backend = "cluster" if self.device.type == "cuda" else "bvh"
+        if backend == "bvh":
             if self.device.type == "cuda":
                 warnings.warn(
                     "--backend bvh on the card is the plain PyTorch BVH walk (one "
@@ -164,14 +183,14 @@ class Renderer:
 
     def _resolve_engine(self) -> str:
         """The bounce-loop engine (renderer.py:616): 'auto' takes the
-        megakernel on the cluster backend and the wavefront loop on the
-        BVH, the only engine there. The binned and pair engines warn, as
-        the JAX package's do: they are kept, tested alternatives, not the
-        fast path."""
+        megakernel on the card with the cluster grid and the wavefront loop
+        otherwise (the only engine on the BVH). The binned and pair engines
+        warn, as the JAX package's do: they are kept, tested alternatives,
+        not the fast path."""
         engine = self.options.engine
         is_cluster = isinstance(self.accel, DeviceClusterGrid)
         if engine == "auto":
-            return "mega" if is_cluster else "wavefront"
+            return "mega" if self.device.type == "cuda" and is_cluster else "wavefront"
         if engine in ("mega", "binned", "pair") and not is_cluster:
             raise ValueError(f"--engine {engine} requires --backend cluster")
         if engine in ("binned", "pair"):
@@ -184,7 +203,15 @@ class Renderer:
             )
         if engine in ("mega", "wavefront", "binned", "pair"):
             return engine
-        raise _not_ported(f"--engine {engine}", "ROADMAP Queue 1")
+        raise ValueError(f"--engine must be auto|mega|wavefront|binned|pair, got {engine!r}")
+
+    def _shard_devices(self) -> list:
+        """The devices ``--shard auto`` spreads a render over: every
+        visible card when the renderer runs on the card, else its one
+        device."""
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [self.device]
 
     def render(self, checkpoint_path: Optional[str] = None) -> np.ndarray:
         """Render the configured beauty image as an (H, W, 3) float32 array.
@@ -205,20 +232,20 @@ class Renderer:
                 img = render_aov(self.triangles, self.camera, self.accel, resolution, opt.aov)
                 return img.cpu().numpy()
         if opt.spp_mode == "adaptive":
-            raise _not_ported("--spp-mode adaptive", "ROADMAP Queue 1, item 11")
-        if (opt.shard == "auto" and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise _not_ported(
-                "Sharding over several devices (pass --shard none to render on one)",
-                "ROADMAP Queue 1, item 12",
-            )
+            if checkpoint_path:
+                raise ValueError(
+                    "--spp-mode adaptive does not support --checkpoint "
+                    "(per-pixel sample counts are not resumable state yet); "
+                    "drop one of the two flags"
+                )
+            return self.render_adaptive()
+        devices = self._shard_devices()
+        if opt.shard == "auto" and len(devices) > 1:
+            return self._render_sharded(devices)
+
         engine = self._resolve_engine()
         if engine in ("mega", "binned", "pair"):
-            knobs = _mega_env_knobs()
-            knobs["trace_engine"] = engine
-            if engine == "binned":
-                knobs["binned_list"] = int(os.environ.get("CMR_BINNED_LIST", 8))
-                knobs["binned_cap"] = int(os.environ.get("CMR_BINNED_CAP", 12))
+            knobs = _engine_knobs(engine)
             if (knobs["schedule_mode"] == "auto"
                     and opt.width * opt.height * opt.num_samples < (1 << 18)):
                 # Preview-sized jobs take the dynamic mode, as in the JAX
@@ -286,6 +313,216 @@ class Renderer:
         if checkpoint_path and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
         return acc
+
+    def _render_sharded(self, devices) -> np.ndarray:
+        """The beauty pass in bands tile-sharded over ``devices``
+        (renderer.py:240-288): each band is at most LANES_PER_PASS lanes a
+        tile shard; the counter and ld modes also chunk the samples by
+        PATHS_PER_PASS, parity keeps every sample of a band in one call so
+        that each pixel's stream stays sequential."""
+        from .parallel.sharding import (
+            combine_cells,
+            make_render_mesh,
+            mesh_cells,
+            render_cells,
+            replicate,
+        )
+
+        opt = self.options
+        resolution = (opt.width, opt.height)
+        engine = self._resolve_engine()
+        mesh = make_render_mesh(devices)
+        n_tile = mesh.shape["tile"]
+        band = min(max(1, (LANES_PER_PASS * n_tile) // opt.width), opt.height)
+        if opt.rng in ("counter", "ld"):
+            chunk = opt.sample_chunk or max(
+                1, PATHS_PER_PASS // (min(LANES_PER_PASS, band * opt.width)))
+            chunk = max(1, min(chunk, opt.num_samples))
+        else:
+            chunk = opt.num_samples
+        acc = np.zeros((opt.height, opt.width, 3), np.float32)
+        cells = mesh_cells(mesh)
+        # One copy of the tables on each card for the whole render.
+        tables = replicate((self.camera, self.scene_arrays, self.accel, self.lights), devices)
+        with self.timer.phase("render"):
+            for row0 in range(0, opt.height, band):
+                band_h = min(band, opt.height - row0)
+                done = 0
+                while done < opt.num_samples:
+                    n = min(chunk, opt.num_samples - done)
+                    images = render_cells(
+                        cells, tables, (opt.width, band_h), n, mesh,
+                        max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                        nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
+                        row_offset=row0, full_resolution=resolution, sample_offset=done,
+                        engine=engine, direct=opt.direct,
+                    )
+                    img = combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
+                                        band_h, devices[0])
+                    acc[row0:row0 + band_h] += img.cpu().numpy() * (n / opt.num_samples)
+                    done += n
+        return acc
+
+    def render_adaptive(self, snapshot_cb=None, sample_base: int = 0) -> np.ndarray:
+        """Adaptive per-pixel sample allocation at the uniform budget
+        (``--spp-mode adaptive``, renderer.py:406-614): the total is
+        width x height x num_samples samples, but each pixel's count
+        follows its measured noise.
+
+        A uniform warmup (a quarter of the budget, at most 32 spp, at
+        least 2) accumulates each pixel's sum, sum of squares and count;
+        every later round re-targets the counts toward the 3x3-box-smoothed
+        per-pixel std mixed with a uniform floor that decays as the counts
+        grow, and apportions the round's lanes by largest remainder. Lanes
+        go out in 32x32-tile pixel order through ``render_samples_mega``
+        in calls of one fixed width. The allocation is host numpy, as in
+        the JAX package, so both allocate the same lanes.
+
+        ``snapshot_cb(avg_spp, image_fn)`` is called after each round;
+        ``image_fn()`` gives the current estimate, and a truthy return
+        stops the render after that round. ``sample_base`` is added to
+        every per-pixel sample index. As in the JAX package the warmup is
+        not clamped to the budget, so with ``num_samples == 1`` it issues
+        2 samples a pixel (ROADMAP R2).
+        """
+        opt = self.options
+        if opt.rng not in ("counter", "ld"):
+            raise ValueError(
+                "--spp-mode adaptive requires a stateless RNG "
+                "(--rng counter|ld); parity's sequential per-pixel stream "
+                "has no defined order under per-pixel sample counts"
+            )
+        engine = self._resolve_engine()
+        if engine not in ("mega", "binned", "pair"):
+            raise ValueError(
+                "--spp-mode adaptive requires the mega-family engines "
+                "(cluster backend); got engine="
+                f"{engine!r} (backend {type(self.accel).__name__})"
+            )
+        if opt.shard == "auto" and len(self._shard_devices()) > 1:
+            raise ValueError(
+                "--spp-mode adaptive is single-device for now; pass "
+                "--shard none (tile-DP sharding of adaptive rounds is a "
+                "planned extension)"
+            )
+        from .render.megarender import _tile_perm, render_samples_mega
+
+        knobs = _engine_knobs(engine)
+        W, H = opt.width, opt.height
+        r = W * H
+        n_total = r * opt.num_samples
+        # One lane width for every call.
+        ch = min(LANES_PER_PASS, r)
+        l_call = min(PATHS_PER_PASS, -(-n_total // ch) * ch)
+        # Lanes go out in 32x32-tile pixel order, the uniform path's.
+        perm, _inv = _tile_perm(W, H)
+        rank = np.empty(r, np.int64)
+        rank[perm] = np.arange(r)
+
+        n = np.zeros(r, np.int64)
+        acc = np.zeros((r, 3), np.float64)
+        acc2 = np.zeros((r, 3), np.float64)
+        warmup = max(2 * r, min(n_total // 4, 32 * r))
+        issued = 0
+
+        def weights():
+            """Per-pixel targets: the smoothed std mixed with a uniform
+            floor of 0.25 at a 64-spp average, shrinking as 1/sqrt(avg)
+            to no less than 0.08."""
+            avg = max(float(issued) / r, 1.0)
+            frac = float(np.clip(0.25 * np.sqrt(64.0 / avg), 0.08, 0.25))
+            nn = np.maximum(n, 2)[:, None]
+            var = np.maximum(acc2 / nn - (acc / nn) ** 2, 0.0).mean(-1)
+            sig = np.sqrt(var * (nn[:, 0] / np.maximum(nn[:, 0] - 1, 1)))
+            s = sig.reshape(H, W)
+            p = np.pad(s, 1, mode="edge")
+            s = (
+                p[:-2, :-2] + p[:-2, 1:-1] + p[:-2, 2:]
+                + p[1:-1, :-2] + p[1:-1, 1:-1] + p[1:-1, 2:]
+                + p[2:, :-2] + p[2:, 1:-1] + p[2:, 2:]
+            ).reshape(-1) / 9.0
+            m = s.mean()
+            if not np.isfinite(m) or m <= 0.0:
+                return np.ones(r)
+            return frac + (1.0 - frac) * (s / m)
+
+        def apportion(budget, want):
+            """Largest-remainder apportionment of ``budget`` lanes to the
+            pixels in proportion to ``want`` (non-negative, not all 0)."""
+            q = budget * (want / want.sum())
+            c = np.floor(q).astype(np.int64)
+            short = budget - int(c.sum())
+            if short > 0:
+                frac = q - c
+                c[np.argpartition(-frac, short - 1)[:short]] += 1
+            return c
+
+        with self.timer.phase("render"):
+            while issued < n_total:
+                # Rounds grow with the samples issued (about a third of
+                # them, at most 8 calls) once the warmup is done.
+                if issued < warmup:
+                    lanes = int(min(l_call, warmup - issued))
+                else:
+                    lanes = int(min(n_total - issued, 8 * l_call, max(l_call, issued // 3)))
+                if issued < warmup:
+                    base, extra = divmod(lanes, r)
+                    counts = np.full(r, base, np.int64)
+                    if extra:
+                        # The first ``extra`` pixels in tile order.
+                        counts[rank < extra] += 1
+                else:
+                    # Catch up toward the global target, so that the warmup
+                    # counts against each pixel's share.
+                    w = weights()
+                    target = n_total * (w / w.sum())
+                    deficit = np.maximum(target - n, 0.0)
+                    if deficit.sum() <= 0:
+                        deficit = w
+                    counts = apportion(lanes, deficit)
+                sel = np.repeat(np.arange(r, dtype=np.int64), counts)
+                sel = sel[np.argsort(rank[sel], kind="stable")]
+                # The k-th lane of pixel p in this round takes sample n[p] + k
+                # (a pixel's lanes are consecutive in ``sel``).
+                first = np.r_[True, sel[1:] != sel[:-1]]
+                pos = np.arange(lanes, dtype=np.int64)
+                run0 = pos[first][np.cumsum(first) - 1]
+                sidx_all = (sample_base + n[sel] + (pos - run0)).astype(np.uint32)
+                rad = np.empty((lanes, 3), np.float64)
+                for o in range(0, lanes, l_call):
+                    m = min(l_call, lanes - o)
+                    pix = np.zeros((l_call, 2), np.int32)
+                    pix[:m, 0] = sel[o:o + m] % W
+                    pix[:m, 1] = sel[o:o + m] // W
+                    sidx = np.zeros(l_call, np.uint32)
+                    sidx[:m] = sidx_all[o:o + m]
+                    val = np.zeros(l_call, bool)
+                    val[:m] = True
+                    out = render_samples_mega(
+                        self.camera, self.scene_arrays, self.accel, self.lights,
+                        torch.from_numpy(pix), torch.from_numpy(sidx.astype(np.int64)),
+                        torch.from_numpy(val), (W, H),
+                        max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                        nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
+                        tir=opt.tir, direct=opt.direct, **knobs,
+                    )
+                    rad[o:o + m] = out.cpu().numpy().astype(np.float64)[:m]
+                for c in range(3):
+                    acc[:, c] += np.bincount(sel, weights=rad[:, c], minlength=r)
+                    acc2[:, c] += np.bincount(sel, weights=rad[:, c] ** 2, minlength=r)
+                n += np.bincount(sel, minlength=r)
+                issued += lanes
+                if snapshot_cb is not None:
+                    stop = snapshot_cb(
+                        issued / r,
+                        lambda: (acc / np.maximum(n, 1)[:, None])
+                        .astype(np.float32).reshape(H, W, 3),
+                    )
+                    if stop:
+                        break
+        self.sample_counts = n.reshape(H, W)
+        img = (acc / np.maximum(n, 1)[:, None]).astype(np.float32)
+        return img.reshape(H, W, 3)
 
     def _render_fingerprint(self) -> str:
         """Identity of the accumulation a checkpoint belongs to

@@ -3,14 +3,17 @@ flip-budgeted gate of bench.py (non-flip RMSE <= 1e-3, at most 24 pixels
 with |diff| > 1e-2) through the megakernel engine and through the
 wavefront engine on both backends, chunked and checkpointed renders equal
 a monolithic one, ``python -m complex_materials_renderer_tpu_torch``
-writes a readable .hdr (also through the binned and pair engines), and the
-paths that are not ported yet refuse to run."""
+writes a readable .hdr (also through the binned and pair engines) and on
+the CPU with default flags passes the gate against the JAX package's CLI,
+``auto`` picks as the JAX package does, and ``--spp-mode adaptive``
+renders through the mega-family engines and refuses the others."""
 
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -44,7 +47,7 @@ def _golden_render(name, spp, golden_name=None, **extra):
 
 @pytest.mark.parametrize("name", ["isobox", "gembox"])
 def test_golden_gate(name):
-    img, ref = _golden_render(name, 2)
+    img, ref = _golden_render(name, 2, backend="cluster", engine="mega")
     assert img.shape == ref.shape and img.dtype == np.float32
     nonflip, flips = flip_gate(img, ref)
     assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
@@ -70,21 +73,24 @@ def test_wavefront_golden_gate(name, spp, backend):
 def test_binned_pair_golden_gate(name, spp, engine):
     """The binned and pair engines share the wavefront's physics and RNG
     streams: they pass the same gate."""
-    img, ref = _golden_render(name, spp, engine=engine)
+    img, ref = _golden_render(name, spp, engine=engine, backend="cluster")
     nonflip, flips = flip_gate(img, ref)
     assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
 
 
 @pytest.mark.slow
 def test_showcase_gate_golden():
-    img, ref = _golden_render("showcase", 32, "showcase_gate")
+    img, ref = _golden_render("showcase", 32, "showcase_gate", backend="cluster", engine="mega")
     nonflip, flips = flip_gate(img, ref)
     assert nonflip <= 1e-3 and flips <= FLIP_BUDGET, (nonflip, flips)
 
 
 def _isobox(**kw):
     obj = os.path.join(REPO, "scenes", "isobox.obj")
-    base = dict(width=24, height=20, num_samples=4, shard="none", device="cpu")
+    # The cluster grid and the megakernel, which ``auto`` takes on the card
+    # only.
+    base = dict(width=24, height=20, num_samples=4, shard="none", device="cpu",
+                backend="cluster", engine="mega")
     base.update(kw)
     scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
     return Renderer(scene, dataclasses.replace(scene.options, **base))
@@ -203,14 +209,25 @@ def test_cli_main_matches_renderer(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(spp_mode="adaptive", rng="counter"), "item 11"),
-    (dict(spp_mode="adaptive", rng="ld", engine="wavefront"), "item 11"),
-    (dict(spp_mode="adaptive", rng="counter", engine="binned"), "item 11"),
-    (dict(spp_mode="adaptive", rng="ld", engine="pair"), "item 11"),
+    (dict(spp_mode="adaptive", rng="counter"), None),
+    (dict(spp_mode="adaptive", rng="ld", engine="wavefront"), "mega"),
+    (dict(spp_mode="adaptive", rng="counter", engine="binned"), None),
+    (dict(spp_mode="adaptive", rng="ld", engine="pair"), None),
 ])
 def test_unported_paths_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _isobox(**kw).render()
+    """The paths that raised before adaptive sampling was ported: the
+    mega-family engines render with the exact budget, the wavefront
+    engine is refused as in the JAX package (renderer.py:449-453)."""
+    r = _isobox(width=8, height=8, **kw)
+    if match:
+        with pytest.raises(ValueError, match=match):
+            r.render()
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        img = r.render()
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0
+    assert int(r.sample_counts.sum()) == 8 * 8 * 4 and int(r.sample_counts.min()) >= 1
 
 
 def test_unported_backend_and_debug_raise(monkeypatch):
@@ -228,23 +245,99 @@ def test_unported_backend_and_debug_raise(monkeypatch):
 
 
 def test_engine_auto_resolution():
-    """auto: the megakernel on the cluster grid, the wavefront loop on the
-    BVH; the BVH backend builds a threaded BVH."""
+    """auto as in the JAX package (renderer.py:92-95, :626-631) with the
+    card in the TPU's role: on the CPU the BVH and the wavefront loop; the
+    megakernel only on the card with the cluster grid."""
+    from complex_materials_renderer_tpu_torch.kernels.cluster_grid import DeviceClusterGrid
     from complex_materials_renderer_tpu_torch.kernels.traverse import DeviceBVH
 
-    assert _isobox()._resolve_engine() == "mega"
-    r = _isobox(backend="bvh")
+    r = _isobox(backend="auto", engine="auto")
     assert isinstance(r.accel, DeviceBVH) and r._resolve_engine() == "wavefront"
+    r = _isobox(backend="cluster", engine="auto")
+    assert isinstance(r.accel, DeviceClusterGrid) and r._resolve_engine() == "wavefront"
+    r.device = torch.device("cuda")  # the rule alone; nothing is launched
+    assert r._resolve_engine() == "mega"
+    r = _isobox(backend="bvh", engine="auto")
+    r.device = torch.device("cuda")
+    assert r._resolve_engine() == "wavefront"
     assert _isobox(engine="wavefront")._resolve_engine() == "wavefront"
+    assert _isobox(engine="mega")._resolve_engine() == "mega"
+
+
+def test_default_cli_matches_jax_cli(tmp_path, monkeypatch):
+    """The port's CLI on the CPU with default flags (the BVH and the
+    wavefront loop) against the JAX package's CLI with default flags
+    (its BVH and wavefront loop, sharded over the JAX suite's 8 CPU
+    devices): the golden gate on the written .hdr files."""
+    from complex_materials_renderer_tpu.cli import main as jax_main
+    from complex_materials_renderer_tpu_torch.cli import main
+
+    obj = _write_tiny_scene(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    flags = [obj, "-s", "2", "--width", "24", "--height", "16"]
+    assert main(flags + ["-o", "port", "--device", "cpu"]) == 0
+    assert jax_main(flags + ["-o", "jax"]) == 0
+    img, ref = read_hdr("port.hdr"), read_hdr("jax.hdr")
+    assert img.shape == ref.shape == (16, 24, 3)
+    nonflip, flips = flip_gate(img, ref)
+    assert nonflip <= 1e-3 and flips <= 2, (nonflip, flips)
+
+
+def test_pass_shaping_reads_environment(tmp_path):
+    """CMR_LANES_PER_PASS, CMR_PATHS_PER_PASS and CMR_STEP_LANES (read at
+    import, as in the JAX package) reach the pass shape: 8-row bands,
+    one-sample chunks and 1,024-lane steps instead of one band, one chunk
+    and 3,072 lanes; the image stays the same."""
+    code = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from complex_materials_renderer_tpu_torch import renderer
+from complex_materials_renderer_tpu_torch.config import RenderOptions
+from complex_materials_renderer_tpu_torch.render import megarender
+from complex_materials_renderer_tpu_torch.scene import load_scene
+shapes = []
+real = megarender._make_advance
+def spy(kern, dynamic, sched, *a):
+    shapes.append(sched[0][0])
+    return real(kern, dynamic, sched, *a)
+megarender._make_advance = spy
+kw = dict(width=48, height=48, num_samples=2, rng="counter", shard="none", device="cpu",
+          backend="cluster", engine="mega")
+scene = load_scene("scenes/isobox.obj", RenderOptions(obj_path="scenes/isobox.obj", **kw))
+img = renderer.Renderer(scene, scene.options).render()
+np.save(sys.argv[1], img)
+print(renderer.LANES_PER_PASS, renderer.PATHS_PER_PASS, megarender.STEP_LANES,
+      renderer._auto_row_chunk(48), renderer._auto_sample_chunk(48, 48), len(shapes), max(shapes))
+"""
+    outs = {}
+    for name, env in (("default", {}), ("changed", {"CMR_LANES_PER_PASS": str(8 * 48),
+                                                   "CMR_PATHS_PER_PASS": str(8 * 48),
+                                                   "CMR_STEP_LANES": "1024"})):
+        base = {k: v for k, v in os.environ.items() if not k.startswith("CMR_")}
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(tmp_path / f"{name}.npy")], cwd=REPO,
+            capture_output=True, text=True, env={**base, "PYTHONPATH": REPO, **env},
+        )
+        assert proc.returncode == 0, proc.stderr
+        outs[name] = proc.stdout.split()
+    # Defaults: bands of 1,365 rows (one for the 48-row frame), both samples
+    # in one call, lanes padded to 3,072.
+    assert outs["default"] == ["65536", "1048576", "65536", "1365", "455", "1", "3072"]
+    # Changed: six 8-row bands of 384 pixels, one sample a call, 1,024 lanes.
+    assert outs["changed"] == ["384", "384", "1024", "8", "1", "12", "1024"]
+    np.testing.assert_allclose(np.load(tmp_path / "changed.npy"),
+                               np.load(tmp_path / "default.npy"), atol=1e-6)
 
 
 @pytest.mark.parametrize("flags", [
     ["--engine", "wavefront", "--backend", "bvh"],
-    ["--engine", "wavefront"],
+    ["--engine", "wavefront", "--backend", "cluster"],
     ["--aov", "normal", "--backend", "bvh"],
-    ["--aov", "topology"],
-    ["--engine", "binned"],
-    ["--engine", "pair"],
+    ["--aov", "topology", "--backend", "cluster"],
+    ["--engine", "binned", "--backend", "cluster"],
+    ["--engine", "pair", "--backend", "cluster"],
 ])
 def test_cli_new_paths_write_hdr(tmp_path, monkeypatch, flags):
     from complex_materials_renderer_tpu_torch.cli import main

@@ -21,7 +21,11 @@ forced through the wrappers' ``group_size``) K1 and K3 equal their plain
 versions to the bit, and so do K5 at every (G, S) (``round_split``) and K6
 at every G. Renders on the card against the CPU: at most 2 flip pixels,
 atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
-(the camera rays of the two devices may differ by an ulp)."""
+(the camera rays of the two devices may differ by an ulp). On the card,
+``render_samples_mega`` at the uniform (pixel, sample) pairs equals
+``render_beauty_mega`` bit for bit on every mega-family engine, and four
+logical shards on the one card render the single image bit for bit in
+parity (atol 1e-6 for a sample split in counter)."""
 
 import dataclasses
 import os
@@ -215,7 +219,8 @@ def test_wrapper_refuses_bad_inputs(cuda):
 
 def test_renderer_cuda_matches_cpu(cuda):
     obj = os.path.join(REPO, "scenes", "gembox.obj")
-    kw = dict(width=48, height=32, num_samples=4, shard="none")
+    # The megakernel on both devices (``auto`` takes it on the card only).
+    kw = dict(width=48, height=32, num_samples=4, shard="none", backend="cluster", engine="mega")
     scene = load_scene(obj, RenderOptions(obj_path=obj, **kw))
     opt = dataclasses.replace(scene.options, **kw)
     before = mk.trace_paths_mega.launches
@@ -263,7 +268,9 @@ def test_cluster_trace_refuses_bad_inputs(cuda):
 
 def _gembox(device, **kw):
     obj = os.path.join(REPO, "scenes", "gembox.obj")
-    kw = dict(width=48, height=32, num_samples=4, shard="none", **kw)
+    # The cluster grid on both devices unless a test names the backend
+    # (``auto`` takes it on the card only).
+    kw = {**dict(width=48, height=32, num_samples=4, shard="none", backend="cluster"), **kw}
     scene = load_scene(obj, RenderOptions(obj_path=obj, **kw))
     return Renderer(scene, dataclasses.replace(scene.options, **kw), device=device)
 
@@ -565,3 +572,54 @@ def test_engine_cuda_matches_cpu(cuda, engine):
     diff = np.abs(img_gpu - img_cpu).max(-1)
     assert int((diff > 1e-2).sum()) <= 2
     np.testing.assert_allclose(img_gpu[diff <= 1e-2], img_cpu[diff <= 1e-2], atol=1e-4)
+
+
+# --- Adaptive sampling and sharding on the card -----------------------------
+
+
+@pytest.mark.parametrize("engine", ["mega", "binned", "pair"])
+@pytest.mark.parametrize("rng", ["counter", "ld"])
+def test_render_samples_cuda_matches_uniform(cuda, engine, rng):
+    """render_samples_mega at exactly the uniform (pixel, sample) pairs,
+    averaged per pixel, equals render_beauty_mega on the card bit for bit."""
+    import warnings
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = _gembox("cuda", engine=engine, rng=rng)
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(rng_mode=rng, trace_engine=engine, max_depth=8, rr_depth=4)
+    img = mr.render_beauty_mega(*objs, (32, 16), 2, **kw).cpu().numpy()
+    ys, xs = np.meshgrid(np.arange(16), np.arange(32), indexing="ij")
+    pix = np.repeat(np.stack([xs.reshape(-1), ys.reshape(-1)], -1), 2, axis=0)
+    sidx = np.tile(np.arange(2), 32 * 16)
+    rad = mr.render_samples_mega(*objs, torch.from_numpy(pix), torch.from_numpy(sidx),
+                                 torch.ones(len(sidx), dtype=torch.bool), (32, 16), **kw)
+    assert rad.device.type == "cuda"
+    per_px = rad.cpu().numpy().reshape(-1, 2, 3).mean(1).reshape(16, 32, 3)
+    np.testing.assert_array_equal(per_px, img)
+
+
+@pytest.mark.parametrize("engine", ["mega", "binned"])
+def test_sharded_cuda_tile_split_matches_single(cuda, engine):
+    """Four logical shards on the one card render the single image bit for
+    bit in parity (a tile split) and within atol 1e-6 in counter (2 x 2)."""
+    from complex_materials_renderer_tpu_torch.parallel.sharding import (
+        make_render_mesh,
+        render_beauty_sharded,
+    )
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda")
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=8, rr_depth=4)
+    mesh = make_render_mesh([cuda] * 4)
+    ref = mr.render_beauty_mega(*objs, (48, 32), 2, trace_engine=engine, **kw)
+    img = render_beauty_sharded(*objs, (48, 32), 2, mesh=mesh, engine=engine, **kw)
+    np.testing.assert_array_equal(img.cpu().numpy(), ref.cpu().numpy())
+    ref = mr.render_beauty_mega(*objs, (48, 32), 4, rng_mode="counter", trace_engine=engine, **kw)
+    img = render_beauty_sharded(*objs, (48, 32), 4, rng_mode="counter", engine=engine, **kw,
+                                mesh=make_render_mesh([cuda] * 4, sample_parallel=2))
+    np.testing.assert_allclose(img.cpu().numpy(), ref.cpu().numpy(), atol=1e-6)

@@ -45,7 +45,7 @@ assert not left, left
 for name in ("render.integrator", "render.aov", "kernels.traverse", "kernels.cluster_trace",
              "kernels.intersect", "accel.bvh", "ops.fresnel", "ops.phase", "ops.diffuse",
              "ops.medium", "kernels.binned_trace", "kernels.pairsweep", "render.binnedrender",
-             "render.pairrender"):
+             "render.pairrender", "parallel", "parallel.sharding", "parallel.multihost"):
     assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
@@ -57,10 +57,11 @@ def test_port_imports_no_jax():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
-    # Every module of the three slices was imported, the wavefront, binned
-    # and pair engines, the AOVs, the BVH backend and the wrappers of the
-    # closest-hit, listing, round and sweep kernels among them.
-    assert int(proc.stdout.split()[-1]) >= 42
+    # Every module of the port was imported, the wavefront, binned and pair
+    # engines, the AOVs, the BVH backend, the wrappers of the closest-hit,
+    # listing, round and sweep kernels and the sharding and multi-process
+    # modules among them.
+    assert int(proc.stdout.split()[-1]) >= 45
 
 
 def _no_card(monkeypatch):

@@ -1,0 +1,371 @@
+"""The port's tile and sample sharding (parallel/sharding.py) and its
+multi-process path (parallel/multihost.py) on the CPU, mirroring
+tests/test_sharding.py: a mesh of 8 logical shards on the one CPU (each
+appearance of a device is a shard; the JAX suite runs 8 virtual CPU
+devices) against the port's single-device renders, bit for bit for tile
+splits and within atol 1e-6 for sample splits (only the mean's sums move);
+the sharded wavefront against the JAX package's on its 8 devices; the
+Renderer's sharded band loop; the reference's two quirks (ROADMAP R5:
+pair renders through the wavefront loop under sharding; R6: ``tir`` is
+not passed to the shards); and a real two-process gloo job."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from complex_materials_renderer_tpu.parallel.sharding import make_render_mesh as jax_mesh
+from complex_materials_renderer_tpu.parallel.sharding import (
+    render_beauty_sharded as jax_render_beauty_sharded,
+)
+from complex_materials_renderer_tpu_torch import renderer as trenderer
+from complex_materials_renderer_tpu_torch.accel import build_bvh, build_clusters
+from complex_materials_renderer_tpu_torch.config import RenderOptions
+from complex_materials_renderer_tpu_torch.kernels.cluster_grid import device_cluster_grid
+from complex_materials_renderer_tpu_torch.kernels.traverse import device_bvh
+from complex_materials_renderer_tpu_torch.parallel import multihost, sharding
+from complex_materials_renderer_tpu_torch.parallel.sharding import (
+    make_render_mesh,
+    render_beauty_sharded,
+)
+from complex_materials_renderer_tpu_torch.render.integrator import render_beauty
+from complex_materials_renderer_tpu_torch.render.megarender import render_beauty_mega
+from complex_materials_renderer_tpu_torch.render.hitinfo import make_scene_arrays
+from complex_materials_renderer_tpu_torch.renderer import Renderer
+from complex_materials_renderer_tpu_torch.scene.scene import Scene
+from complex_materials_renderer_tpu_torch.scene.medium import MediaTable
+
+from helpers import fixture_camera, fixture_lights, make_test_scene
+from test_torch_support import check_image, port_camera, port_lights, scene_accels
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU8 = [torch.device("cpu")] * 8
+MEGA_KW = dict(max_depth=4, rr_depth=2, nee_max_media=1)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """(scene, BVH, camera, lights) of the helpers scene on the CPU."""
+    tris, mats, media = make_test_scene()
+    scene = make_scene_arrays(tris, mats, MediaTable(*media), 1.0, 1, device="cpu")
+    bvh = device_bvh(build_bvh(tris, leaf_size=4), tris, 4, "cpu")
+    return scene, bvh, port_camera(), port_lights()
+
+
+@pytest.fixture(scope="module")
+def grid():
+    tris, mats, _ = make_test_scene()
+    return device_cluster_grid(build_clusters(tris, mats, cluster_size=8), "cpu")
+
+
+def test_eight_logical_shards_and_absent_devices():
+    mesh = make_render_mesh(CPU8)
+    assert mesh.shape == {"sample": 1, "tile": 8}
+    assert make_render_mesh(CPU8, sample_parallel=4).shape == {"sample": 4, "tile": 2}
+    with pytest.raises(ValueError, match="divisible"):
+        make_render_mesh(CPU8[:6], sample_parallel=4)
+    # No fallback: a mesh that names a card which is not there raises.
+    if torch.cuda.device_count() < 8:
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_render_mesh(["cuda:7"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_render_mesh()
+
+
+def test_tile_sharded_bit_identical_parity(setup):
+    scene, bvh, cam, lights = setup
+    ref = render_beauty(cam, scene, bvh, lights, (32, 32), 4, **MEGA_KW)
+    img = render_beauty_sharded(cam, scene, bvh, lights, (32, 32), 4, mesh=make_render_mesh(CPU8),
+                                **MEGA_KW)
+    np.testing.assert_array_equal(ref.numpy(), img.numpy())
+
+
+def test_sample_and_tile_sharded_counter(setup):
+    scene, bvh, cam, lights = setup
+    ref = render_beauty(cam, scene, bvh, lights, (32, 32), 8, rng_mode="counter", **MEGA_KW)
+    img = render_beauty_sharded(cam, scene, bvh, lights, (32, 32), 8, rng_mode="counter",
+                                mesh=make_render_mesh(CPU8, sample_parallel=4), **MEGA_KW)
+    # The same samples; only the mean's summation order differs.
+    np.testing.assert_allclose(ref.numpy(), img.numpy(), atol=1e-6)
+
+
+def test_non_divisible_height_pads(setup):
+    scene, bvh, cam, lights = setup
+    ref = render_beauty(cam, scene, bvh, lights, (16, 30), 2, **MEGA_KW)
+    img = render_beauty_sharded(cam, scene, bvh, lights, (16, 30), 2, mesh=make_render_mesh(CPU8),
+                                **MEGA_KW)
+    assert tuple(img.shape) == (30, 16, 3)
+    np.testing.assert_array_equal(ref.numpy(), img.numpy())
+
+
+def test_sample_parallel_requires_counter(setup):
+    scene, bvh, cam, lights = setup
+    with pytest.raises(ValueError, match="order-independent"):
+        render_beauty_sharded(cam, scene, bvh, lights, (16, 16), 8, rng_mode="parity",
+                              mesh=make_render_mesh(CPU8, sample_parallel=2))
+    with pytest.raises(ValueError, match="not divisible"):
+        render_beauty_sharded(cam, scene, bvh, lights, (16, 16), 3, rng_mode="counter",
+                              mesh=make_render_mesh(CPU8, sample_parallel=2))
+
+
+@pytest.mark.parametrize("engine", ["mega", "binned"])
+def test_tile_sharded_mega_family(setup, grid, engine):
+    """The megarender pass loop per shard equals its single render bit for
+    bit: sharding only partitions rows, and the engines' lane sorts are
+    shard-local."""
+    scene, _, cam, lights = setup
+    ref = render_beauty_mega(cam, scene, grid, lights, (16, 16), 1, trace_engine=engine,
+                             **MEGA_KW)
+    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 1, engine=engine,
+                                mesh=make_render_mesh(CPU8), **MEGA_KW)
+    np.testing.assert_array_equal(ref.numpy(), img.numpy())
+
+
+def _spy_replicate(monkeypatch) -> list:
+    """Record every ``sharding.replicate`` call's result."""
+    copies = []
+    real = sharding.replicate
+
+    def spy(objs, devices):
+        out = real(objs, devices)
+        copies.append(out)
+        return out
+
+    monkeypatch.setattr(sharding, "replicate", spy)
+    return copies
+
+
+def test_distinct_devices_render_in_turn(setup, grid, monkeypatch):
+    """Two distinct devices ("cpu" and "cpu:0") each get one copy of the
+    tables, and each shard renders from its own device's copy, device by
+    device in the calling thread; the image is the single one bit for
+    bit."""
+    import threading
+
+    scene, _, cam, lights = setup
+    calls = []
+    real_mega = render_beauty_mega
+
+    def mega(*a, **k):
+        calls.append((k["row_offset"], a[2], threading.current_thread()))
+        return real_mega(*a, **k)
+
+    monkeypatch.setattr("complex_materials_renderer_tpu_torch.render.megarender."
+                        "render_beauty_mega", mega)
+    copies = _spy_replicate(monkeypatch)
+    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 1, engine="mega",
+                                mesh=make_render_mesh(["cpu", "cpu:0"] * 4), **MEGA_KW)
+    ref = real_mega(cam, scene, grid, lights, (16, 16), 1, **MEGA_KW)
+    np.testing.assert_array_equal(ref.numpy(), img.numpy())
+    assert len(copies) == 1 and sorted(map(str, copies[0])) == ["cpu", "cpu:0"]
+    tables = {str(d): objs[2] for d, objs in copies[0].items()}
+    # Tile t (2 rows from 2t) lies on "cpu" for even t, "cpu:0" for odd.
+    assert [row for row, _, _ in calls] == [0, 4, 8, 12, 2, 6, 10, 14]
+    for row, g, thread in calls:
+        assert g is tables["cpu" if row % 4 == 0 else "cpu:0"]
+        assert thread is threading.current_thread()
+
+
+def test_sample_sharded_mega_counter(setup, grid):
+    scene, _, cam, lights = setup
+    ref = render_beauty_mega(cam, scene, grid, lights, (16, 16), 4, rng_mode="counter",
+                             **MEGA_KW)
+    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 4, rng_mode="counter",
+                                engine="mega", mesh=make_render_mesh(CPU8[:4], 2), **MEGA_KW)
+    np.testing.assert_allclose(ref.numpy(), img.numpy(), atol=1e-6)
+
+
+def test_pair_shards_render_wavefront(setup, grid):
+    """R5: under sharding the pair engine renders through the wavefront
+    loop, as sharding.py:103-116 of the JAX package does."""
+    scene, _, cam, lights = setup
+    mesh = make_render_mesh(CPU8[:4])
+    pair = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 2, engine="pair",
+                                 mesh=mesh, **MEGA_KW)
+    wave = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 2, engine="wavefront",
+                                 mesh=mesh, **MEGA_KW)
+    np.testing.assert_array_equal(pair.numpy(), wave.numpy())
+    assert np.array_equal(wave.numpy(), render_beauty(cam, scene, grid, lights, (16, 16), 2,
+                                                      **MEGA_KW).numpy())
+
+
+def test_sharded_matches_jax_sharded():
+    """The port's sharded wavefront over 8 logical CPU shards against the
+    JAX package's over its 8 virtual devices, BVH backend, with the
+    tolerance of the port's wavefront tests (atol 1e-5 but at most 2 flip
+    pixels of 256)."""
+    import jax
+
+    assert len(jax.devices()) == 8
+    tris, mats, media = make_test_scene()
+    jscene, jbvh, tscene, tbvh = scene_accels(tris, mats, media, "bvh")
+    kw = dict(max_depth=8, rr_depth=4, nee_max_media=4, rng_mode="counter")
+    ref = np.asarray(jax_render_beauty_sharded(fixture_camera(), jscene, jbvh, fixture_lights(),
+                                               (16, 16), 4, mesh=jax_mesh(sample_parallel=2),
+                                               **kw))
+    img = render_beauty_sharded(port_camera(), tscene, tbvh, port_lights(), (16, 16), 4,
+                                mesh=make_render_mesh(CPU8, sample_parallel=2), **kw)
+    check_image(img.numpy(), ref, max_flips=2)
+
+
+def _helpers_scene(**kw):
+    """(Scene, options) of the helpers scene at 16x24@4 on the BVH."""
+    tris, mats, media = make_test_scene()
+    kw = {**dict(width=16, height=24, num_samples=4), **kw}
+    opt = RenderOptions(backend="bvh", device="cpu", camera_pos=(0.0, 1.5, 5.0),
+                        camera_look_at=(0.0, 1.0, 0.0), camera_fov=36.0, scale=1.0, **MEGA_KW,
+                        **kw)
+    return Scene(tris, mats, MediaTable(*media), opt, []), opt
+
+
+@pytest.mark.parametrize("rng,lanes", [("parity", 1 << 16), ("counter", 16 * 2)])
+def test_sharded_chunked_renderer_matches_single(monkeypatch, rng, lanes):
+    """The Renderer's sharded band and sample-chunk loop (8 shards patched
+    in as the visible devices) reproduces the single-device render; in
+    counter mode with bands of 16 rows and one-sample chunks."""
+    base, opt = _helpers_scene(rng=rng)
+    single = Renderer(base, dataclasses.replace(opt, shard="none")).render()
+    monkeypatch.setattr(Renderer, "_shard_devices", lambda self: CPU8)
+    monkeypatch.setattr(trenderer, "LANES_PER_PASS", lanes)
+    monkeypatch.setattr(trenderer, "PATHS_PER_PASS", lanes)
+    seen = []
+    real = trenderer.Renderer._render_sharded
+
+    def spy(self, devices):
+        seen.append(len(devices))
+        return real(self, devices)
+
+    monkeypatch.setattr(Renderer, "_render_sharded", spy)
+    copies = _spy_replicate(monkeypatch)
+    sharded = Renderer(base, dataclasses.replace(opt, shard="auto")).render()
+    assert seen == [8]
+    assert [list(c) for c in copies] == [[torch.device("cpu")]]  # once, not once a band
+    np.testing.assert_allclose(sharded, single, atol=1e-6)
+
+
+def test_sharded_renderer_ignores_tir(monkeypatch, setup):
+    """R6: the shards never get ``tir``, so ``--tir kill`` renders the
+    default ``reflect`` image under sharding."""
+    base, opt = _helpers_scene(rng="counter", num_samples=2)
+    monkeypatch.setattr(Renderer, "_shard_devices", lambda self: CPU8[:4])
+    kill = Renderer(base, dataclasses.replace(opt, shard="auto", tir="kill")).render()
+    reflect = Renderer(base, dataclasses.replace(opt, shard="auto")).render()
+    np.testing.assert_array_equal(kill, reflect)
+
+
+def test_shard_auto_on_one_device_renders_alone(monkeypatch):
+    """With one device ``--shard auto`` takes the single-device path, as
+    the JAX package does with one device."""
+    base, opt = _helpers_scene(rng="counter")
+    monkeypatch.setattr(Renderer, "_render_sharded", lambda *a: pytest.fail("sharded"))
+    r = Renderer(base, dataclasses.replace(opt, shard="auto"))
+    assert r._shard_devices() == [torch.device("cpu")]
+    assert r.render().shape == (24, 16, 3)
+
+
+def test_multihost_single_process(setup):
+    """Without a process group render_multihost is the sharded render."""
+    scene, bvh, cam, lights = setup
+    multihost.init_distributed()  # no-op: one process, no coordinator
+    assert not multihost.is_initialized()
+    img = multihost.render_multihost(cam, scene, bvh, lights, (16, 16), 2, devices=CPU8,
+                                     **MEGA_KW)
+    ref = render_beauty_sharded(cam, scene, bvh, lights, (16, 16), 2, mesh=make_render_mesh(CPU8),
+                                **MEGA_KW)
+    np.testing.assert_array_equal(img, ref.numpy())
+
+
+def test_multihost_backend_follows_devices(setup, tmp_path, monkeypatch):
+    """init_distributed serves CPU tensors with gloo (and CUDA ones with
+    NCCL where there is CUDA), so CPU shards gather over gloo on any host;
+    a group that gives the shards' device type another backend is
+    refused."""
+    import torch.distributed as dist
+
+    scene, bvh, cam, lights = setup
+    multihost.init_distributed("file://" + str(tmp_path / "store"), 1, 0)
+    try:
+        assert multihost.group_backend("cpu") == "gloo"
+        img = multihost.render_multihost(cam, scene, bvh, lights, (16, 16), 1,
+                                         devices=CPU8[:2], **MEGA_KW)
+        ref = render_beauty_sharded(cam, scene, bvh, lights, (16, 16), 1,
+                                    mesh=make_render_mesh(CPU8[:2]), **MEGA_KW)
+        np.testing.assert_array_equal(img, ref.numpy())
+        monkeypatch.setattr(dist, "get_backend", lambda *a: "cuda:nccl")
+        with pytest.raises(ValueError, match="gloo"):
+            multihost.render_multihost(cam, scene, bvh, lights, (16, 16), 1, devices=CPU8[:2],
+                                       **MEGA_KW)
+    finally:
+        dist.destroy_process_group()
+
+
+_WORKER = r"""
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from complex_materials_renderer_tpu_torch.accel import build_bvh
+from complex_materials_renderer_tpu_torch.kernels.traverse import device_bvh
+from complex_materials_renderer_tpu_torch.ops.camera import make_camera
+from complex_materials_renderer_tpu_torch.parallel import multihost
+from complex_materials_renderer_tpu_torch.render.hitinfo import make_lights, make_scene_arrays
+from complex_materials_renderer_tpu_torch.scene.medium import MediaTable
+
+rank, world, store, data, out, sample_parallel = sys.argv[1:7]
+with np.load(data) as z:
+    tris, mats = z["tris"], z["mats"]
+    media = MediaTable(*(z[f] for f in MediaTable._fields))
+scene = make_scene_arrays(tris, mats, media, 1.0, 1, device="cpu")
+bvh = device_bvh(build_bvh(tris, leaf_size=4), tris, 4, "cpu")
+cam = make_camera((0.0, 1.5, 5.0), (0.0, 1.0, 0.0), 36.0)
+lights = make_lights((2.0, 4.0, 3.0), (0.8, 0.8, 0.6), 100.0)
+multihost.init_distributed(store, int(world), int(rank))
+multihost.init_distributed(store, int(world), int(rank))  # a second call is a no-op
+assert multihost.group_backend("cpu") == "gloo"
+img = multihost.render_multihost(cam, scene, bvh, lights, (16, 16), 2, devices=["cpu", "cpu"],
+                                 sample_parallel=int(sample_parallel), rng_mode="counter",
+                                 max_depth=4, rr_depth=2, nee_max_media=1)
+np.save(out, img)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("sample_parallel", [1, 2])
+def test_multihost_two_processes(setup, tmp_path, sample_parallel):
+    """A real two-process job: two interpreters join a gloo group through a
+    file:// store, 2 logical CPU shards each (a global mesh of 4 tiles, or
+    2 x 2 with the 'sample' axis across the processes), and both return
+    the full frame, equal to the one-process render."""
+    scene, bvh, cam, lights = setup
+    tris, mats, media = make_test_scene()
+    data = str(tmp_path / "scene.npz")
+    np.savez(data, tris=tris, mats=mats, **dict(zip(MediaTable._fields, media)))
+    store = "file://" + str(tmp_path / "store")
+    outs = [str(tmp_path / f"img{i}.npy") for i in range(2)]
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(i), "2", store, data, outs[i],
+                               str(sample_parallel)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{log}"
+    imgs = [np.load(o) for o in outs]
+    np.testing.assert_array_equal(imgs[0], imgs[1])
+    ref = render_beauty_sharded(cam, scene, bvh, lights, (16, 16), 2, rng_mode="counter",
+                                mesh=make_render_mesh(CPU8[:4], sample_parallel), **MEGA_KW)
+    assert imgs[0].shape == (16, 16, 3)
+    np.testing.assert_array_equal(imgs[0], ref.numpy())
