@@ -7,8 +7,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``csrc/`` with nvcc (one process per library, started together): the
    megakernel for ``--nee-bound`` 1, 4, 8 and 10, the closest-hit kernel,
    and at ``--nee-bound`` 4 the listing, the round (each at list lengths
-   4, 8 and 12) and the pair sweep, each with its ptxas lines (registers
-   and spill stores of every kernel);
+   4, 8 and 12), the pair sweep and the megakernel's ablation instance of
+   each ``megakernel.ABLATION_SETS`` token set (CMR_MEGA_DEBUG; carrywalk
+   is the nofuse instance at one thread a lane), each with its ptxas
+   lines (registers and spill stores of every kernel) and the build time;
 2. holds the path-tracing kernel (K1, with the triangle tester K2
    inlined) against its plain PyTorch version on the card, from one
    65,536-lane state of the showcase scene, in six cases: parity to
@@ -21,6 +23,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    size G (threads per lane: 1, 2, 4, 8, 16, 32) on the widest launch
    (65,536 fresh lanes, one bounce) and on the tail of one sample step
    (1,024 lanes of a mid-path state run to termination), bit-equal;
+2b. holds each ablation instance of K1 (nofuse, ordered, carrywalk,
+   cullonly, notrace, notrace with cullonly, nophys, nodist, nonee, nonee
+   with nodist) bit for bit against its plain version on the same two
+   launches (the tail has lanes dead at entry: nophys's 1024-lane
+   lockstep), each launched from its own library;
 3. holds the closest-hit kernel (K3) against its plain version on the
    card: 65,536 showcase primary rays and 65,536 bounce-like rays (random
    directions from the primary hits, a third of the lanes parked, a
@@ -54,7 +61,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    in about 170 supers, both printed), seen by a low camera across the
    tiles; holds K4 on its 65,536-lane ray sets as on showcase's, adding a
    sparse relist (about 1.5% of the lanes) on the primary rays, runs
-   the whole-trace checks of 3b on it, and drives its binned closest and
+   the whole-trace checks of 3b on it, holds K1's default, nofuse,
+   ordered and carrywalk instances bit for bit against their plain
+   versions on its first 65,536-lane launch and on a tail of 4,096
+   lanes alive after two bounces, run to termination (the walks between
+   many supers, and ordered's stop rule across them), and drives its
+   binned closest and
    NEE traces with every launch count set to 0 just before and read just
    after (each K4 launch there must be the tile walk's);
 4. drives the main path: a default (megakernel) render of
@@ -64,6 +76,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    then the 64x64 at 32 spp render against tests/golden/showcase_gate.npz
    under the flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels
    with |diff| > 1e-2);
+4b. renders the main path under CMR_MEGA_DEBUG nofuse, ordered and
+   carrywalk (exact walks), each timed after a warm-up, each of its K1
+   launches from the token's library: the image within atol 1e-6 of the
+   default render's; then K1's decomposition by token set: ptxas
+   registers and spill, the ms of the first 65,536-lane launch and of one
+   whole parity sample step (its launches recorded under the token), each
+   in turns with the default (default, token, token, default), the step's
+   lane-bounces and ms per million of them; cullonly must take longer
+   than notrace with cullonly on the first launch (its closest-hit culls
+   were not compiled away);
 5. drives the wavefront path: the same showcase render with ``--engine
    wavefront`` after a small warm-up, timed, with K3's launch count, held
    against the megakernel image (non-flip RMSE <= 1e-3, flip pixels at most
@@ -133,7 +155,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    instance, and K6 launch by launch over one pair NEE trace (pairs, valid
    pairs, distinct ids per block, G, ms, bound, TPU work) with its widest
    and narrowest launch at every G;
-7. prints a ``{"kernels": [...]}`` line (K4 in two rows: showcase's
+7. prints its command time, a ``{"kernels": [...]}`` line (one K1 row
+   that names its ablation instances; K4 in two rows: showcase's
    renders with the walk the rule launches there, and the tile walk on
    the many-cluster scene with the launches of its traces), the
    ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -141,9 +164,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 Any failed phase exits nonzero before the last line. ``--quick`` stops
 after the kernel comparisons (phases 2-3c) and exits 4; ``--tables``
-builds, prints only the K1, K3, K4 (both scenes, and the few-super
-tilings), K5 and K6 launch tables of phase 6 and the timed main-path
-render of phase 4, times the main path at 2^16, 2^17 and 2^18 lanes a
+builds, prints only the K1 launch table and K1's decomposition (4b), the
+K3, K4 (both scenes, and the few-super tilings), K5 and K6 launch tables
+of phase 6 and the timed main-path render of phase 4, times the main path at 2^16, 2^17 and 2^18 lanes a
 pass (``LANES_PER_PASS``, which ``CMR_LANES_PER_PASS`` sets), and exits 4;
 ``--profile`` adds a torch.profiler breakdown of one pass of each engine.
 ``--cards`` (a host with an even number of cards, at least 2) builds and
@@ -161,6 +184,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -220,6 +244,12 @@ TILED_CAMERA = ((-8.0, 4.0, 8.0), (100.0, -20.0, -100.0))
 # Device sleep queued ahead of each timed launch: about 10 ms at the H100's
 # clock, far longer than a wrapper's host work.
 SLEEP_CYCLES = 20_000_000
+# K1's CMR_MEGA_DEBUG token sets are kernels/megakernel.py's ABLATION_SETS
+# (EXACT_ABLATIONS: the walks that render the default image).
+TILED_ABLATIONS = ("", "nofuse", "ordered", "carrywalk")  # held on the many-cluster scene
+TILED_TAIL = 4096  # lanes of the many-cluster scene's tail check
+ABLATION_ATOL = 1e-6  # an exact ablation's image against the default's (the JAX tests' limit)
+T_START = time.perf_counter()
 
 
 def ptxas_lines(log: str):
@@ -518,9 +548,10 @@ def main_path(r_opts):
     paths = opt.width * opt.height * opt.num_samples
     mean = float(np.mean(img))
     print(f"   K1 launches by width and threads per lane: {groups.line()}", flush=True)
+    digest = hashlib.sha256(np.ascontiguousarray(img, np.float32).tobytes()).hexdigest()[:16]
     print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity: warm-up {warm:.3f} s, "
           f"timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K1 launches {launches}; "
-          f"image mean {mean:.6f}", flush=True)
+          f"image mean {mean:.6f}, sha256 {digest}", flush=True)
     if launches <= 0:
         fail("the main path launched the megakernel no time")
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
@@ -731,6 +762,224 @@ def bounce_rays(r, o, d, seed=7):
     active = torch.rand((n,), generator=gen, device=o.device) >= 1.0 / 3.0
     t_max = 0.05 + 19.95 * torch.rand((n,), generator=gen, device=o.device)
     return org, dirs.contiguous(), t_max, active
+
+
+# --------------------------------------------------------------------------
+# K1's ablation instances (CMR_MEGA_DEBUG)
+# --------------------------------------------------------------------------
+
+
+class requested_masks:
+    """Records the ablation mask of every K1 library the wrapper asks for
+    inside it: which instance each launch ran."""
+
+    def __enter__(self):
+        from complex_materials_renderer_tpu_torch.kernels import build
+
+        self.build, self.orig, self.masks = build, build.megakernel, set()
+
+        def megakernel(nee_max_media, ablate=0):
+            self.masks.add(ablate)
+            return self.orig(nee_max_media, ablate)
+
+        build.megakernel = megakernel
+        return self.masks
+
+    def __exit__(self, *exc):
+        self.build.megakernel = self.orig
+        return False
+
+
+def ablation_vs_plain(r, media9, misc, base, calls):
+    """Each ablation instance against its plain version on the card, on the
+    main path's first launch (65,536 fresh lanes, one bounce) and on the
+    tail of one sample step (1,024 lanes of a mid-path state run to
+    termination, some dead at entry: nophys's block lockstep): bit-equal,
+    and launched from the token's own library."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    for debug in mk.ABLATION_SETS:
+        for label, (st, kw) in (("first launch", calls[0]), ("tail", calls[-1])):
+            instance_vs_plain(r, media9, misc, st, dict(base, **kw), debug, label)
+
+
+def instance_vs_plain(r, media9, misc, st, kw, debug, label):
+    """K1's instance of ``debug`` against its plain version on a copy of
+    ``st``: bit-equal, launched from the token's own library (carrywalk:
+    the nofuse library)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    lib_mask = mk.cuda_instance(mk.ablation_mask(debug))[0]
+    kwd = dict(kw, debug=debug)
+    want = clone_state(st)
+    mk.trace_paths_mega_plain(r.accel, media9, misc, want, **kwd)
+    got = clone_state(st)
+    with uncounted(), requested_masks() as masks:
+        mk.trace_paths_mega(r.accel, media9, misc, got, **kwd)
+    torch.cuda.synchronize()
+    if masks != {lib_mask}:
+        fail(f"{debug}: the wrapper asked for the K1 libraries of masks {masks}, not {lib_mask}")
+    n_flip, err = compare_states(f"{debug or 'default'} (library mask {lib_mask}), {label}",
+                                 got, want)
+    if n_flip or err != 0.0:
+        fail(f"the {debug or 'default'} instance of K1 is not bit-equal to its plain version "
+             f"({label})")
+
+
+def tiled_ablations_vs_plain(rt):
+    """K1's default and exact-walk instances against their plain versions
+    on the many-cluster scene: its first 65,536-lane launch (one bounce)
+    and the first TILED_TAIL lanes alive two bounces later run to
+    termination, bit-equal. Showcase is one super; here the walks cross
+    many, and ordered's nearest-first order and its stop rule with them."""
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    media9, misc, base = mega_inputs(rt)
+    first = band_state(rt, "parity")
+    mid = clone_state(first)
+    with uncounted():
+        mk.trace_paths_mega(rt.accel, media9, misc, mid, **base, max_iters=2)
+    live = mid.alive.nonzero().flatten()[:TILED_TAIL]
+    if live.numel() == 0:
+        fail("no lane of the many-cluster scene lives after two bounces")
+    tail = mk.MegaState(*(x[live].clone() for x in mid))
+    print(f"   tail: the first {live.numel()} of {int(mid.alive.sum())} lanes alive after two "
+          "bounces", flush=True)
+    for debug in TILED_ABLATIONS:
+        instance_vs_plain(rt, media9, misc, first, dict(base, max_iters=1), f"{debug}",
+                          "tiled first launch")
+        instance_vs_plain(rt, media9, misc, tail, dict(base, dim0=2 * mk.DRAWS_PER_BOUNCE),
+                          debug, "tiled tail")
+
+
+def ablation_renders(main_opts, mega_img):
+    """The main path under each exact ablation (CMR_MEGA_DEBUG as the
+    Renderer reads it), each render's K1 launches from the token's library
+    alone, its image within ABLATION_ATOL of the default render's."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    r = Renderer(scene, opt)
+    paths = opt.width * opt.height * opt.num_samples
+    for debug in mk.EXACT_ABLATIONS:
+        os.environ["CMR_MEGA_DEBUG"] = debug
+        try:
+            with uncounted():
+                r.render()  # warm-up
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            with requested_masks() as masks:
+                img, dt = timed_render(r.render)
+        finally:
+            del os.environ["CMR_MEGA_DEBUG"]
+        launches = mk.trace_paths_mega.launches
+        diff = float(np.abs(np.asarray(img, np.float64) - np.asarray(mega_img, np.float64)).max())
+        print(f"   {debug}: showcase {opt.width}x{opt.height}@{opt.num_samples} parity {dt:.3f} s "
+              f"= {paths / dt / 1e6:.4f} Mpaths/s; K1 launches {launches}, all of mask "
+              f"{sorted(masks)}; max |diff| against the default image {diff:.3e} "
+              f"(limit {ABLATION_ATOL})", flush=True)
+        if launches <= 0 or masks != {mk.cuda_instance(mk.ablation_mask(debug))[0]}:
+            fail(f"the main path under {debug} did not run the {debug} instance of K1")
+        if not diff <= ABLATION_ATOL:
+            fail(f"the main path under {debug} is not the default image (max |diff| {diff:.3e})")
+
+
+def lane_bounces(r, media9, misc, st, kw):
+    """Lanes alive at the start of each bounce iteration of the K1 call
+    ``kw`` on ``st``: a replay on a copy, one iteration a launch."""
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    s, n = clone_state(st), 0
+    with uncounted():
+        for k in range(kw["max_iters"]):
+            alive = int(s.alive.sum())
+            if alive == 0:
+                break
+            n += alive
+            mk.trace_paths_mega(r.accel, media9, misc, s, **dict(
+                kw, max_iters=1, dim0=kw.get("dim0", 0) + mk.DRAWS_PER_BOUNCE * k))
+    return n
+
+
+def instance_ptxas(mask, group):
+    """(registers, spill-store bytes) of K1's instance of ``mask`` at
+    ``group`` threads a lane, and the range of registers over its
+    instances, from the build log (--nee-bound 4: K = 10)."""
+    from complex_materials_renderer_tpu_torch.kernels import build
+
+    for lib, _, log in build.build_log:
+        if lib.startswith(f"libmegakernel_CMR_MEGA_ABLATE{mask}_CMR_NEE_MAX_MEDIA4_"):
+            lines = [x for x in ptxas_lines(log) if x[0].startswith("megakernelILi10E")]
+            regs = [x[1] for x in lines]
+            for name, n, spill in lines:
+                if name.startswith(f"megakernelILi10ELi{group}E"):
+                    return n, spill, f"{min(regs)}-{max(regs)}"
+    return None, None, "not built here"
+
+
+def k1_decomposition(r, media9, misc, base, reps=5):
+    """K1's time split by its ablation instances on the main path: per
+    token set (the default first), ptxas registers and spill of the
+    instance the 65,536-lane launch runs, the ms of that first launch and
+    of one whole parity sample step (its launches recorded through the
+    renderer's phase schedule under the token), each timed in turns with
+    the default (default, token, token, default), the step's lane-bounces
+    (lanes alive at each iteration) and ms per million lane-bounces."""
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
+    def step_ms(calls, debug):
+        return sum(time_k1(r, media9, misc, s, dict(base, **kw, debug=debug), reps)
+                   for s, kw in calls)
+
+    default_calls = k1_step_calls(r, media9, misc, base)
+    first, kw0 = default_calls[0]
+    print("   K1 decomposition by CMR_MEGA_DEBUG (showcase 512x512@16 parity, the 65,536-lane "
+          "band; each token's times beside the default's, timed in turns):", flush=True)
+    print("     token            G  regs (all G)  spill  first ms  default   step ms   default  "
+          "launches  lane-bounces  ms/M l-b  first l-b", flush=True)
+    rows = {}
+    with uncounted():
+        for debug in ("",) + mk.ABLATION_SETS:
+            lib_mask, one_thread = mk.cuda_instance(mk.ablation_mask(debug))
+            calls = k1_step_calls(r, media9, misc, dict(base, debug=debug)) if debug else \
+                default_calls
+            kw_tok = dict(base, **kw0, debug=debug)
+            kw_def = dict(base, **kw0)
+            d1 = time_k1(r, media9, misc, first, kw_def, 20)
+            t1 = time_k1(r, media9, misc, first, kw_tok, 20)
+            t2 = time_k1(r, media9, misc, first, kw_tok, 20)
+            d2 = time_k1(r, media9, misc, first, kw_def, 20)
+            sd1 = step_ms(default_calls, "")
+            st1 = step_ms(calls, debug)
+            st2 = step_ms(calls, debug)
+            sd2 = step_ms(default_calls, "")
+            lb = sum(lane_bounces(r, media9, misc, s, dict(base, **kw, debug=debug))
+                     for s, kw in calls)
+            lb0 = lane_bounces(r, media9, misc, first, kw_tok)
+            g = 1 if one_thread else mk.group_size(first.org.shape[0])
+            regs, spill, span = instance_ptxas(lib_mask, g)
+            tok_first, tok_step = (t1 + t2) / 2, (st1 + st2) / 2
+            rows[debug or "default"] = (tok_first, tok_step, lb)
+            print(f"     {debug or 'default':16s} {g:2d} {regs!s:>4s} ({span:>7s}) {spill!s:>5s} "
+                  f"{tok_first:9.4f} {(d1 + d2) / 2:8.4f} {tok_step:9.4f} {(sd1 + sd2) / 2:9.4f} "
+                  f"{len(calls):9d} {lb:13d} {tok_step / (lb / 1e6):9.4f} {lb0:10d}", flush=True)
+    # cullonly's closest-hit walk must survive the compiler: cullonly is
+    # notrace,cullonly plus that walk's culls. (notrace keeps the fused
+    # walk's triangle tests, which cullonly drops, so it is no yardstick.)
+    culls = rows["cullonly"][0] - rows["notrace,cullonly"][0]
+    print(f"   cullonly's closest-hit culls on the first launch: {culls:.4f} ms (cullonly "
+          f"{rows['cullonly'][0]:.4f}, notrace,cullonly {rows['notrace,cullonly'][0]:.4f}, "
+          f"notrace {rows['notrace'][0]:.4f})", flush=True)
+    if not culls > 0.05 * rows["notrace,cullonly"][0]:
+        fail("cullonly's walk took no measurable time: the compiler removed it")
+    return rows
 
 
 def k3_vs_plain(r, r_quads_off, r_part):
@@ -2524,9 +2773,13 @@ def main() -> int:
     phase("build")
     from complex_materials_renderer_tpu_torch.kernels import build
 
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+
     t0 = time.perf_counter()
     build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
-                   rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4])
+                   rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4],
+                   ablations=[(4, mk.cuda_instance(mk.ablation_mask(d))[0])
+                              for d in mk.ABLATION_SETS])
     print(f"   built {len(build.build_log)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
     worst_spill = 0
@@ -2554,6 +2807,7 @@ def main() -> int:
         inputs = mega_inputs(r)
         media9 = inputs[0]
         k1_step_table(r, *inputs)
+        k1_decomposition(r, *inputs)
         k3_width_table(r)
         sets = ray_sets(r)
         k4_launch_table(r, media9, sets, "showcase")
@@ -2564,6 +2818,7 @@ def main() -> int:
         k6_launch_table(r, media9, sets)
         main_path(main_opts)
         pass_width_table(main_opts, smi)
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
         print("chip_smoke: --tables stops here", flush=True)
         return 4  # nonzero: no result line is printed
 
@@ -2577,7 +2832,12 @@ def main() -> int:
     if not bool((r.accel.qa != 0.5).any()) or bool((r_quads_off.accel.qa != 0.5).any()):
         fail("the default grid should hold quad slots and the quads-off grid none")
     worst, media9, misc, base = kernel_vs_plain(r, r_part, args.quick)
-    k1_groups_vs_plain(r, media9, misc, base, k1_step_calls(r, media9, misc, base)[-1])
+    calls = k1_step_calls(r, media9, misc, base)
+    k1_groups_vs_plain(r, media9, misc, base, calls[-1])
+
+    phase("K1's ablation instances (CMR_MEGA_DEBUG) against plain: "
+          f"{', '.join(mk.ABLATION_SETS)}")
+    ablation_vs_plain(r, media9, misc, base, calls)
 
     phase("closest-hit kernel (K3) against plain and the BVH walk (showcase, 65,536 lanes)")
     worst_k3 = k3_vs_plain(r, r_quads_off, r_part)
@@ -2592,14 +2852,21 @@ def main() -> int:
     err_t = max(k4_vs_plain(rt.accel, f"tiled {payload}", rays6(o, d), eff,
                             sparse=payload == "full") for payload, (o, d, eff) in sets_t.items())
     whole_traces(rt, media9, sets_t)
+    tiled_ablations_vs_plain(rt)
     tiled_k4 = tiled_path(rt, media9, sets_t)
     if args.quick:
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
         print("chip_smoke: --quick stops here", flush=True)
         return 4  # nonzero: no result line is printed
 
     phase("main path: showcase 512x512 @ 16 spp, megakernel")
     r, launches, mega_img = main_path(main_opts)
     golden_gate()
+
+    phase(f"K1 ablations on the main path: {', '.join(mk.EXACT_ABLATIONS)} against the default "
+          "image; K1's decomposition")
+    ablation_renders(main_opts, mega_img)
+    k1_decomposition(r, media9, misc, base)
 
     phase("wavefront path: showcase 512x512 @ 16 spp, AOVs, bvh backend")
     k3_launches = wavefront_path(main_opts, mega_img)
@@ -2647,8 +2914,10 @@ def main() -> int:
         for engine in ("mega", "wavefront", "binned", "pair"):
             profile_pass(r, engine)
 
+    print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
-        "name": "megakernel (K1, with the triangle tester K2 inlined)",
+        "name": "megakernel (K1, with the triangle tester K2 inlined; its ablation instances "
+                f"launched beside the default: {', '.join(mk.ABLATION_SETS)})",
         "route": "cuda",
         "source": f"{PACKAGE}/csrc/megakernel.cu",
         "replaces": "complex_materials_renderer_tpu/kernels/megakernel.py:1475",

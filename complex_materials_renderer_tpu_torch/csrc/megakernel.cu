@@ -48,10 +48,44 @@
 // memory; the NEE K-list stays in registers (K is a template parameter,
 // every loop over it unrolled). It allocates nothing.
 //
+// The ablation instances (CMR_MEGA_DEBUG, megakernel.py:398-401 and the
+// sites named below of the JAX kernel) are other builds of this source,
+// ``-DCMR_MEGA_ABLATE=<mask>`` with a bit per token (kernels/megakernel.py
+// ``ABLATIONS``). Every token is a compile-time branch (``if constexpr``),
+// so mask 0 is the default instance unchanged and no token costs the
+// default a register. They split a bounce's time by its parts:
+//   nofuse    the separate 'dist' walk, then the NEE march: an 'occl' walk
+//             over the opaque supers and a 'nee' walk over the media
+//             supers of a partitioned grid, one 'nee' walk otherwise
+//             (JAX :831-874, :1170-1222); the same image as the fused walk;
+//   ordered   unfused, nearest first: supers by their entry, clusters of a
+//             super likewise, until the nearest entry left lies beyond the
+//             bound (JAX :732-751); a hit replaces an equal-t one of a
+//             higher slot, so the visit order never shows;
+//   carrywalk unfused, the linear walk by one thread a lane with the hit
+//             state in its registers and no tile (K1 before the group walk;
+//             the JAX token is a state-residency A/B, :707-730): no
+//             instance of its own, the nofuse instance launched at G = 1,
+//             whose 'nee' walk is then the one-thread test
+//             (kernels/megakernel.py ``cuda_instance``);
+//   cullonly  every walk keeps its culls, the cluster body is the identity
+//             (a max with the box entry, which the cull has already bounded,
+//             keeps the walk alive in the compiled code); the fabricated
+//             hit at t = 2 + t_walk * 1e-30 (JAX :592-598, :1016-1035);
+//   notrace   no closest-hit walk: a fabricated hit (JAX :999-1011);
+//   nophys    after the walk, the ray mirrored at the hit (JAX :1037-1047),
+//             run in the JAX kernel's lockstep of 1024-lane blocks: every
+//             lane of a block gets the unmasked flip, +0.01 and depth + 1 of
+//             each of its block's iterations (a second, elementwise launch);
+//   nodist    seg_len = t_max, no distance walk (JAX :1191-1192);
+//   nonee     li = 1, no NEE walk (JAX :1212-1213).
+// Any of nofuse, ordered, nonee and nodist unfuses the walk.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// --fmad=false -shared -Xcompiler -fPIC -DCMR_NEE_MAX_MEDIA=<n>, one
-// library per --nee-bound value (the K-list length is a template
-// parameter; large values spill registers), with every G instantiated.
+// --fmad=false -shared -Xcompiler -fPIC -DCMR_NEE_MAX_MEDIA=<n>
+// [-DCMR_MEGA_ABLATE=<mask>], one library per (--nee-bound value, mask)
+// (the K-list length is a template parameter; large values spill
+// registers), with every G instantiated.
 // --fmad=false and no --use_fast_math keep every product, 1/x and sqrtf
 // IEEE-rounded like the plain PyTorch version it is checked against.
 
@@ -63,6 +97,9 @@
 
 #ifndef CMR_NEE_MAX_MEDIA
 #error "build with -DCMR_NEE_MAX_MEDIA=<n>"
+#endif
+#ifndef CMR_MEGA_ABLATE
+#define CMR_MEGA_ABLATE 0
 #endif
 
 namespace cmr {
@@ -82,6 +119,18 @@ constexpr float NO_INTERACTION = 500000.0f;
 constexpr float ISO_EPS = 1e-4f;
 constexpr float INV_U32 = 1.0f / 4294967295.0f;  // == 2^-32 in float
 
+// The ablation mask (kernels/megakernel.py ``ABLATIONS``).
+constexpr int ABLATE = CMR_MEGA_ABLATE;
+constexpr bool NOFUSE = ABLATE & 1;
+constexpr bool ORDERED = ABLATE & 2;
+constexpr bool CULLONLY = ABLATE & 8;
+constexpr bool NOTRACE = ABLATE & 16;
+constexpr bool NOPHYS = ABLATE & 32;
+constexpr bool NODIST = ABLATE & 64;
+constexpr bool NONEE = ABLATE & 128;
+constexpr bool FUSED = !(NOFUSE || ORDERED || NODIST || NONEE);
+constexpr int BLOCK_LANES = 1024;  // the JAX kernel's block: nophys's lockstep unit
+
 struct Params {
   const float* __restrict__ bounds;        // (C, 8)
   const float* __restrict__ super_bounds;  // (S, 8)
@@ -98,8 +147,9 @@ struct Params {
   int* depth;
   unsigned char* alive;
   const long long* __restrict__ aux;
-  int n_lanes, C, S, subs, run, row_w, M, SF;
+  int n_lanes, C, S, subs, run, row_w, M, SF, S_OPQ;
   int background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters;
+  int* iters;  // nophys: each lane's iterations, then each 1024-lane block's most
 };
 
 // ---------------------------------------------------------------- RNG --
@@ -441,6 +491,242 @@ __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const P
   return st;
 }
 
+// ------------------------------------------------ the ablation walks --
+// Used by the instances built with CMR_MEGA_ABLATE != 0 only: the unfused
+// walks 'dist', 'occl' and 'nee', and the 'full' walk in another order,
+// with another tester or with the identity body.
+
+// group_cluster_full for a walk out of slot order (ordered): on equal t the
+// lower slot wins, so the result is the least (t, slot) whatever the order.
+template <int G, class Payload>
+__device__ __forceinline__ void group_cluster_lex(const cg::thread_block_tile<G>& tile,
+                                                  const Params& p, int c, V3 o, V3 d, float& t,
+                                                  float& slot, Payload& mine) {
+  float bt = t, bs = slot;
+  for (int rr = 0; rr < p.subs; ++rr) {
+    const float* row = p.run_rows + (long long)(c * p.subs + rr) * p.row_w;
+    const int r_off = (c * p.subs + rr) * p.run;
+    for (int j = tile.thread_rank(); j < p.run; j += G) {
+      const Slot s = load_slot(row, p.run, j);
+      float uu, vv, tt;
+      direction_terms(s, origin_terms(s, o.x, o.y, o.z), d.x, d.y, d.z, uu, vv, tt);
+      const float sl = (float)(r_off + j);
+      if (inside(s, uu, vv) && tt > T_MIN && (tt < bt || (tt == bt && sl < bs))) {
+        bt = tt;
+        bs = sl;
+        set_full(mine, s, uu, vv, tt, sl);
+      }
+    }
+  }
+  tile_min_hit<G>(tile, bt, bs);
+  t = bt;
+  slot = bs;
+}
+
+// The 'nee' test of cluster c by one thread, slots in order: the serial
+// form of group_cluster_nee<1, K>. At G = 1 the group form's votes and
+// shuffles run per slot in a warp whose lanes diverge; on an H100 that
+// took showcase's first 65,536-lane nofuse launch at G = 1 from about
+// 0.28 to 0.69 ms.
+template <int K>
+__device__ __forceinline__ void thread_cluster_nee(const Params& p, const float* media, int c,
+                                                   V3 o, V3 d, NeeState<K>& st) {
+  for (int rr = 0; rr < p.subs; ++rr) {
+    const float* row = p.run_rows + (long long)(c * p.subs + rr) * p.row_w;
+    for (int j = 0; j < p.run; ++j) {
+      const Slot s = load_slot(row, p.run, j);
+      float own_opq = __int_as_float(0x7f800000), tb;
+      bool media_hit;
+      int key;
+      nee_terms(s, origin_terms(s, o.x, o.y, o.z), d.x, d.y, d.z, media, p.M, own_opq,
+                media_hit, tb, key);
+      if (media_hit && tb < st.t_opq) insert_key<K>(st, key);
+      st.t_opq = fminf(st.t_opq, own_opq);
+    }
+  }
+}
+
+// The linear walk over supers [s_lo, s_hi): each box gated by its slab
+// entry against bound(), visit(c, entry) for each cluster met.
+template <class Bound, class Visit>
+__device__ __forceinline__ void walk_linear(const Params& p, int s_lo, int s_hi, V3 o, V3 inv,
+                                            Bound bound, Visit visit) {
+  for (int sp = s_lo; sp < s_hi; ++sp) {
+    float tn;
+    if (!slab_entry(p.super_bounds + sp * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, bound(), tn)) {
+      continue;
+    }
+    const int lo = sp * p.SF;
+    const int hi = min(lo + p.SF, p.C);
+    for (int c = lo; c < hi; ++c) {
+      if (!slab_entry(p.bounds + c * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, bound(), tn)) continue;
+      visit(c, tn);
+    }
+  }
+}
+
+// ordered's next box of [lo, hi): the least (entry, index) after (e, i),
+// entries against tmax; thread k of the tile scans boxes lo + k, lo + k +
+// G, ..., then the tile takes the least. i < 0 when none is left.
+template <int G>
+__device__ __forceinline__ void next_box(const cg::thread_block_tile<G>& tile,
+                                         const float* boxes, int lo, int hi, V3 o, V3 inv,
+                                         float tmax, float& e, float& i) {
+  float be = __int_as_float(0x7f800000), bi = -1.0f;
+  for (int b = lo + tile.thread_rank(); b < hi; b += G) {
+    float tn;
+    if (!slab_entry(boxes + b * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, tmax, tn)) continue;
+    const float fb = (float)b;
+    if ((tn > e || (tn == e && fb > i)) && (tn < be || (tn == be && fb < bi))) {
+      be = tn;
+      bi = fb;
+    }
+  }
+  tile_min_hit<G>(tile, be, bi);
+  e = be;
+  i = bi;
+}
+
+// The nearest-first walk (megakernel.py:732-751): supers by their entry
+// against tmax0, the clusters of each by their entry against the bound at
+// the super's visit. A box is visited while its entry is at most the bound
+// (a hit at the bound itself may still win on its slot).
+template <int G, class Bound, class Visit>
+__device__ __forceinline__ void walk_ordered(const cg::thread_block_tile<G>& tile,
+                                             const Params& p, int s_lo, int s_hi, V3 o, V3 inv,
+                                             float tmax0, Bound bound, Visit visit) {
+  float es = -1.0f, is = -1.0f;
+  for (;;) {
+    next_box<G>(tile, p.super_bounds, s_lo, s_hi, o, inv, tmax0, es, is);
+    if (is < 0.0f || es > bound()) return;
+    const int lo = (int)is * p.SF;
+    const int hi = min(lo + p.SF, p.C);
+    const float tc = bound();
+    float ec = -1.0f, ic = -1.0f;
+    for (;;) {
+      next_box<G>(tile, p.bounds, lo, hi, o, inv, tc, ec, ic);
+      if (ic < 0.0f || ec > bound()) break;
+      visit((int)ic, ec);
+    }
+  }
+}
+
+template <int G, class Bound, class Visit>
+__device__ __forceinline__ void walk(const cg::thread_block_tile<G>& tile, const Params& p,
+                                     int s_lo, int s_hi, V3 o, V3 inv, float tmax0, Bound bound,
+                                     Visit visit) {
+  if constexpr (ORDERED) {
+    walk_ordered<G>(tile, p, s_lo, s_hi, o, inv, tmax0, bound, visit);
+  } else {
+    walk_linear(p, s_lo, s_hi, o, inv, bound, visit);
+  }
+}
+
+// The closest hit below t over supers [s_lo, s_hi) into (t, slot) and, for
+// a FullState payload, the thread's own hit in ``mine``.
+template <int G, class Payload>
+__device__ __forceinline__ void abl_closest(const cg::thread_block_tile<G>& tile, const Params& p,
+                                            int s_lo, int s_hi, V3 o, V3 d, float& t,
+                                            float& slot, Payload& mine) {
+  if (!(t > T_MIN)) return;  // such a bound accepts nothing
+  const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  walk<G>(tile, p, s_lo, s_hi, o, inv, t, [&] { return t; }, [&](int c, float tn) {
+    if constexpr (CULLONLY) {
+      t = fmaxf(t, tn);  // tn <= t: the identity
+    } else if constexpr (ORDERED) {
+      group_cluster_lex<G>(tile, p, c, o, d, t, slot, mine);
+    } else {
+      group_cluster_full<G, false>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
+                                   d.x, d.y, d.z, t, slot, mine);
+    }
+  });
+}
+
+// 'full' of the ablation instances (the scene-box clamped bound).
+template <int G>
+__device__ FullState abl_full(const cg::thread_block_tile<G>& tile, const Params& p, V3 o, V3 d,
+                              float tmax) {
+  const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  const float t0 = box_clamp(p.misc, o, inv, tmax);
+  FullState mine{t0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 0.0f, 0.0f, 0.0f};
+  float t = t0, slot = -1.0f;
+  abl_closest<G>(tile, p, 0, p.S, o, d, t, slot, mine);
+  return group_payload<G>(tile, mine, t, slot);
+}
+
+// The unfused 'dist' walk: the distance to the next boundary, t_max on a miss.
+template <int G>
+__device__ float abl_seg_len(const cg::thread_block_tile<G>& tile, const Params& p, V3 o, V3 d,
+                             float tmax) {
+  const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  float t = box_clamp(p.misc, o, inv, tmax), slot = -1.0f;
+  NoPayload none;
+  abl_closest<G>(tile, p, 0, p.S, o, d, t, slot, none);
+  return slot >= 0.0f ? t : T_MAX;
+}
+
+// 'nee' over supers [s_lo, s_hi): the K nearest media keys and t_opq.
+template <int G, int K>
+__device__ NeeState<K> abl_nee(const cg::thread_block_tile<G>& tile, const Params& p,
+                               const float* media, int s_lo, int s_hi, V3 o, V3 d, float tmax) {
+  NeeState<K> st;
+#pragma unroll
+  for (int i = 0; i < K; ++i) st.key[i] = KEY_EMPTY;
+  st.t_opq = tmax;
+  if (!(tmax > T_MIN)) return st;
+  const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  walk<G>(tile, p, s_lo, s_hi, o, inv, tmax, [&] { return nee_bound<K>(st); },
+          [&](int c, float tn) {
+            if constexpr (CULLONLY) {
+              st.t_opq = fmaxf(st.t_opq, tn);  // tn <= t_opq: the identity
+            } else if constexpr (G == 1) {
+              thread_cluster_nee<K>(p, media, c, o, d, st);
+            } else {
+              group_cluster_nee<G, K>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y,
+                                      o.z, d.x, d.y, d.z, media, p.M, st);
+            }
+          });
+  return st;
+}
+
+// cullonly's fused walk: trace_dnee's culls with the identity body.
+template <int K>
+__device__ DneeState<K> cull_dnee(const Params& p, V3 o, V3 da, float tmax_a, V3 db,
+                                  float tmax_b) {
+  const V3 ia{safe_inv(da.x), safe_inv(da.y), safe_inv(da.z)};
+  const V3 ib{safe_inv(db.x), safe_inv(db.y), safe_inv(db.z)};
+  DneeState<K> st;
+  st.a.t = box_clamp(p.misc, o, ia, tmax_a);
+  st.a.slot = -1.0f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) st.b.key[i] = KEY_EMPTY;
+  st.b.t_opq = tmax_b;
+  const bool need_a = st.a.t > T_MIN;
+  const bool need_b = tmax_b > T_MIN;
+  if (!need_a && !need_b) return st;
+  // A box is met when either set meets it; the max with that set's entry
+  // (at most its bound) changes nothing.
+  auto meet = [&](const float* b) {
+    float tn;
+    if (need_a && slab_entry(b, o.x, o.y, o.z, ia.x, ia.y, ia.z, st.a.t, tn)) {
+      st.a.t = fmaxf(st.a.t, tn);
+      return true;
+    }
+    if (need_b && slab_entry(b, o.x, o.y, o.z, ib.x, ib.y, ib.z, st.b.t_opq, tn)) {
+      st.b.t_opq = fmaxf(st.b.t_opq, tn);
+      return true;
+    }
+    return false;
+  };
+  for (int sp = 0; sp < p.S; ++sp) {
+    if (!meet(p.super_bounds + sp * 8)) continue;
+    const int lo = sp * p.SF;
+    const int hi = min(lo + p.SF, p.C);
+    for (int c = lo; c < hi; ++c) meet(p.bounds + c * 8);
+  }
+  return st;
+}
+
 // ----------------------------------------------------------------- NEE --
 
 struct Light {
@@ -524,6 +810,26 @@ __device__ __forceinline__ V3 nee_resolve(const NeeState<K>& hits, const Light& 
   return V3{l.lv_r * tr_r, l.lv_g * tr_g, l.lv_b * tr_b};
 }
 
+// The unfused NEE march (megakernel.py nee_march :831-874): on a
+// partitioned grid an 'occl' walk over the opaque supers [0, S_OPQ) and a
+// 'nee' walk over the media supers, one 'nee' walk otherwise.
+template <int G, int K>
+__device__ V3 nee_march(const cg::thread_block_tile<G>& tile, const Params& p, const float* media,
+                        const float* misc, V3 pt, bool active) {
+  const Light lt = nee_setup(misc, pt, active);
+  NeeState<K> hits;
+  if (p.S_OPQ > 0) {
+    float t_op = lt.eff, slot = -1.0f;
+    NoPayload none;
+    abl_closest<G>(tile, p, 0, p.S_OPQ, pt, lt.dir, t_op, slot, none);
+    hits = abl_nee<G, K>(tile, p, media, p.S_OPQ, p.S, pt, lt.dir, lt.eff);
+    hits.t_opq = fminf(t_op, hits.t_opq);
+  } else {
+    hits = abl_nee<G, K>(tile, p, media, 0, p.S, pt, lt.dir, lt.eff);
+  }
+  return nee_resolve<K>(hits, lt, active, media, p.M, CMR_NEE_MAX_MEDIA);
+}
+
 // --------------------------------------------------------------- lane --
 
 struct Lane {
@@ -551,14 +857,38 @@ __device__ __forceinline__ void shade_color(int background, V3 pt, float nx, flo
   }
 }
 
+// The closest hit of a bounce: the 'full' walk, or an ablation's.
+template <int G>
+__device__ __forceinline__ FullState first_hit(const cg::thread_block_tile<G>& tile,
+                                               const Params& p, const Lane& L) {
+  if constexpr (NOTRACE || CULLONLY) {
+    float t = 2.0f;
+    if constexpr (!NOTRACE) t = 2.0f + abl_full<G>(tile, p, L.o, L.d, T_MAX).t * 1e-30f;
+    return FullState{t, 0.0f, 0.3f, 0.3f, 0.0f, 1.0f, 0.0f, 0.0f,
+                     L.o.x + t * L.d.x, L.o.y + t * L.d.y, L.o.z + t * L.d.z};
+  } else if constexpr (ORDERED) {
+    return abl_full<G>(tile, p, L.o, L.d, T_MAX);
+  } else {
+    return trace_full<G>(tile, p, L.o, L.d, T_MAX);
+  }
+}
+
 // One bounce iteration of a live lane (megakernel.py bounce :992-1370,
 // the default fused walk), on every thread of the lane's tile.
 template <int G, int K>
 __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, const float* media,
                        const float* misc, Lane& L, Rng& rng) {
   const Params& P = p;  // NOLINT: short name for the launch parameters
-  const FullState h = trace_full<G>(tile, P, L.o, L.d, T_MAX);
+  const FullState h = first_hit<G>(tile, P, L);
   const bool got_hit = h.slot >= 0.0f;  // the lane is alive
+  if constexpr (NOPHYS) {  // mirror the ray at the hit
+    if (got_hit) L.o = V3{h.px, h.py, h.pz};
+    L.d = V3{-L.d.x, -L.d.y, -L.d.z};
+    L.ra.x = L.ra.x + 0.01f;
+    L.depth += 1;
+    L.alive = got_hit && (L.depth < P.max_depth);
+    return;
+  }
   const V3 n = norm3(h.nx, h.ny, h.nz);
   const Medium med = media_scan(media, P.M, h.mat);
   const V3 pt{h.px, h.py, h.pz};
@@ -601,9 +931,20 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
         ad_gate ? LN_CLAMP / fmaxf(density0, 1e-30f) * 1.00001f + 10.0f * T_MIN : 0.0f;
     bound = fminf(fmaxf(bound, t_star), T_MAX);
   }
-  const DneeState<K> dn =
-      trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
-  const float seg_len = dn.a.slot >= 0.0f ? dn.a.t : T_MAX;
+  DneeState<K> dn;
+  float seg_len;
+  if constexpr (FUSED) {
+    if constexpr (CULLONLY) {
+      dn = cull_dnee<K>(P, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
+    } else {
+      dn = trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
+    }
+    seg_len = dn.a.slot >= 0.0f ? dn.a.t : T_MAX;
+  } else if constexpr (NODIST) {
+    seg_len = T_MAX;
+  } else {
+    seg_len = abl_seg_len<G>(tile, P, pt, da, transmitted ? bound : 0.0f);
+  }
 
   // free-flight sampling (volpath:691)
   const Flight fl = sample_distance(rand_d, med, seg_len);
@@ -612,7 +953,14 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
   const bool pass_med = transmitted && !scatter;
 
   // NEE (no RNG draws)
-  const V3 li = nee_resolve<K>(dn.b, lt, light_active, media, P.M, CMR_NEE_MAX_MEDIA);
+  V3 li;
+  if constexpr (NONEE) {
+    li = V3{1.0f, 1.0f, 1.0f};
+  } else if constexpr (FUSED) {
+    li = nee_resolve<K>(dn.b, lt, light_active, media, P.M, CMR_NEE_MAX_MEDIA);
+  } else {
+    li = nee_march<G, K>(tile, P, media, misc, pt, (P.analytic_direct ? ad_gate : scatter) || shade);
+  }
   const float tmp_g = 1.0f + med.g * med.g;
   const float phase_nee = INV_FOURPI * (1.0f - med.g * med.g) / (tmp_g * sqrtf(tmp_g));
   if (P.analytic_direct && ad_gate) {
@@ -728,6 +1076,7 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   L.th = V3{p.thr[3 * lane], p.thr[3 * lane + 1], p.thr[3 * lane + 2]};
   L.ra = V3{p.rad[3 * lane], p.rad[3 * lane + 1], p.rad[3 * lane + 2]};
   L.depth = p.depth[lane];
+  [[maybe_unused]] const int depth0 = L.depth;
   Rng rng;
   rng.state = (uint32_t)p.rng[lane];
   rng.ph = (uint32_t)p.aux[lane];
@@ -759,13 +1108,48 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   p.rng[lane] = (long long)rng.state;
   p.depth[lane] = L.depth;
   p.alive[lane] = L.alive ? 1 : 0;
+  if constexpr (NOPHYS) {  // depth grows by one an iteration
+    p.iters[lane] = L.depth - depth0;
+    atomicMax(p.iters + p.n_lanes + lane / BLOCK_LANES, L.depth - depth0);
+  }
 }
+
+#if CMR_MEGA_ABLATE & 32
+// nophys, after the megakernel: each lane runs the iterations its 1024-lane
+// block ran beyond its own (the JAX kernel's lockstep, megakernel.py
+// :1386-1394; a dead lane of a live block, too): the unmasked flip, +0.01
+// added once an iteration, depth + 1.
+__global__ void __launch_bounds__(THREADS) nophys_block_tail(Params p) {
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= p.n_lanes) return;
+  const int extra = p.iters[p.n_lanes + lane / BLOCK_LANES] - p.iters[lane];
+  if (extra <= 0) return;
+  float dx = p.dir[3 * lane], dy = p.dir[3 * lane + 1], dz = p.dir[3 * lane + 2];
+  float ra = p.rad[3 * lane];
+  for (int k = 0; k < extra; ++k) {
+    dx = -dx;
+    dy = -dy;
+    dz = -dz;
+    ra = ra + 0.01f;
+  }
+  p.dir[3 * lane] = dx;
+  p.dir[3 * lane + 1] = dy;
+  p.dir[3 * lane + 2] = dz;
+  p.rad[3 * lane] = ra;
+  p.depth[lane] += extra;
+}
+#endif
 
 template <int G>
 int launch(const Params& p, cudaStream_t stream) {
   const long long threads = (long long)p.n_lanes * G;
   const int blocks = (int)((threads + THREADS - 1) / THREADS);
   megakernel<K_NEE, G><<<blocks, THREADS, 0, stream>>>(p);
+#if CMR_MEGA_ABLATE & 32
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  nophys_block_tail<<<(p.n_lanes + THREADS - 1) / THREADS, THREADS, 0, stream>>>(p);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -774,20 +1158,24 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Launch on ``stream`` with ``group`` threads per lane (1, 2, 4, 8, 16 or
-// 32); returns cudaGetLastError() right after the launch.
+// 32); returns cudaGetLastError() right after the
+// launch. ``iters`` (nophys only, else null): n_lanes + one int a 1024-lane
+// block, zeroed.
 int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const float* run_rows,
                           const float* media9, const float* misc, const int* sob, int dim_base,
                           float* org, float* dir, float* thr, float* rad, long long* rng,
                           int* depth, unsigned char* alive, const long long* aux, int n_lanes,
-                          int C, int S, int subs, int run, int row_w, int M, int SF,
+                          int C, int S, int subs, int run, int row_w, int M, int SF, int s_opq,
                           int background, int max_depth, int rr_depth, int tir_kill,
-                          int analytic_direct, int ld, int max_iters, int group,
+                          int analytic_direct, int ld, int max_iters, int group, int* iters,
                           void* stream) {
   const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base,
                       org, dir, thr, rad, rng, depth, alive, aux,
-                      n_lanes, C, S, subs, run, row_w, M, SF,
-                      background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters};
+                      n_lanes, C, S, subs, run, row_w, M, SF, s_opq,
+                      background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters,
+                      iters};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (cmr::NOPHYS && iters == nullptr) return (int)cudaErrorInvalidValue;
   switch (group) {
     case 1: return cmr::launch<1>(p, s);
     case 2: return cmr::launch<2>(p, s);
@@ -800,6 +1188,8 @@ int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const 
 }
 
 int cmr_megakernel_k_nee() { return cmr::K_NEE; }
+
+int cmr_megakernel_ablate() { return cmr::ABLATE; }
 
 const char* cmr_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 }

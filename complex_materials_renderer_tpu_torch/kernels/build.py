@@ -6,8 +6,10 @@ build takes seconds, not minutes):
 
 - ``megakernel.cu`` (K1), one library per ``--nee-bound`` value
   (``-DCMR_NEE_MAX_MEDIA=n``: the NEE K-list length is a template
-  parameter), each holding the kernel for every group size G (1, 2, 4, 8,
-  16 and 32 threads per lane), chosen at launch;
+  parameter) and ablation mask (``-DCMR_MEGA_ABLATE=m``, the
+  ``CMR_MEGA_DEBUG`` tokens, ``megakernel.ablation_mask``; 0 is the
+  default kernel), each holding the kernel for every group size G (1, 2,
+  4, 8, 16 and 32 threads per lane), chosen at launch;
 - ``cluster_trace.cu`` (K3), with every G likewise;
 - ``binned_listing.cu`` (K4), one per list length (``-DCMR_LIST_LEN=L``),
   each holding both variants (the one-thread walk and the tile walk) at
@@ -54,8 +56,8 @@ NVCC_FLAGS = [
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # kind -> (source, names of the -D values in the key, launch function, its argtypes)
 _KINDS = {
-    "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_megakernel_launch",
-                   [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 16 + [_vp]),
+    "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA", "CMR_MEGA_ABLATE"),
+                   "cmr_megakernel_launch", [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 17 + [_vp] * 2),
     "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
                       [_vp] * 8 + [_ci] * 8 + [_vp]),
     "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",
@@ -127,7 +129,7 @@ def _load(key, path: str):
     fn = getattr(lib, launch)
     fn.argtypes = argtypes
     fn.restype = _ci
-    for name in ("cmr_megakernel_k_nee", "cmr_k_nee", "cmr_list_len"):
+    for name in ("cmr_megakernel_k_nee", "cmr_megakernel_ablate", "cmr_k_nee", "cmr_list_len"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = _ci
@@ -165,12 +167,14 @@ def build(keys, verbose: bool = False) -> None:
 
 
 def prebuild(nee_bounds=(), verbose: bool = False, cluster_trace: bool = True,
-             list_lens=(), rounds=(), sweeps=()) -> None:
-    """Build at once the megakernel for each value of ``nee_bounds``, (with
+             list_lens=(), rounds=(), sweeps=(), ablations=()) -> None:
+    """Build at once the megakernel for each value of ``nee_bounds`` and
+    for each (nee bound, ablation mask) of ``ablations``, (with
     ``cluster_trace``) the closest-hit kernel, the listing for each of
     ``list_lens``, the round for each (list length, nee bound) of
     ``rounds`` and the sweep for each nee bound of ``sweeps``."""
-    build([("megakernel", n) for n in sorted(set(nee_bounds))]
+    build([("megakernel", n, 0) for n in sorted(set(nee_bounds))]
+          + [("megakernel", n, m) for n, m in sorted(set(ablations))]
           + ([("cluster_trace",)] if cluster_trace else [])
           + [("binned_listing", L) for L in sorted(set(list_lens))]
           + [("binned_round", L, n) for L, n in sorted(set(rounds))]
@@ -186,11 +190,14 @@ def _library(key):
     return lib
 
 
-def megakernel(nee_max_media: int):
-    """The launch function of the megakernel built for ``nee_max_media``."""
-    lib = _library(("megakernel", nee_max_media))
+def megakernel(nee_max_media: int, ablate: int = 0):
+    """The launch function of the megakernel built for ``nee_max_media``
+    and the ablation mask ``ablate`` (0: the default kernel)."""
+    lib = _library(("megakernel", nee_max_media, ablate))
     if lib.cmr_megakernel_k_nee() != 2 * nee_max_media + 2:
         raise RuntimeError("megakernel library built for another K-list length")
+    if lib.cmr_megakernel_ablate() != ablate:
+        raise RuntimeError("megakernel library built for another ablation mask")
     return lib.cmr_megakernel_launch
 
 

@@ -25,6 +25,14 @@ Russian roulette after ``rr_depth``. Randoms are PCG32 (parity and
 counter modes) or lockstep Owen-scrambled Sobol (ld mode), drawn in the
 kernel. Physics and RNG order follow the JAX kernel line by line; see
 its docstrings for the reference (volpath) line map.
+
+``debug`` takes the JAX kernel's ``CMR_MEGA_DEBUG`` ablations, a
+comma-separated set of ``ABLATIONS`` tokens with the JAX semantics (see
+``csrc/megakernel.cu`` for each). On the card each set is a CUDA instance
+of its own (``ablation_mask``, a library per mask); the plain version
+runs the same semantics. 'nofuse', 'ordered' and 'carrywalk' give the
+default result (the walks are exact); the others are timing ablations
+with other images.
 """
 
 from __future__ import annotations
@@ -49,6 +57,23 @@ from .cluster_test import (
 )
 
 BLOCK = 1024  # lanes per live block (the unit of ``live_blocks``)
+
+# CMR_MEGA_DEBUG tokens and their bits in the ablation mask
+# (csrc/megakernel.cu ``CMR_MEGA_ABLATE``; 'carrywalk' is read here only,
+# ``cuda_instance``).
+ABLATIONS = {"nofuse": 1, "ordered": 2, "carrywalk": 4, "cullonly": 8, "notrace": 16,
+             "nophys": 32, "nodist": 64, "nonee": 128}
+# Tokens that turn off the fused dist+NEE walk (megakernel.py:398-401).
+_UNFUSED = (ABLATIONS["nofuse"] | ABLATIONS["ordered"] | ABLATIONS["carrywalk"]
+            | ABLATIONS["nodist"] | ABLATIONS["nonee"])
+# The token sets that the checks and timings run: each token alone, nonee
+# with nodist, and notrace with cullonly (cullonly without its closest-hit
+# walk: what cullonly's culls are timed against). The exact walks render
+# the default image; the others time a part of the bounce.
+ABLATION_SETS = ("nofuse", "ordered", "carrywalk", "cullonly", "notrace", "notrace,cullonly",
+                 "nophys", "nodist", "nonee", "nonee,nodist")
+EXACT_ABLATIONS = ("nofuse", "ordered", "carrywalk")
+
 MAX_SUPERS = 1024  # super-cluster cap of the JAX kernel's (8, 128) entry table
 DRAWS_PER_BOUNCE = 8  # rng draw sites per bounce iteration (sites 0-7)
 
@@ -73,6 +98,37 @@ _ISO_EPS = _f32(1e-4)
 T_MIN = _f32(hitinfo.T_MIN)
 T_MAX = _f32(hitinfo.T_MAX)
 _TEN_TMIN = float(np.float32(10.0) * np.float32(T_MIN))
+
+
+def ablation_mask(debug: str) -> int:
+    """The ablation mask of a comma-separated CMR_MEGA_DEBUG token set (''
+    gives 0, the default kernel). An unknown token raises. With 'ordered'
+    the walk is the ordered one, as in the JAX kernel, so 'carrywalk' is
+    dropped beside it."""
+    mask = 0
+    for tok in debug.split(","):
+        tok = tok.strip()
+        if tok:
+            if tok not in ABLATIONS:
+                raise ValueError(f"unknown CMR_MEGA_DEBUG token {tok!r}; "
+                                 f"expected some of {', '.join(ABLATIONS)}")
+            mask |= ABLATIONS[tok]
+    if mask & ABLATIONS["ordered"]:
+        mask &= ~ABLATIONS["carrywalk"]
+    return mask
+
+
+def cuda_instance(mask: int) -> tuple[int, bool]:
+    """The ablation mask of the CUDA library that runs ``mask``, and
+    whether it launches one thread a lane. 'carrywalk' (the linear walk by
+    one thread a lane, no tile) has no library of its own: it is the
+    'nofuse' instance at G = 1, where the closest-hit tests are the
+    thread's own (a linear walk in slot order keeps the lower slot of an
+    equal t) and the 'nee' walk is the one-thread test
+    (csrc/megakernel.cu ``thread_cluster_nee``)."""
+    if mask & ABLATIONS["carrywalk"]:
+        return (mask & ~ABLATIONS["carrywalk"]) | ABLATIONS["nofuse"], True
+    return mask, False
 
 
 class MegaState(NamedTuple):
@@ -334,6 +390,11 @@ class _Plain(NamedTuple):
     """Per-call constants of the plain version."""
 
     slots: object  # cluster_test.SlotTable over the whole grid
+    # a partitioned grid's slots of the opaque supers and of the media
+    # supers (the unfused NEE march), None otherwise
+    slots_opq: object
+    slots_med: object
+    mask: int  # the ablation mask
     media: list  # rows of media9 as lists of 9 floats
     misc: list  # 16 floats
     med_ids: list  # media mat-ids (the NEE sweep's opaque/media split)
@@ -380,10 +441,19 @@ def _subset_trace(cx, rays, payload, state, tmax):
     return tuple(out)
 
 
-def _trace_full(cx, O, D, TMAX):
+def _cullonly(cx) -> bool:
+    """The walks keep their culls and do nothing: a walk's result is its
+    initial state (megakernel.py:592-598)."""
+    return bool(cx.mask & ABLATIONS["cullonly"])
+
+
+def _trace_full(cx, O, D, TMAX, payload="full"):
+    """The closest hit ('full', or 'dist' for the unfused distance walk)
+    under the scene-box clamped bound."""
     INV = tuple(_safe_inv(d) for d in D)
     TMAX = _box_clamp(cx, O, INV, TMAX)
-    return _subset_trace(cx, O + D, "full", payload_state0("full", TMAX), TMAX)
+    st0 = payload_state0(payload, TMAX)
+    return st0 if _cullonly(cx) else _subset_trace(cx, O + D, payload, st0, TMAX)
 
 
 def _trace_dnee(cx, O, DA, TMAX_A, DB, TMAX_B):
@@ -392,6 +462,8 @@ def _trace_dnee(cx, O, DA, TMAX_A, DB, TMAX_B):
     INV = tuple(_safe_inv(d) for d in DA)
     TMAX_A = _box_clamp(cx, O, INV, TMAX_A)
     st0 = payload_state0("dnee", TMAX_A, cx.K, TMAX_B=TMAX_B)
+    if _cullonly(cx):
+        return st0
     a = _subset_trace(cx, O + DA, "dist", st0[:2], TMAX_A)
     b = _subset_trace(cx, O + DB, "nee", st0[2:], TMAX_B)
     return a + b
@@ -502,6 +574,24 @@ def _nee_resolve(cx, keys, t_op, eff, ldist, lv_r, lv_g, lv_b, active):
     return lv_r * tr_r, lv_g * tr_g, lv_b * tr_b
 
 
+def _nee_march(cx, px, py, pz, active):
+    """The unfused NEE march (megakernel.py:831-874): on a partitioned grid
+    the nearest opaque hit over the opaque supers and the K-list over the
+    media supers, one K-list sweep otherwise; then the shadow march."""
+    (ldx, ldy, ldz, ldist, eff, lv_r, lv_g, lv_b) = _nee_setup(cx, px, py, pz, active)
+    rays = (px, py, pz, ldx, ldy, ldz)
+    hits = payload_state0("nee", eff, cx.K)
+    t_op = eff
+    if not _cullonly(cx):
+        if cx.slots_opq is not None:
+            (t_op,) = _subset_trace(cx._replace(slots=cx.slots_opq), rays, "occl", (eff,), eff)
+            hits = _subset_trace(cx._replace(slots=cx.slots_med), rays, "nee", hits, eff)
+        else:
+            hits = _subset_trace(cx, rays, "nee", hits, eff)
+    t_op = _MIN(t_op, hits[cx.K])
+    return _nee_resolve(cx, hits[:cx.K], t_op, eff, ldist, lv_r, lv_g, lv_b, active)
+
+
 def _make_draw(cx, it, PH):
     if not cx.ld:
         def pcg(state, mask, site):
@@ -519,18 +609,37 @@ def _make_draw(cx, it, PH):
 
 
 def _bounce(cx, st, it, PH):
-    """One bounce iteration of live lanes (megakernel.py:992-1370, the
-    default fused walk)."""
+    """One bounce iteration of live lanes (megakernel.py:992-1370: the
+    default fused walk, or the ablations of ``cx.mask``)."""
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      ra_r, ra_g, ra_b, rng, depth, alive) = st
+    mask = cx.mask
     draw = _make_draw(cx, it, PH)
     zero = torch.zeros_like(ox)
     eff = _W(alive, _full(ox, T_MAX), zero)
-    (t, slot, u, v, gnx, gny, gnz, mat, px, py, pz) = _trace_full(
-        cx, (ox, oy, oz), (dx, dy, dz), eff
-    )
+    if mask & (ABLATIONS["notrace"] | ABLATIONS["cullonly"]):
+        # A fabricated hit (megakernel.py:999-1011); under cullonly at
+        # 2 + t_walk * 1e-30, after the walk with identity bodies (:1016-1035).
+        t = _full(ox, 2.0)
+        if not mask & ABLATIONS["notrace"]:
+            t = t + _trace_full(cx, (ox, oy, oz), (dx, dy, dz), eff)[0] * _f32(1e-30)
+        slot, gnx, gnz, mat = zero, zero, zero, zero
+        u = v = _full(ox, 0.3)
+        gny = torch.ones_like(ox)
+        px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+    else:
+        (t, slot, u, v, gnx, gny, gnz, mat, px, py, pz) = _trace_full(
+            cx, (ox, oy, oz), (dx, dy, dz), eff
+        )
     hit = slot >= 0.0
     got_hit = alive & hit
+    if mask & ABLATIONS["nophys"]:
+        # Mirror the ray at the hit (megakernel.py:1037-1047); the flip,
+        # the +0.01 and depth + 1 are unmasked.
+        depth = depth + 1
+        return (_W(got_hit, px, ox), _W(got_hit, py, oy), _W(got_hit, pz, oz), -dx, -dy, -dz,
+                th_r, th_g, th_b, ra_r + _f32(0.01), ra_g, ra_b, rng, depth,
+                got_hit & (depth < cx.max_depth))
     nx, ny, nz = _norm3(gnx, gny, gnz)
     has0, ss_r, ss_g, ss_b, sa_r, sa_g, sa_b, g, ior = _media_scan(cx, mat)
     col_r, col_g, col_b = _shade_color(cx, px, py, nx)
@@ -565,12 +674,8 @@ def _bounce(cx, st, it, PH):
         if cx.tir_kill:
             ad_gate = ad_gate & ~tir1
 
-    # fused dist+NEE walk ('dnee')
-    may_scatter = transmitted & (cand < T_MAX)
-    need_light = ad_gate if cx.analytic_direct else may_scatter
-    (ldx, ldy, ldz, ldist, eff_b, lv_r, lv_g, lv_b) = _nee_setup(
-        cx, px, py, pz, need_light | shade
-    )
+    # the distance walk bound: the free-flight candidate (and the analytic
+    # term's depth)
     bound = _MIN(cand * _f32(1.00001) + _TEN_TMIN, _full(cand, T_MAX))
     if cx.analytic_direct:
         t_star = _W(
@@ -579,11 +684,26 @@ def _bounce(cx, st, it, PH):
             zero,
         )
         bound = _MIN(_MAX(bound, t_star), _full(bound, T_MAX))
-    dn = _trace_dnee(
-        cx, (px, py, pz), (dax, day, daz), _W(transmitted, bound, zero),
-        (ldx, ldy, ldz), eff_b,
-    )
-    seg_len = _W(dn[1] >= 0.0, dn[0], _full(dn[0], T_MAX))
+    fused = not mask & _UNFUSED
+    if fused:
+        # fused dist+NEE walk ('dnee')
+        may_scatter = transmitted & (cand < T_MAX)
+        need_light = ad_gate if cx.analytic_direct else may_scatter
+        (ldx, ldy, ldz, ldist, eff_b, lv_r, lv_g, lv_b) = _nee_setup(
+            cx, px, py, pz, need_light | shade
+        )
+        dn = _trace_dnee(
+            cx, (px, py, pz), (dax, day, daz), _W(transmitted, bound, zero),
+            (ldx, ldy, ldz), eff_b,
+        )
+        seg_len = _W(dn[1] >= 0.0, dn[0], _full(dn[0], T_MAX))
+    elif mask & ABLATIONS["nodist"]:
+        seg_len = _full(px, T_MAX)
+    else:
+        # the separate distance walk (megakernel.py:1171-1199)
+        dt, dslot = _trace_full(cx, (px, py, pz), (dax, day, daz),
+                                _W(transmitted, bound, zero), "dist")
+        seg_len = _W(dslot >= 0.0, dt, _full(dt, T_MAX))
 
     # free-flight sampling (volpath:691)
     (succ, ms_t, prob_fail, prob_success, tr_r, tr_g, tr_b) = _sample_distance(
@@ -595,10 +715,16 @@ def _bounce(cx, st, it, PH):
     pass_med = transmitted & ~scatter
 
     # NEE (volpath:697/:773; no RNG draws)
-    li_r, li_g, li_b = _nee_resolve(
-        cx, dn[2:2 + cx.K], dn[2 + cx.K], eff_b, ldist, lv_r, lv_g, lv_b,
-        need_light | shade,
-    )
+    if mask & ABLATIONS["nonee"]:
+        li_r = li_g = li_b = torch.ones_like(px)
+    elif fused:
+        li_r, li_g, li_b = _nee_resolve(
+            cx, dn[2:2 + cx.K], dn[2 + cx.K], eff_b, ldist, lv_r, lv_g, lv_b,
+            need_light | shade,
+        )
+    else:
+        li_r, li_g, li_b = _nee_march(
+            cx, px, py, pz, (ad_gate if cx.analytic_direct else scatter) | shade)
     tmp_g = 1.0 + g * g
     phase_nee = INV_FOURPI * (1.0 - g * g) / (tmp_g * torch.sqrt(tmp_g))
     if cx.analytic_direct:
@@ -758,15 +884,23 @@ def trace_paths_mega_plain(
     analytic_direct: bool = False,
     ld: bool = False,
     dim0=0,
+    debug: str = "",
 ) -> MegaState:
     """The plain PyTorch version of ``trace_paths_mega`` (same arguments,
     same in-place update), on any device."""
     max_iters, lanes, dim_base = _check_call(
         grid, state, max_depth, max_iters, ld, dim0, live_blocks
     )
+    mask = ablation_mask(debug)
     media_rows = media9.detach().cpu().tolist()
+    # A partitioned grid's opaque supers [0, S_OPQ) hold the clusters (and
+    # slots) before the media supers'.
+    cut = min(grid.num_opaque_supers * grid.super_factor, grid.num_clusters) * grid.width
     cx = _Plain(
         slots=slot_table(grid),
+        slots_opq=slot_table(grid, 0, cut) if grid.num_opaque_supers > 0 else None,
+        slots_med=slot_table(grid, cut) if grid.num_opaque_supers > 0 else None,
+        mask=mask,
         media=media_rows,
         misc=misc.detach().cpu().tolist(),
         med_ids=[row[0] for row in media_rows],
@@ -781,8 +915,18 @@ def trace_paths_mega_plain(
         sob=rng_ops.sobol_table(state.org.device) if ld else None,
         dim_base=dim_base,
     )
+    lockstep = bool(mask & ABLATIONS["nophys"])
     for it in range(max_iters):
-        live = state.alive[:lanes].nonzero().squeeze(1)
+        if lockstep:
+            # nophys's unmasked writes reach every lane of a 1024-lane block
+            # while any lane of it lives (megakernel.py:1386-1394).
+            blk = torch.arange(lanes, device=state.alive.device) // BLOCK
+            live_blk = torch.zeros(-(-lanes // BLOCK), dtype=torch.bool,
+                                   device=state.alive.device)
+            live_blk[blk[state.alive[:lanes]]] = True
+            live = live_blk[blk].nonzero().squeeze(1)
+        else:
+            live = state.alive[:lanes].nonzero().squeeze(1)
         if live.numel() == 0:
             break
         st = (
@@ -818,6 +962,7 @@ def trace_paths_mega(
     analytic_direct: bool = False,
     ld: bool = False,
     dim0=0,
+    debug: str = "",
 ) -> MegaState:
     """Advance R paths up to ``max_iters`` bounce iterations in ONE kernel.
 
@@ -828,8 +973,8 @@ def trace_paths_mega(
 
     The state is updated IN PLACE and returned: the counterpart of the
     Pallas call's ``input_output_aliases``. A CUDA state launches the
-    kernel of ``csrc/megakernel.cu`` (or raises); a CPU state runs
-    ``trace_paths_mega_plain``.
+    kernel of ``csrc/megakernel.cu`` built for ``debug``'s ablation mask
+    (or raises); a CPU state runs ``trace_paths_mega_plain``.
     """
     if state.org.device.type == "cpu":
         return trace_paths_mega_plain(
@@ -837,7 +982,7 @@ def trace_paths_mega(
             max_depth=max_depth, rr_depth=rr_depth,
             nee_max_media=nee_max_media, tir_kill=tir_kill,
             max_iters=max_iters, live_blocks=live_blocks,
-            analytic_direct=analytic_direct, ld=ld, dim0=dim0,
+            analytic_direct=analytic_direct, ld=ld, dim0=dim0, debug=debug,
         )
     max_iters, lanes, dim_base = _check_call(
         grid, state, max_depth, max_iters, ld, dim0, live_blocks
@@ -845,7 +990,7 @@ def trace_paths_mega(
     _launch(grid, media9, misc, state, lanes, dim_base, background=background,
             max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
             tir_kill=tir_kill, analytic_direct=analytic_direct, ld=ld,
-            max_iters=max_iters)
+            max_iters=max_iters, mask=ablation_mask(debug))
     return state
 
 
@@ -877,8 +1022,9 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth,
-            rr_depth, nee_max_media, tir_kill, analytic_direct, ld, max_iters):
-    """Check every tensor and launch the CUDA kernel on the current stream."""
+            rr_depth, nee_max_media, tir_kill, analytic_direct, ld, max_iters, mask):
+    """Check every tensor and launch the CUDA kernel of ablation mask
+    ``mask`` on the current stream."""
     from . import build
 
     if nee_max_media < 0:
@@ -905,8 +1051,13 @@ def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth
     if lanes == 0:
         return
     sob = _sobol_i32(dev)
-    fn = build.megakernel(nee_max_media)
+    lib_mask, one_thread = cuda_instance(mask)
+    fn = build.megakernel(nee_max_media, lib_mask)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    group = 1 if one_thread else group_size(lanes)  # carrywalk: one thread, whatever the width
+    # nophys: each lane's iterations and each 1024-lane block's most.
+    iters = (torch.zeros(lanes + -(-lanes // BLOCK), dtype=torch.int32, device=dev)
+             if mask & ABLATIONS["nophys"] else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -915,10 +1066,10 @@ def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth
             p(state.org), p(state.dir), p(state.thr), p(state.rad),
             p(state.rng), p(state.depth), p(state.alive), p(state.aux),
             lanes, C, S, grid.runs_per_cluster, grid.run_size, row_w,
-            media9.shape[0], grid.super_factor,
+            media9.shape[0], grid.super_factor, grid.num_opaque_supers,
             int(background), int(max_depth), int(rr_depth), int(bool(tir_kill)),
-            int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group_size(lanes),
-            ctypes.c_void_p(stream),
+            int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group,
+            None if iters is None else p(iters), ctypes.c_void_p(stream),
         )
     trace_paths_mega.launches += 1
     if err != 0:

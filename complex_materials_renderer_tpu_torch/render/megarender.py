@@ -121,10 +121,12 @@ def _resolve_dynamic(schedule_mode: str, grid) -> str:
 
 
 def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr_depth,
-               nee_max_media, tir, direct, rng_mode, binned_list, binned_cap):
+               nee_max_media, tir, direct, rng_mode, binned_list, binned_cap, debug):
     """The per-pass bounce kernel of the selected trace engine
-    (megarender.py:166-210): the megakernel, or the wavefront bounce loop
-    over the binned or the pair tracer. Each updates the state in place."""
+    (megarender.py:166-210): the megakernel (its CMR_MEGA_DEBUG ablations
+    ``debug``), or the wavefront bounce loop over the binned or the pair
+    tracer, which ignore ``debug`` as in the JAX package. Each updates the
+    state in place."""
     ld = rng_mode == "ld"
     if trace_engine == "binned":
         from .binnedrender import make_binned_kern
@@ -144,7 +146,7 @@ def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr
         trace_paths_mega, grid, media9, misc,
         background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
         nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
-        analytic_direct=(direct == "analytic"), ld=ld,
+        analytic_direct=(direct == "analytic"), ld=ld, debug=debug,
     )
 
 
@@ -369,13 +371,9 @@ def render_beauty_mega(
     words in int64, row-major) carries the parity stream across sample
     chunks. ``schedule_mode``: auto | off | hybrid | all. ``trace_engine``
     swaps the per-pass kernel: mega | binned (with ``binned_list`` and
-    ``binned_cap``) | pair.
+    ``binned_cap``) | pair. ``debug``: the megakernel's CMR_MEGA_DEBUG
+    ablations (``kernels.megakernel.ABLATIONS``); the other engines ignore it.
     """
-    if debug:
-        raise NotImplementedError(
-            f"CMR_MEGA_DEBUG={debug!r}: the TPU timing ablations are not "
-            "ported (ROADMAP Queue 1, item 15)"
-        )
     if rng_mode not in ("parity", "counter", "ld"):
         raise ValueError(f"rng mode must be parity|counter|ld, got {rng_mode!r}")
     dev = grid.device
@@ -393,7 +391,7 @@ def render_beauty_mega(
     kern = _make_kern(
         grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
         rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
-        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
+        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
     )
     _advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
 
@@ -478,11 +476,6 @@ def render_samples_mega(
             "render_samples_mega requires a stateless RNG mode "
             f"(counter | ld), got {rng_mode!r}"
         )
-    if debug:
-        raise NotImplementedError(
-            f"CMR_MEGA_DEBUG={debug!r}: the TPU timing ablations are not "
-            "ported (ROADMAP Queue 1, item 15)"
-        )
     dev = grid.device
     full_w, full_h = full_resolution
     pixel_xy = torch.as_tensor(pixel_xy).to(dev, torch.int64)
@@ -505,7 +498,7 @@ def render_samples_mega(
     kern = _make_kern(
         grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
         rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
-        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
+        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
     )
     advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
 

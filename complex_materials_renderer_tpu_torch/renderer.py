@@ -55,7 +55,8 @@ PATHS_PER_PASS = int(os.environ.get("CMR_PATHS_PER_PASS", 1 << 20))
 def _mega_env_knobs() -> dict:
     """The megakernel tuning knobs, read once per render: CMR_MEGA_DYN
     (schedule mode), CMR_MEGA_SCHED (phase widths), CMR_MEGA_SORTKEY
-    (dir | pos) and CMR_MEGA_DEBUG (the TPU ablations, not ported)."""
+    (dir | pos) and CMR_MEGA_DEBUG (the megakernel's ablations, a
+    comma-separated set of ``kernels.megakernel.ABLATIONS`` tokens)."""
     return dict(
         schedule_mode=os.environ.get("CMR_MEGA_DYN", "auto"),
         schedule=os.environ.get("CMR_MEGA_SCHED", ""),

@@ -232,16 +232,23 @@ def test_unported_paths_raise(kw, match):
 
 def test_unported_backend_and_debug_raise(monkeypatch):
     """The megakernel family needs the cluster grid (renderer.py:632-633
-    of the JAX package); an unknown backend is refused; the TPU timing
-    ablations are not ported."""
+    of the JAX package); an unknown backend is refused; the Renderer reads
+    CMR_MEGA_DEBUG: 'ordered' renders the default image, 'nonee' another,
+    and an unknown token raises."""
     for engine in ("mega", "binned", "pair"):
         with pytest.raises(ValueError, match="requires --backend cluster"):
             _isobox(backend="bvh", engine=engine).render()
     with pytest.raises(ValueError, match="backend"):
         _isobox(backend="kd-tree")
+    small = dict(width=8, height=8, num_samples=1)
+    ref = _isobox(**small).render()
     monkeypatch.setenv("CMR_MEGA_DEBUG", "ordered")
-    with pytest.raises(NotImplementedError, match="CMR_MEGA_DEBUG"):
-        _isobox().render()
+    np.testing.assert_allclose(_isobox(**small).render(), ref, atol=1e-6)
+    monkeypatch.setenv("CMR_MEGA_DEBUG", "nonee")
+    assert not np.allclose(_isobox(**small).render(), ref)
+    monkeypatch.setenv("CMR_MEGA_DEBUG", "notoken")
+    with pytest.raises(ValueError, match="unknown CMR_MEGA_DEBUG token"):
+        _isobox(**small).render()
 
 
 def test_engine_auto_resolution():

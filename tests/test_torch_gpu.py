@@ -10,7 +10,8 @@ Tolerance of the megakernel K1 against its plain version on the same
 card: rng, depth and alive equal except on at most 1e-3 of the lanes
 (flip lanes, where depth or alive differ), the float state within atol
 1e-4 and rtol 1e-4 elsewhere (the smoke test's gate; on the card the two
-agree to the bit in practice). The closest-hit kernel K3 and its plain
+agree to the bit in practice); each CMR_MEGA_DEBUG ablation instance of K1
+and its plain version: every output equal. The closest-hit kernel K3 and its plain
 version: every output equal (both round every operation once, in the
 same order); so are the listing (K4, its one-thread walk and its tile
 walk at every G, on a soup and on a tiled showcase of many supers, with
@@ -69,8 +70,9 @@ def _box(c, h):
     return [t for p in quads for t in ([p[0], p[1], p[2]], [p[0], p[2], p[3]])]
 
 
-def _scene(device, duplicate_shell=False, quads=False):
-    """A floor (opaque) and a medium box, the shape of tests/helpers.py."""
+def _scene(device, duplicate_shell=False, quads=False, media_mats=None):
+    """A floor (opaque) and a medium box, the shape of tests/helpers.py;
+    ``media_mats`` partitions the grid into opaque and media supers."""
     floor = [[[-10, 0, 10], [10, 0, 10], [10, 0, -10]], [[-10, 0, 10], [10, 0, -10], [-10, 0, -10]]]
     box = _box([0.0, 1.0, 0.0], 0.8)
     if duplicate_shell:
@@ -85,7 +87,8 @@ def _scene(device, duplicate_shell=False, quads=False):
         ior=np.array([1.33], np.float32),
     )
     scene = make_scene_arrays(tris, mats, media, 1.0, 1, device=device)
-    grid = device_cluster_grid(build_clusters(tris, mats, cluster_size=8, quads=quads), device)
+    grid = device_cluster_grid(build_clusters(tris, mats, cluster_size=8, quads=quads,
+                                              media_mats=media_mats), device)
     lights = make_lights((2.0, 4.0, 3.0), (0.8, 0.8, 0.6), 100.0, device=device)
     return scene, grid, lights
 
@@ -144,6 +147,36 @@ def test_kernel_matches_plain(cuda, name, kw):
         lanes = kw["live_blocks"] * mk.BLOCK
         for f in ("org", "rad", "rng", "depth", "alive"):
             assert torch.equal(getattr(a, f)[lanes:], getattr(st, f)[lanes:])
+
+
+@pytest.mark.parametrize("case", ["plain grid", "partitioned grid", "analytic"])
+@pytest.mark.parametrize("debug", mk.ABLATION_SETS)
+def test_ablation_matches_plain(cuda, debug, case):
+    """Each CMR_MEGA_DEBUG instance of K1 against its plain version: every
+    output equal. Lanes 0-299 and the last 1,024-lane block start dead
+    (nophys's block lockstep); on the plain grid, the opaque/media
+    partitioned one, and with the analytic direct term and TIR kill."""
+    scene, grid, lights = _scene(cuda, media_mats={1} if case == "partitioned grid" else None)
+    if case == "partitioned grid":
+        assert grid.num_opaque_supers > 0
+    media9 = mk.pack_media(scene.media, scene.scale, device=cuda)
+    misc = mk.pack_misc(lights, scene.world_lo, scene.world_hi, device=cuda)
+    st = _state(4096, cuda, seed=7)
+    st.alive[:300] = False
+    st.alive[3072:] = False
+    kw = dict(max_depth=8, rr_depth=4, nee_max_media=4, debug=debug)
+    if case == "analytic":
+        kw.update(analytic_direct=True, tir_kill=True)
+    a = mk.MegaState(*(x.clone() for x in st))
+    b = mk.MegaState(*(x.clone() for x in st))
+    before = mk.trace_paths_mega.launches
+    mk.trace_paths_mega(grid, media9, misc, a, **kw)
+    torch.cuda.synchronize()
+    assert mk.trace_paths_mega.launches == before + 1
+    mk.trace_paths_mega_plain(grid, media9, misc, b, **kw)
+    for f in mk.MegaState._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert bool((a.depth > 0).any())
 
 
 @pytest.fixture

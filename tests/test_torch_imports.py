@@ -45,7 +45,9 @@ assert not left, left
 for name in ("render.integrator", "render.aov", "kernels.traverse", "kernels.cluster_trace",
              "kernels.intersect", "accel.bvh", "ops.fresnel", "ops.phase", "ops.diffuse",
              "ops.medium", "kernels.binned_trace", "kernels.pairsweep", "render.binnedrender",
-             "render.pairrender", "parallel", "parallel.sharding", "parallel.multihost"):
+             "render.pairrender", "parallel", "parallel.sharding", "parallel.multihost",
+             "tools", "tools.compare", "tools.goldens", "tools.make_scenes",
+             "tools.make_showcase", "tools.mat_parser"):
     assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
@@ -59,9 +61,9 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     # Every module of the port was imported, the wavefront, binned and pair
     # engines, the AOVs, the BVH backend, the wrappers of the closest-hit,
-    # listing, round and sweep kernels and the sharding and multi-process
-    # modules among them.
-    assert int(proc.stdout.split()[-1]) >= 45
+    # listing, round and sweep kernels, the sharding and multi-process
+    # modules and the tools among them.
+    assert int(proc.stdout.split()[-1]) >= 51
 
 
 def _no_card(monkeypatch):

@@ -126,8 +126,13 @@ def test_first_pass_state_is_the_first_kernel_input(rng, monkeypatch):
 
 
 def test_debug_knob_refused():
-    with pytest.raises(NotImplementedError, match="ablations"):
-        tmr.render_beauty_mega(*_port_objects(), (8, 8), 1, debug="ordered", **KW)
+    """CMR_MEGA_DEBUG is ported: 'ordered' (the nearest-first walk, exact)
+    renders the default image; an unknown token is refused."""
+    ref = tmr.render_beauty_mega(*_port_objects(), (8, 8), 1, **KW)
+    img = tmr.render_beauty_mega(*_port_objects(), (8, 8), 1, debug="ordered", **KW)
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="unknown CMR_MEGA_DEBUG token"):
+        tmr.render_beauty_mega(*_port_objects(), (8, 8), 1, debug="ordred", **KW)
 
 
 @pytest.fixture(scope="module")
