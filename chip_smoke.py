@@ -10,7 +10,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    4, 8 and 12), the pair sweep and the megakernel's ablation instance of
    each ``megakernel.ABLATION_SETS`` token set (CMR_MEGA_DEBUG; carrywalk
    is the nofuse instance at one thread a lane), each with its ptxas
-   lines (registers and spill stores of every kernel) and the build time;
+   lines (registers and spill stores of every kernel) and the build time,
+   and beside them the port's host library (``native.py``: the OBJ parser,
+   BVH builder and .hdr writer, C++ built with the host's compiler), with
+   its build time and the host CPU's model;
 2. holds the path-tracing kernel (K1, with the triangle tester K2
    inlined) against its plain PyTorch version on the card, from one
    65,536-lane state of the showcase scene, in six cases: parity to
@@ -119,6 +122,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one-process NCCL world (a file store) equal to ``render_beauty_sharded``
    on the same mesh (NCCL across several cards needs more than the one
    card here);
+5e. drives the CLI: ``cli.main`` on scenes/showcase.obj at 512x512 with
+   16 spp, the default engine, in this process (K1's launches counted
+   from 0: as many as the main path's; the rendered image must be the
+   main path's, bit for bit), then ``python -m`` of the package in a fresh
+   interpreter with the host library and with ``CMR_NO_NATIVE=1`` (the
+   Python parser and writer), in turns (native, Python, Python, native);
+   prints the phase tables (scene_load, accel_build, upload, render,
+   write, wall) side by side; the five .hdr files must be byte-equal, and
+   decode to the main path's image encoded. ``parse_obj`` of a generated
+   131,072-triangle heightfield and ``write_hdr`` at 1920x1080, each
+   through the library and through the Python path, timed in turns.
+   Then the host BVH builder: ``build_bvh`` timed on the many-cluster scene
+   and, beside ``_build_bvh_python``, on its 4 x 4 tiling (22,048
+   triangles); each tree's invariants (tri_order a permutation, leaves of
+   at most leaf_size triangles, miss[0] == -1, bmin <= bmax) and its
+   sha256 against that of the JAX package's native tree (a constant, taken
+   with the JAX package's committed library: the tree must not depend on
+   the host or its compiler); the host library's digest and load times in
+   a fresh interpreter; and the BVH
+   walk over the C++ and the numpy tree of the 4 x 4 tiling on 65,536
+   camera rays, equal in prim and t;
 6. times K1, K3, K4, K5 and K6 with CUDA events at their widest launches
    on their paths (65,536 lanes: K1 one bounce, K3 and K4 the closest
    trace of the primary rays, K5 its first round, K6 the pair engine's
@@ -155,7 +179,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    instance, and K6 launch by launch over one pair NEE trace (pairs, valid
    pairs, distinct ids per block, G, ms, bound, TPU work) with its widest
    and narrowest launch at every G;
-7. prints its command time, a ``{"kernels": [...]}`` line (one K1 row
+7. prints its command time, a ``{"host_runtime": {...}}`` line (the
+   CLI's phase tables, the BVH build times, the card and the host CPU), a
+   ``{"kernels": [...]}`` line (one K1 row
    that names its ablation instances; K4 in two rows: showcase's
    renders with the walk the rule launches there, and the tile walk on
    the many-cluster scene with the launches of its traces), the
@@ -191,6 +217,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1905,6 +1932,282 @@ CARDS_SPP = 16  # samples of --cards' Renderer renders
 CARDS_MULTIHOST_SPP = 4  # samples of its two-process render
 
 
+CLI_SIZE = ("512", "512", "16")  # the main path's width, height and samples per pixel
+# sha256 (first 16 hex digits) of the six arrays (bmin, bmax, left, count,
+# miss, tri_order) of the JAX package's native build_bvh over the tiled
+# scenes (leaf_size 4), built with its committed native/cmr_native.so: the
+# port's C++ builder must give this tree on any host and compiler.
+JAX_NATIVE_TREES = {(TILES, TILES): "7bfa35dbc9acc5dc", (4, 4): "086c846bb94ec6e9"}
+
+
+def cpu_model() -> str:
+    """The host CPU's model from /proc/cpuinfo: its model name, or, where
+    the kernel reports that as unknown, vendor, family and model number."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break  # the first processor's block
+            key, _, value = ln.partition(":")
+            fields[key.strip()] = value.strip()
+    name = fields.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} (model name unknown), {fields.get('cpu MHz', '?')} MHz")
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_phases(stdout: str) -> dict:
+    """{phase: ms} of the ``PhaseTimer`` reports that ``cli.main`` prints."""
+    import re
+
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^(\w+) time: ([\d.]+) ms$", stdout, re.M)}
+
+
+def cli_path(mega_img, mega_launches):
+    """Phase 5e: ``cli.main`` on showcase 512x512 @ 16 spp, the default
+    engine, in this process (K1's launches counted from 0, the rendered
+    image recorded) and then as ``python -m`` in a fresh process with the
+    host library and with ``CMR_NO_NATIVE=1``, in turns; the phase tables
+    side by side, the .hdr files byte-equal, and the image the main path's."""
+    import contextlib
+    import io
+    import tempfile
+
+    from complex_materials_renderer_tpu_torch import cli
+    from complex_materials_renderer_tpu_torch.io import read_hdr
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe, rgbe_to_float
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a, np.float32).tobytes()).hexdigest()[:16]
+
+    obj = os.path.join(REPO, "scenes", "showcase.obj")
+    w, h, spp = CLI_SIZE
+    argv = [obj, "--width", w, "--height", h, "-s", spp]
+    runs, files = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = []
+        render = Renderer.render
+
+        def recorded(self, *a, **kw):
+            images.append(render(self, *a, **kw))
+            return images[-1]
+
+        Renderer.render = recorded
+        out = io.StringIO()
+        reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                (rc, wall) = timed_render(lambda: cli.main(argv + ["-o", os.path.join(tmp, "in")]))
+        finally:
+            Renderer.render = render
+        launches = launch_counts()["K1"]
+        if rc != 0:
+            fail(f"cli.main returned {rc}")
+        runs["in process"] = {**cli_phases(out.getvalue()), "wall": wall * 1e3}
+        files["in process"] = os.path.join(tmp, "in.hdr")
+        env = {k: v for k, v in os.environ.items() if k != "CMR_NO_NATIVE"}
+        # In turns (native, Python, Python, native): one run each is noise.
+        for label, extra in (("native", {}), ("CMR_NO_NATIVE=1", {"CMR_NO_NATIVE": "1"}),
+                             ("CMR_NO_NATIVE=1 (2)", {"CMR_NO_NATIVE": "1"}),
+                             ("native (2)", {})):
+            path = os.path.join(tmp, f"run{len(files)}")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", PACKAGE, *argv, "-o", path], cwd=REPO,
+                                  env={**env, **extra}, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"python -m {PACKAGE} ({label}) exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            runs[label] = {**cli_phases(proc.stdout), "wall": wall * 1e3}
+            files[label] = path + ".hdr"
+        data = {k: file_bytes(p) for k, p in files.items()}
+        decoded = {k: read_hdr(p) for k, p in files.items()}
+    # The host library's share of a fresh process's scene_load: the
+    # compiler's --version for the library's digest, then its load.
+    proc = subprocess.run([sys.executable, "-c", LIBRARY_LOAD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"loading the host library in a fresh process failed:\n{proc.stderr[-4000:]}")
+    load_ms = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"   the host library in a fresh process: digest (the compiler's --version) "
+          f"{load_ms['digest']:.1f} ms, load {load_ms['load']:.1f} ms", flush=True)
+    names = ["scene_load", "accel_build", "upload", "render", "write", "wall"]
+    print("   phase (ms)      " + "".join(f"{k:>21}" for k in runs), flush=True)
+    for n in names:
+        print(f"   {n:<15} " + "".join(f"{runs[k].get(n, float('nan')):>21.1f}" for k in runs),
+              flush=True)
+    print("   (wall: cli.main in this process, warm; the others a fresh interpreter's whole "
+          "command, interpreter start and CUDA context included)", flush=True)
+    if len(images) != 1:
+        fail(f"cli.main rendered {len(images)} images, expected 1")
+    img = images[0]
+    ref_rgbe = rgbe_to_float(float_to_rgbe(mega_img))
+    print(f"   K1 launches {launches}; image sha256 {sha(img)} (main path {sha(mega_img)}); "
+          f".hdr sizes {[len(v) for v in data.values()]}; decoded sha256 "
+          f"{[sha(v) for v in decoded.values()]} (main path's image encoded {sha(ref_rgbe)})",
+          flush=True)
+    if launches != mega_launches:
+        fail(f"cli.main launched K1 {launches} times, the main path {mega_launches}")
+    if sha(img) != sha(mega_img):
+        fail("cli.main rendered another image than the main path")
+    if len(set(data.values())) != 1:
+        fail("the .hdr files of the CLI runs differ")
+    if any(sha(v) != sha(ref_rgbe) for v in decoded.values()):
+        fail("the decoded .hdr is not the main path's image encoded")
+    return {**runs, "library in a fresh process": load_ms}, launches
+
+
+LIBRARY_LOAD = """
+import json, time
+from complex_materials_renderer_tpu_torch import native
+t0 = time.perf_counter()
+native._lib_path(native.compiler())
+t1 = time.perf_counter()
+native.load()
+t2 = time.perf_counter()
+print(json.dumps({"digest": (t1 - t0) * 1e3, "load": (t2 - t1) * 1e3}))
+"""
+
+
+def host_io_times():
+    """ms of ``parse_obj`` on a generated 256 x 256 heightfield (131,072
+    triangles) and of ``write_hdr`` at 1920x1080, each through the host
+    library and through its Python path (``CMR_NO_NATIVE``), in turns
+    (native, Python, Python, native); the outputs must be equal."""
+    import tempfile
+
+    from complex_materials_renderer_tpu_torch.io import write_hdr
+    from complex_materials_renderer_tpu_torch.scene.obj import parse_obj
+
+    n = 256
+    x, z = np.meshgrid(np.linspace(-4.0, 4.0, n + 1), np.linspace(-4.0, 4.0, n + 1))
+    verts = np.stack([x, 0.3 * np.sin(3.0 * x) * np.cos(2.0 * z), z], -1).reshape(-1, 3)
+    i = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None]).ravel() + 1
+    faces = np.stack([i, i + 1, i + n + 2, i, i + n + 2, i + n + 1], -1).reshape(-1, 3)
+    image = np.random.default_rng(3).lognormal(0.0, 2.0, (1080, 1920, 3)).astype(np.float32)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "heightfield.obj")
+        with open(obj, "w") as f:
+            f.write("".join(f"v {a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in verts))
+            f.write("".join(f"f {a} {b} {c}\n" for a, b, c in faces))
+        for step in ("parse_obj, 131,072 triangles", "write_hdr, 1920x1080"):
+            times = {"native": [], "python": []}
+            results = []
+            for k, side in enumerate(("native", "python", "python", "native")):
+                if side == "python":
+                    os.environ["CMR_NO_NATIVE"] = "1"
+                try:
+                    t0 = time.perf_counter()
+                    if step.startswith("parse"):
+                        results.append(parse_obj(obj))
+                    else:
+                        write_hdr(os.path.join(tmp, f"{k}.hdr"), image)
+                    times[side].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    os.environ.pop("CMR_NO_NATIVE", None)
+            if results:
+                same = all(all(np.array_equal(a, b) for a, b in zip(results[0][:3], r[:3]))
+                           and results[0][3] == r[3] for r in results[1:])
+            else:
+                same = len({file_bytes(os.path.join(tmp, f"{k}.hdr"))
+                            for k in range(4)}) == 1
+            print(f"   {step}: native {', '.join(f'{t:.1f}' for t in times['native'])} ms; "
+                  f"Python {', '.join(f'{t:.1f}' for t in times['python'])} ms (in turns: "
+                  f"native, Python, Python, native); outputs equal {same}", flush=True)
+            if not same:
+                fail(f"{step}: the host library and the Python path differ")
+            out[step] = times
+    return out
+
+
+def check_tree(flat, num_tris: int, leaf_size: int, label: str) -> None:
+    """A threaded BVH's invariants: ``tri_order`` a permutation, leaves of
+    at most ``leaf_size`` triangles covering each triangle once, the root's
+    miss link -1, every box with bmin <= bmax."""
+    order = np.sort(flat.tri_order)
+    leaves = flat.count > 0
+    if not np.array_equal(order, np.arange(num_tris)):
+        fail(f"{label}: tri_order is not a permutation")
+    if flat.count.max() > leaf_size or int(flat.count[leaves].sum()) != num_tris:
+        fail(f"{label}: a leaf holds more than {leaf_size} triangles, or the leaves miss some")
+    if flat.miss[0] != -1:
+        fail(f"{label}: the root's miss link is {flat.miss[0]}, not -1")
+    if not (flat.bmin <= flat.bmax).all():
+        fail(f"{label}: a node's bmin exceeds its bmax")
+
+
+def bvh_host_path():
+    """Phase 5e, the BVH: the host library's builder on the many-cluster
+    scene and on its 4 x 4 tiling beside the numpy builder, the trees'
+    invariants, and the BVH walk over both trees of the 4 x 4 tiling on
+    65,536 camera rays (pixel centres, 256 x 256) equal in prim and t."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.accel.bvh import _build_bvh_python, build_bvh
+    from complex_materials_renderer_tpu_torch.kernels import traverse
+    from complex_materials_renderer_tpu_torch.ops.camera import generate_rays, make_camera
+
+    def best(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, min(times)
+
+    out = {}
+    for tiles in ((TILES, TILES), (4, 4)):
+        scene, opt = tiled_options(256, 256, 1, tiles)
+        tris, leaf = scene.triangles, opt.leaf_size
+        label = f"showcase tiled {tiles[0]} x {tiles[1]}"
+        flat, native_s = best(lambda: build_bvh(tris, leaf), 3)
+        check_tree(flat, tris.shape[0], leaf, label)
+        digest = hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes()
+                                         for a in flat)).hexdigest()[:16]
+        print(f"   {label}: the C++ tree's sha256 {digest} (the JAX package's native tree "
+              f"{JAX_NATIVE_TREES[tiles]})", flush=True)
+        if leaf != 4 or digest != JAX_NATIVE_TREES[tiles]:
+            fail(f"{label}: the C++ tree is not the JAX package's native tree")
+        row = {"triangles": int(tris.shape[0]), "nodes": int(flat.num_nodes),
+               "native_ms": native_s * 1e3}
+        if tiles == (4, 4):
+            py, py_s = best(lambda: _build_bvh_python(tris, leaf), 1)
+            check_tree(py, tris.shape[0], leaf, f"{label}, numpy")
+            row["python_ms"] = py_s * 1e3
+            cam = make_camera(opt.camera_pos, opt.camera_look_at, opt.camera_fov, device="cuda")
+            ys, xs = torch.meshgrid(torch.arange(256, device="cuda"),
+                                    torch.arange(256, device="cuda"), indexing="ij")
+            pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+            o, d = generate_rays(cam, pix, torch.full((pix.shape[0], 2), 0.5, device="cuda"),
+                                 (256, 256))
+            o, d = o.contiguous(), d.contiguous()
+            hits = [traverse.trace_closest(o, d, traverse.device_bvh(f, tris, leaf, "cuda"),
+                                           1e-4, 1e4) for f in (flat, py)]
+            n_hit = int((hits[0].prim >= 0).sum())
+            bad = int(((hits[0].prim != hits[1].prim) | (hits[0].t != hits[1].t)).sum())
+            print(f"   {label}: the BVH walk over both trees, {o.shape[0]} camera rays, "
+                  f"{n_hit} hits: {bad} lanes differ in prim or t", flush=True)
+            if n_hit == 0 or bad:
+                fail(f"{label}: the walks over the C++ and the numpy trees differ on {bad} "
+                     f"lanes ({n_hit} hits)")
+        print(f"   {label}, {row['triangles']} triangles, {row['nodes']} nodes: build_bvh "
+              f"(C++) {row['native_ms']:.1f} ms"
+              + (f", _build_bvh_python (numpy) {row['python_ms']:.1f} ms"
+                 if "python_ms" in row else ""), flush=True)
+        out[f"tiled_{tiles[0]}x{tiles[1]}"] = row
+    return out
+
+
 def cards_path():
     """--cards: the sharded Renderer over every card against one card, and
     a two-process NCCL render_multihost (see the module's docstring)."""
@@ -2775,13 +3078,24 @@ def main() -> int:
 
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
 
+    from complex_materials_renderer_tpu_torch import native
+
     t0 = time.perf_counter()
-    build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
-                   rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4],
-                   ablations=[(4, mk.cuda_instance(mk.ablation_mask(d))[0])
-                              for d in mk.ABLATION_SETS])
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_lib = pool.submit(native.load)  # beside the nvcc processes
+        build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
+                       rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4],
+                       ablations=[(4, mk.cuda_instance(mk.ablation_mask(d))[0])
+                                  for d in mk.ABLATION_SETS])
+        host_lib.result()
     print(f"   built {len(build.build_log)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
+    host_build_s = sum(secs for _, secs, _ in native.build_log)
+    cxx_version = subprocess.run([*native.compiler(), "--version"], capture_output=True,
+                                 text=True).stdout.partition("\n")[0]
+    print(f"   host library {os.path.relpath(native.load()._name, REPO)}: "
+          f"{host_build_s:.1f} s ({' '.join(native.compiler() + native.CXX_FLAGS)}; "
+          f"{cxx_version}); host CPU {cpu_model()}, {os.cpu_count()} cores", flush=True)
     worst_spill = 0
     for lib, secs, log in build.build_log:
         lines = ptxas_lines(log)
@@ -2892,6 +3206,13 @@ def main() -> int:
     phase(f"sharding: {SHARDS} logical shards on cuda:0, render_multihost over NCCL")
     sharding_path(r)
 
+    phase("cli: python -m complex_materials_renderer_tpu_torch showcase 512x512 @ 16 spp, "
+          "with the host library and with CMR_NO_NATIVE=1; the host BVH builder")
+    print(f"   {smi}; host CPU {cpu_model()}", flush=True)
+    cli_runs, cli_launches = cli_path(mega_img, launches)
+    io_rows = host_io_times()
+    bvh_rows = bvh_host_path()
+
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)
     ms_k3, plain_ms_k3, bound_ms_k3, bound_by_k3 = time_k3(r)
@@ -2915,6 +3236,11 @@ def main() -> int:
             profile_pass(r, engine)
 
     print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
+    print(json.dumps({"host_runtime": {
+        "card": smi, "cpu": cpu_model(), "compiler": cxx_version, "library_build_s": host_build_s,
+        "cli_ms": cli_runs, "cli_k1_launches": cli_launches, "host_io_ms": io_rows,
+        "build_bvh": bvh_rows}}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined; its ablation instances "
                 f"launched beside the default: {', '.join(mk.ABLATION_SETS)})",

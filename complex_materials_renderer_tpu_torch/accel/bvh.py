@@ -10,8 +10,13 @@ layout, for the threaded-BVH walk of ``kernels/traverse.py``:
 - leaf triangles are re-ordered contiguously, so a leaf is (first, count)
   into the permuted triangle stream.
 
-The JAX package's native C++ builder is not ported; this is its numpy
-builder, which it uses when the native one is absent.
+``build_bvh`` builds with the host library's C++ builder (native.py), as
+the JAX package does with its own, so both walk the same tree;
+``_build_bvh_python`` is the JAX package's numpy builder, whose tree
+differs from the C++ one: C++ bins a centroid by ``(c - min) * (16 /
+extent)`` and splits at the chosen bin's plane with ``std::partition``,
+which reorders the triangles; numpy bins by ``(c - min) / extent * 16`` and
+splits by bin, keeping their order. It runs under ``CMR_NO_NATIVE``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+
+from .. import native
 
 _NUM_BINS = 16
 
@@ -51,7 +58,20 @@ class _Node:
 def build_bvh(triangles: np.ndarray, leaf_size: int = 4) -> FlatBVH:
     """Build a threaded BVH over ``triangles`` of shape (T, 3, 3): binned
     SAH on the widest centroid axis, median split when all centroids
-    coincide. The numpy builder ``_build_bvh_python`` of the JAX package
+    coincide. The host library's C++ builder, whose arrays equal those of
+    the JAX package's native ``build_bvh`` byte for byte; under
+    ``CMR_NO_NATIVE``, ``_build_bvh_python``."""
+    tris = np.asarray(triangles, np.float32)
+    if tris.shape[0] == 0:
+        raise ValueError("cannot build a BVH over zero triangles")
+    if native.disabled():
+        return _build_bvh_python(tris, leaf_size)
+    bmin, bmax, left, count, miss, order = native.build_bvh(tris, leaf_size)
+    return FlatBVH(bmin=bmin, bmax=bmax, left=left, count=count, miss=miss, tri_order=order)
+
+
+def _build_bvh_python(triangles: np.ndarray, leaf_size: int = 4) -> FlatBVH:
+    """The numpy builder ``_build_bvh_python`` of the JAX package
     (bvh.py:73), whose arrays it reproduces byte for byte."""
     tris = np.asarray(triangles, np.float32)
     num_tris = tris.shape[0]

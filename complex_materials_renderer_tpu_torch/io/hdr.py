@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
+
 _HEADER = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
 
 
@@ -83,13 +85,19 @@ def _rle_encode_channel(data: np.ndarray) -> bytes:
 def write_hdr(path: str, image: np.ndarray) -> None:
     """Write (H, W, 3) float32 radiance to ``path`` as Radiance RGBE.
 
-    Pure-Python adaptive-RLE writer; its bytes equal those of the JAX
-    package's writer (complex_materials_renderer_tpu/io/hdr.py).
+    Written by the host library's C++ writer (native.py), as the JAX
+    package writes with its own; under ``CMR_NO_NATIVE`` by the Python
+    adaptive-RLE encoder below. Both give the bytes of the JAX package's
+    writers (complex_materials_renderer_tpu/io/hdr.py).
     """
     image = np.asarray(image, np.float32)
     if image.ndim != 3 or image.shape[-1] not in (3, 4):
         raise ValueError(f"expected (H, W, 3[4]) image, got {image.shape}")
     image = image[..., :3]
+
+    if not native.disabled():
+        native.write_hdr(path, image)
+        return
 
     height, width = image.shape[:2]
     rgbe = float_to_rgbe(image)

@@ -17,6 +17,8 @@ from typing import Dict, List, NamedTuple
 
 import numpy as np
 
+from .. import native
+
 
 class ObjMesh(NamedTuple):
     vertices: np.ndarray  # (V, 3) float32
@@ -40,10 +42,15 @@ def parse_mtl(path: str) -> List[str]:
 
 
 def parse_obj(path: str) -> ObjMesh:
-    """Parse an .obj scene with the pure-Python parser (the counterpart
-    of complex_materials_renderer_tpu/scene/obj.py ``_parse_obj_python``;
-    the native ctypes parser is not ported)."""
-    return _parse_obj_python(path)
+    """Parse an .obj scene with the host library's C++ parser (native.py,
+    as the JAX package does with its own); under ``CMR_NO_NATIVE`` with
+    the pure-Python ``_parse_obj_python``. A missing file raises
+    ``FileNotFoundError`` either way."""
+    if native.disabled():
+        return _parse_obj_python(path)
+    vertices, indices, mat_ids, names = native.parse_obj(path)
+    return ObjMesh(vertices=vertices, indices=indices, material_ids=mat_ids,
+                   material_names=names)
 
 
 def _parse_obj_python(path: str) -> ObjMesh:

@@ -1,6 +1,8 @@
-"""The port's BVH backend against the JAX package: ``build_bvh`` byte-equal
-to the JAX numpy builder, the threaded-BVH walk, ``ray_triangle``,
-``ray_aabb`` and the brute-force oracle ``trace_naive``.
+"""The port's BVH backend against the JAX package: ``build_bvh`` (the host
+library's C++ builder) byte-equal to the JAX package's native one and
+``_build_bvh_python`` to the JAX numpy builder, the threaded-BVH walk over
+the tree both packages build, ``ray_triangle``, ``ray_aabb`` and the
+brute-force oracle ``trace_naive``.
 
 Tolerances: host arrays byte-equal; prim and hit masks equal; t within
 atol 1e-6 + rtol 1e-6, u and v within atol 5e-6. The float32 operations
@@ -15,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from complex_materials_renderer_tpu.accel.bvh import _build_bvh_python as jax_build_bvh
+from complex_materials_renderer_tpu.accel.bvh import _build_bvh_python as jax_build_bvh_python
+from complex_materials_renderer_tpu.accel.bvh import build_bvh as jax_build_bvh
 from complex_materials_renderer_tpu.kernels import intersect as jintersect
 from complex_materials_renderer_tpu.kernels.traverse import _trace_closest_bvh as jax_trace_bvh
 from complex_materials_renderer_tpu.kernels.traverse import device_bvh as jax_device_bvh
-from complex_materials_renderer_tpu_torch.accel.bvh import build_bvh
+from complex_materials_renderer_tpu_torch.accel.bvh import _build_bvh_python, build_bvh
 from complex_materials_renderer_tpu_torch.config import RenderOptions
 from complex_materials_renderer_tpu_torch.kernels import intersect, traverse
 from complex_materials_renderer_tpu_torch.scene import load_scene
@@ -50,22 +53,37 @@ def _showcase_tris():
     return load_scene(obj, RenderOptions(obj_path=obj, device="cpu")).triangles
 
 
-@pytest.mark.parametrize("leaf_size", [1, 4, 8])
-@pytest.mark.parametrize("which", ["random", "degenerate", "showcase"])
-def test_build_bvh_byte_equal(which, leaf_size):
+def _bvh_case(which, leaf_size):
     if which == "random":
-        tris = _random_tris(333, seed=leaf_size)
-    elif which == "degenerate":
+        return _random_tris(333, seed=leaf_size)
+    if which == "degenerate":
         # Coincident centroids: the median-split fallbacks.
-        tris = np.repeat(_random_tris(1, seed=5), 37, axis=0)
-    else:
-        tris = _showcase_tris()
-    a = build_bvh(tris, leaf_size=leaf_size)
-    b = jax_build_bvh(tris, leaf_size=leaf_size)
+        return np.repeat(_random_tris(1, seed=5), 37, axis=0)
+    return _showcase_tris()
+
+
+def _same_tree(a, b):
     for name in ("bmin", "bmax", "left", "count", "miss", "tri_order"):
         x, y = getattr(a, name), getattr(b, name)
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert x.tobytes() == y.tobytes(), name
+
+
+@pytest.mark.parametrize("leaf_size", [1, 4, 8])
+@pytest.mark.parametrize("which", ["random", "degenerate", "showcase"])
+def test_build_bvh_byte_equal(which, leaf_size):
+    """The numpy builders of both packages (the CMR_NO_NATIVE path)."""
+    tris = _bvh_case(which, leaf_size)
+    _same_tree(_build_bvh_python(tris, leaf_size=leaf_size),
+               jax_build_bvh_python(tris, leaf_size=leaf_size))
+
+
+@pytest.mark.parametrize("leaf_size", [1, 4, 8])
+@pytest.mark.parametrize("which", ["random", "degenerate", "showcase"])
+def test_build_bvh_native_byte_equal(which, leaf_size):
+    """The C++ builders of both packages, as their renderers call them."""
+    tris = _bvh_case(which, leaf_size)
+    _same_tree(build_bvh(tris, leaf_size=leaf_size), jax_build_bvh(tris, leaf_size=leaf_size))
 
 
 def _both_bvhs(tris, leaf_size):

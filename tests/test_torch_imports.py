@@ -47,7 +47,7 @@ for name in ("render.integrator", "render.aov", "kernels.traverse", "kernels.clu
              "ops.medium", "kernels.binned_trace", "kernels.pairsweep", "render.binnedrender",
              "render.pairrender", "parallel", "parallel.sharding", "parallel.multihost",
              "tools", "tools.compare", "tools.goldens", "tools.make_scenes",
-             "tools.make_showcase", "tools.mat_parser"):
+             "tools.make_showcase", "tools.mat_parser", "native"):
     assert f"{pkg.__name__}.{name}" in names, name
 print(len(names))
 """
@@ -62,8 +62,8 @@ def test_port_imports_no_jax():
     # Every module of the port was imported, the wavefront, binned and pair
     # engines, the AOVs, the BVH backend, the wrappers of the closest-hit,
     # listing, round and sweep kernels, the sharding and multi-process
-    # modules and the tools among them.
-    assert int(proc.stdout.split()[-1]) >= 51
+    # modules, the tools and the host library's bindings among them.
+    assert int(proc.stdout.split()[-1]) >= 52
 
 
 def _no_card(monkeypatch):
