@@ -143,6 +143,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    a fresh interpreter; and the BVH
    walk over the C++ and the numpy tree of the 4 x 4 tiling on 65,536
    camera rays, equal in prim and t;
+5f. drives the default command at its full size: ``python -m`` of the
+   package with ``-o`` alone in a fresh interpreter (showcase 1920x1080,
+   256 spp, parity, depth 32, the default engine), its phases, wall time
+   and the card memory it took (``nvidia-smi`` sampled beside it), the
+   .hdr 1920x1080 and finite; then in this process the first, a middle
+   and the last (26-row) row block rendered again as the single-device
+   loop renders them (RGBE equal to the .hdr's rows byte for byte, the
+   peak allocation printed); 256 pixels spread over the frame (every
+   block's first and last row, the last block, partial-tile rows)
+   through ``render_pixels_mega`` on the card, every sample each, RGBE
+   byte-equal to the .hdr's pixels, and 64
+   of them through the plain K1 on the host CPU (eight processes) against
+   the card's under the golden gate's rule; the same render at 16 spp
+   with every launch count set to 0 just before: its passes must be the
+   schedule's 32, printed beside the sample steps and K1's launches; and
+   that render at 8 samples a pass with ``--checkpoint``, stopped by its
+   save hook after 15 saves (in the middle of a row block) and resumed by
+   a new Renderer: bit-equal to it uninterrupted, the file removed;
+5g. renders isobox, gembox and vessel (BASELINE configs 2-4) through the
+   default engine against their goldens at 64x64 with 2 spp under the
+   gate, then each and showcase at 256x256 with 8 spp, counter RNG, one
+   warm and one timed render (bench.py's), with K1's launches per sample
+   step;
 6. times K1, K3, K4, K5 and K6 with CUDA events at their widest launches
    on their paths (65,536 lanes: K1 one bounce, K3 and K4 the closest
    trace of the primary rays, K5 its first round, K6 the pair engine's
@@ -181,6 +204,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and narrowest launch at every G;
 7. prints its command time, a ``{"host_runtime": {...}}`` line (the
    CLI's phase tables, the BVH build times, the card and the host CPU), a
+   ``{"default_workload": {...}}`` line (5f's and 5g's numbers), a
    ``{"kernels": [...]}`` line (one K1 row
    that names its ablation instances; K4 in two rows: showcase's
    renders with the walk the rule launches there, and the tile walk on
@@ -195,11 +219,17 @@ K3, K4 (both scenes, and the few-super tilings), K5 and K6 launch tables
 of phase 6 and the timed main-path render of phase 4, times the main path at 2^16, 2^17 and 2^18 lanes a
 pass (``LANES_PER_PASS``, which ``CMR_LANES_PER_PASS`` sets), and exits 4;
 ``--profile`` adds a torch.profiler breakdown of one pass of each engine.
+``--workload`` builds, runs only 5f and 5g, and exits 4. ``--default-ab``
+builds, runs 5f's command without and with its memory sampler in turns
+(twice each), then the same render in the process with every pass timed
+and the card's SM clock, power and temperature read every 64 passes, and
+exits 4.
 ``--cards`` (a host with an even number of cards, at least 2) builds and
 drives only what needs several cards: the Renderer's sharded band loop
 (``--shard auto``, one tile a card, the cards in turn) against
 ``--shard none`` on showcase 512x512 at 16 spp, parity bit-equal and
 counter within atol 1e-6, each timed after a warm-up with K1's launches;
+showcase at 1920x1080 with 16 spp in counter the same way, bit-equal;
 then a two-process NCCL ``render_multihost`` (a file store; each process
 holds half the cards; 2 x (cards / 2) in counter, the 'sample' axis
 across the processes) whose image, on both processes, must equal
@@ -2208,6 +2238,478 @@ def bvh_host_path():
     return out
 
 
+# The default workload (phase 5f): the reference's default command at its
+# full size, and the hermetic acceptance scenes at their sizes (5g).
+DEFAULT_SIZE = (1920, 1080, 256)  # config.py's width, height and samples per pixel
+DEFAULT_COUNTED_SPP = 16  # samples of the in-process renders that count launches
+DEFAULT_PIXELS = 256  # pixels recomputed on the card, every sample each
+PLAIN_PIXELS = 64  # of them recomputed on the host CPU through the plain K1
+PLAIN_WORKERS = 8  # processes of that recomputation (its cost follows the live lanes)
+PIXEL_SEED = 10
+RGBE_REL = 2.0 ** -8  # RGBE's quantisation, relative to a pixel's largest channel
+CARD_STATE_EVERY = 64  # passes between the --default-ab run's card-state reads
+CHECKPOINT_CHUNK = 8  # samples a pass of the checkpointed render: two passes a row block
+CHECKPOINT_STOP = 15  # saves (passes) before it is stopped: in the middle of a row block
+ACCEPTANCE = ("isobox", "gembox", "vessel")  # BASELINE configs 2-4
+BENCH_SIZE = (256, 256, 8)  # bench.py's size of them: counter RNG, a warm and a timed render
+
+
+class counted_calls:
+    """Counts the calls of ``module.name`` (each with its keyword
+    arguments) while the block runs: the passes of the single-device
+    loop (``render_beauty_mega``) or the megarender pass loop's sample steps
+    (the pass loops that ``_make_advance`` builds)."""
+
+    def __init__(self, module, name, wrap_result=False):
+        self.module, self.name, self.wrap_result = module, name, wrap_result
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            if not self.wrap_result:
+                self.calls.append(kw)
+                return orig(*a, **kw)
+            inner = orig(*a, **kw)
+
+            def step(*a2, **kw2):
+                self.calls.append(kw2)
+                return inner(*a2, **kw2)
+            return step
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def memory_used_mib() -> int:
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    return int(out.stdout.split()[0])
+
+
+def default_command(tmp, sample_memory=True):
+    """``python -m <package> -o <tmp>/default`` in a fresh process, the
+    user's command with no other argument, with ``nvidia-smi`` sampling
+    the card's memory beside it unless ``sample_memory`` is false. Returns
+    (its phases in ms with its wall time, the card's memory in use in MiB
+    just before it and at its peak, the decoded image)."""
+    from complex_materials_renderer_tpu_torch.io import read_hdr
+
+    out = os.path.join(tmp, "default")
+    base = memory_used_mib()
+    sampler = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+                                "--format=csv,noheader,nounits", "-lms", "250"],
+                               stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                               text=True) if sample_memory else None
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", PACKAGE, "-o", out], cwd=REPO,
+                              capture_output=True, text=True, timeout=1000)
+        wall = time.perf_counter() - t0
+    finally:
+        samples = ""
+        if sampler is not None:
+            sampler.terminate()
+            samples = sampler.communicate(timeout=60)[0]
+    if proc.returncode != 0:
+        fail(f"python -m {PACKAGE} -o {out} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    used = [int(x) for x in samples.split() if x.isdigit()]
+    phases = {**cli_phases(proc.stdout), "wall": wall * 1e3}
+    img = read_hdr(out + ".hdr")
+    print("   " + "\n   ".join(proc.stdout.strip().splitlines()), flush=True)
+    w, h, _ = DEFAULT_SIZE
+    if img.shape != (h, w, 3) or not np.isfinite(img).all():
+        fail(f"the default command wrote a {img.shape} image, or one not finite")
+    return phases, (base, max(used + [base])), img
+
+
+def row_blocks_check(r, rgbe):
+    """The first, a middle and the last row block of the frame rendered
+    again in this process as the single-device loop renders them (its
+    tile renderer, the chunks in sample order with the parity state
+    carried, the float32 weights); their RGBE encoding must equal the
+    same rows of the command's .hdr byte for byte. Returns the peak of
+    what they allocate on the device, in MiB."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe
+    from complex_materials_renderer_tpu_torch.renderer import (
+        _auto_row_chunk,
+        _auto_sample_chunk,
+    )
+
+    opt = r.options
+    rows, chunk = _auto_row_chunk(opt.width), _auto_sample_chunk(opt.width, opt.height)
+    starts = list(range(0, opt.height, rows))
+    beauty_fn = r._beauty_fn()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # this process's earlier tensors
+    for row0 in (starts[0], starts[len(starts) // 2], starts[-1]):
+        tile_h = min(rows, opt.height - row0)
+        acc = np.zeros((tile_h, opt.width, 3), np.float32)
+        rng_state, done = None, 0
+        t0 = time.perf_counter()
+        while done < opt.num_samples:
+            n = min(chunk, opt.num_samples - done)
+            img, rng_state = beauty_fn(
+                r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, tile_h), n,
+                max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                nee_max_media=opt.nee_max_media, rng_mode=opt.rng, row_offset=row0,
+                full_resolution=(opt.width, opt.height), sample_offset=done,
+                rng_state=rng_state, return_rng=True,
+            )
+            acc += img.cpu().numpy() * np.float32(n / opt.num_samples)
+            done += n
+        dt = time.perf_counter() - t0
+        same = bool(np.array_equal(float_to_rgbe(acc), rgbe[row0:row0 + tile_h]))
+        print(f"   row block {row0 // rows} (rows {row0}-{row0 + tile_h - 1}): {done // chunk} "
+              f"passes of {chunk} samples in {dt:.3f} s; RGBE equal to the .hdr's rows "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"row block at row {row0} rendered in process differs from the .hdr")
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def check_pixel_list(width, height, rows):
+    """DEFAULT_PIXELS (x, y) pixels spread over the frame: every row
+    block's first and last row, every row of the last block, the partial
+    tile rows (32 and 33) of every fourth 34-row block, then rows drawn
+    from PIXEL_SEED; the columns drawn from it, the first two 0 and
+    width - 1."""
+    rs = np.random.default_rng(PIXEL_SEED)
+    starts = list(range(0, height, rows))
+    ys = [y for s in starts for y in (s, min(s + rows, height) - 1)]
+    ys += list(range(starts[-1], height))
+    ys += [s + k for s in starts[:-1:4] for k in (32, 33) if s + k < min(s + rows, height)]
+    ys += rs.integers(0, height, DEFAULT_PIXELS - len(ys)).tolist()
+    xs = rs.integers(0, width, DEFAULT_PIXELS)
+    xs[:2] = (0, width - 1)
+    return np.stack([xs, np.asarray(ys[:DEFAULT_PIXELS])], -1).astype(np.int64)
+
+
+def pixel_values(r, pix):
+    """Every sample of each pixel of ``pix`` through ``render_pixels_mega``
+    on ``r``'s device, in the loop's chunks (the parity state carried,
+    each chunk weighted as the loop weights it): (N, 3) float32."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import _auto_sample_chunk, _engine_knobs
+
+    opt = r.options
+    chunk = _auto_sample_chunk(opt.width, opt.height)
+    acc = np.zeros((len(pix), 3), np.float32)
+    rng_state, done = None, 0
+    while done < opt.num_samples:
+        n = min(chunk, opt.num_samples - done)
+        img, rng_state = mr.render_pixels_mega(
+            r.camera, r.scene_arrays, r.accel, r.lights, torch.from_numpy(pix), n,
+            (opt.width, opt.height), max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+            nee_max_media=opt.nee_max_media, rng_state=rng_state, return_rng=True, tir=opt.tir,
+            direct=opt.direct, **_engine_knobs("mega"))
+        acc += img.cpu().numpy() * np.float32(n / opt.num_samples)
+        done += n
+    return acc
+
+
+def plain_pixels_worker(pix, size):
+    """One process of the host CPU's recomputation: ``pix`` through the
+    plain K1 on a CPU renderer of showcase at ``size`` (width, height,
+    samples), the default engine's path, one thread."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    torch.set_num_threads(1)
+    r = Renderer(*showcase_options(*size, device="cpu", backend="cluster", engine="mega"))
+    return pixel_values(r, pix)
+
+
+def pixels_check(r, img, rgbe):
+    """DEFAULT_PIXELS pixels recomputed on the card, every sample each,
+    against the command's decoded .hdr (within RGBE's quantisation), and
+    PLAIN_PIXELS of them through the plain K1 on the host CPU against the
+    card's (the golden gate's rule)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe
+    from complex_materials_renderer_tpu_torch.renderer import _auto_row_chunk
+
+    opt = r.options
+    pix = check_pixel_list(opt.width, opt.height, _auto_row_chunk(opt.width))
+    with uncounted():
+        card, t_card = timed_render(lambda: pixel_values(r, pix))
+    hdr = img[pix[:, 1], pix[:, 0]]
+    scale = card.max(-1)
+    rel = float((np.abs(hdr - card).max(-1) / np.maximum(scale, 1e-30)).max())
+    same = int((float_to_rgbe(card) == rgbe[pix[:, 1], pix[:, 0]]).all(-1).sum())
+    print(f"   {len(pix)} pixels ({len(set(pix[:, 1].tolist()))} rows) through "
+          f"render_pixels_mega on the card, {opt.num_samples} samples each, in {t_card:.3f} s: "
+          f"RGBE bytes equal to the .hdr's on {same} of {len(pix)} (the gate); largest "
+          f"error against the decoded .hdr {rel:.3e} of the pixel's largest channel (RGBE's "
+          f"quantisation 2^-8 = {RGBE_REL:.3e})", flush=True)
+    if not np.isfinite(card).all() or same != len(pix):
+        fail("pixels recomputed on the card are not the .hdr's RGBE bytes")
+
+    sub = pix[::len(pix) // PLAIN_PIXELS][:PLAIN_PIXELS]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as ex:
+        size = (opt.width, opt.height, opt.num_samples)
+        plain = np.concatenate(list(ex.map(plain_pixels_worker,
+                                           np.array_split(sub, PLAIN_WORKERS),
+                                           [size] * PLAIN_WORKERS)))
+    t_plain = time.perf_counter() - t0
+    ref = card[::len(pix) // PLAIN_PIXELS][:PLAIN_PIXELS]
+    nonflip, flips = flip_gate(plain[:, None], ref[:, None])
+    budget = max(1, int(WAVEFRONT_FLIP_FRAC * PLAIN_PIXELS))
+    print(f"   {PLAIN_PIXELS} of them through the plain K1 on the host CPU ({PLAIN_WORKERS} "
+          f"processes, {cpu_model()}), {opt.num_samples} samples each, in {t_plain:.1f} s: "
+          f"against the card's non-flip RMSE {nonflip:.3e} (limit 1e-3), flip pixels {flips} "
+          f"(budget {budget}), largest difference {float(np.abs(plain - ref).max()):.3e}",
+          flush=True)
+    if not (nonflip <= 1e-3 and flips <= budget):
+        fail("the plain K1's pixels differ from the card's beyond the golden gate's rule")
+    return {"card_s": t_card, "plain_s": t_plain, "rgbe_rel": rel, "rgbe_equal": same,
+            "plain_nonflip_rmse": nonflip, "plain_flips": flips}
+
+
+def counted_render(scene, opt):
+    """The default workload at DEFAULT_COUNTED_SPP samples in this process
+    with every launch count set to 0 just before: (image, seconds, the
+    loop's calls, K1 launches, sample steps)."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    r = Renderer(scene, dataclasses.replace(opt, num_samples=DEFAULT_COUNTED_SPP))
+    reset_launch_counts()
+    with counted_calls(mr, "render_beauty_mega") as passes, \
+            counted_calls(mr, "_make_advance", wrap_result=True) as steps:
+        img, dt = timed_render(r.render)
+    return img, dt, passes.calls, launch_counts()["K1"], len(steps.calls)
+
+
+def checkpoint_check(scene, opt, blocks, tmp):
+    """The DEFAULT_COUNTED_SPP render at CHECKPOINT_CHUNK samples a pass
+    with a checkpoint, stopped by its save hook after CHECKPOINT_STOP saves
+    (in the middle of a row block, so the resume starts from the saved RNG
+    state), then resumed by a new Renderer through the passes left:
+    bit-equal to the uninterrupted render at the same options, the file
+    gone."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    class Stopped(Exception):
+        pass
+
+    opt = dataclasses.replace(opt, num_samples=DEFAULT_COUNTED_SPP,
+                              sample_chunk=CHECKPOINT_CHUNK)
+    resumed_passes = blocks * (DEFAULT_COUNTED_SPP // CHECKPOINT_CHUNK) - CHECKPOINT_STOP
+    with uncounted():
+        want = Renderer(scene, opt).render()
+    path = os.path.join(tmp, "default.ckpt.npz")
+    first = Renderer(scene, opt)
+    saves = []
+    save = first._save_checkpoint
+
+    def stopping_save(*a):
+        save(*a)
+        saves.append(dict(a[4]))  # done_rows
+        if len(saves) == CHECKPOINT_STOP:
+            raise Stopped
+
+    first._save_checkpoint = stopping_save
+    try:
+        with uncounted():
+            first.render(checkpoint_path=path)
+    except Stopped:
+        pass
+    else:
+        fail("the checkpointed render was not stopped by its save hook")
+    if not os.path.exists(path):
+        fail("no checkpoint file after the stop")
+    with uncounted(), counted_calls(mr, "render_beauty_mega") as passes:
+        img, dt = timed_render(lambda: Renderer(scene, opt).render(checkpoint_path=path))
+    equal = bool(np.array_equal(img, want))
+    gone = not os.path.exists(path)
+    done = saves[-1]
+    full_blocks = sum(d == opt.num_samples for d in done.values())
+    partial = {row: d for row, d in done.items() if d < opt.num_samples}
+    print(f"   --checkpoint at {opt.width}x{opt.height}@{opt.num_samples}, {opt.sample_chunk} "
+          f"samples a pass: stopped after {len(saves)} saves ({full_blocks} row blocks done, "
+          f"samples done in the next {partial}), resumed by a new Renderer "
+          f"in {dt:.3f} s through {len(passes.calls)} passes (the rest: {resumed_passes}); "
+          f"bit-equal to the uninterrupted render {equal}; checkpoint removed {gone}",
+          flush=True)
+    if len(passes.calls) != resumed_passes:
+        fail(f"the resumed render made {len(passes.calls)} passes, not the {resumed_passes} "
+             "left after the stop")
+    if not partial:
+        fail("the checkpointed render was not stopped in the middle of a row block")
+    if not (equal and gone):
+        fail("the resumed render differs from the uninterrupted one, or left its checkpoint")
+
+
+def card_state():
+    """The first card's SM clock, power draw and temperature (one
+    ``nvidia-smi`` query)."""
+    return subprocess.run(["nvidia-smi", "-i", "0",
+                           "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def default_ab(smi):
+    """``--default-ab``: the default command without and with the memory
+    sampler in turns (twice each), then the same render in this process
+    (no sampler) with every pass timed and the card's clock, power and
+    temperature read every CARD_STATE_EVERY passes: where the command's
+    render phase loses to the 16-spp in-process render."""
+    import tempfile
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer, _auto_sample_chunk
+
+    w, h, spp = DEFAULT_SIZE
+    paths = w * h * spp
+    with tempfile.TemporaryDirectory() as tmp:
+        for sampled in (False, True, False, True):
+            phases, (base, peak), _ = default_command(tmp, sample_memory=sampled)
+            print(f"   python -m {PACKAGE}, sampler {'on' if sampled else 'off'}: render "
+                  f"{phases['render'] / 1e3:.3f} s = {paths / phases['render'] * 1e3 / 1e6:.4f} "
+                  f"Mpaths/s; wall {phases['wall'] / 1e3:.3f} s"
+                  + (f"; card memory {base} -> {peak} MiB" if sampled else ""), flush=True)
+    scene, opt = showcase_options(w, h, spp)
+    r = Renderer(scene, opt)
+    stamps, states = [], []
+    with counted_calls(mr, "render_beauty_mega") as passes:
+        orig = mr.render_beauty_mega
+
+        def stamped(*a, **kw):
+            if len(stamps) % CARD_STATE_EVERY == 0:
+                states.append(card_state())
+            stamps.append(time.perf_counter())
+            return orig(*a, **kw)
+        mr.render_beauty_mega = stamped
+        img, dt = timed_render(r.render)
+    stamps.append(time.perf_counter())
+    ms = np.diff(stamps) * 1e3
+    per = spp // _auto_sample_chunk(w, h)
+    blocks = ms.reshape(-1, per).sum(1) if ms.size % per == 0 else ms
+    print(f"   in process, sampler off: {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s over "
+          f"{len(passes.calls)} passes; a pass {np.median(ms):.2f} ms median, first block "
+          f"{blocks[0]:.1f} ms, blocks 1-{len(blocks) - 1} {blocks[1:].min():.1f}-"
+          f"{blocks[1:].max():.1f} ms, "
+          f"first half {ms[:ms.size // 2].sum() / 1e3:.3f} s, second half "
+          f"{ms[ms.size // 2:].sum() / 1e3:.3f} s; image mean {float(img.mean()):.6f} ({smi}; "
+          f"host CPU {cpu_model()})", flush=True)
+    print(f"   card state (SM clock, power draw, temperature) every {CARD_STATE_EVERY} passes: "
+          + " | ".join(states), flush=True)
+
+
+def default_workload(smi):
+    """Phase 5f: the default command at its full size, its pixels checked
+    three ways, its launches against the schedule, and --checkpoint."""
+    import tempfile
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe
+    from complex_materials_renderer_tpu_torch.renderer import (
+        Renderer,
+        _auto_row_chunk,
+        _auto_sample_chunk,
+    )
+
+    w, h, spp = DEFAULT_SIZE
+    rows, chunk = _auto_row_chunk(w), _auto_sample_chunk(w, h)
+    blocks = -(-h // rows)
+    paths = w * h * spp
+    scene, opt = showcase_options(w, h, spp)
+    print(f"   the schedule: {blocks} row blocks of {rows} rows (the last "
+          f"{h - (blocks - 1) * rows}), {chunk} samples a pass: {blocks * (-(-spp // chunk))} "
+          f"passes, {paths} paths", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        phases, (mem_base, mem_peak), img = default_command(tmp)
+        mem_mib = mem_peak - mem_base
+        render_s = phases["render"] / 1e3
+        print(f"   python -m {PACKAGE} (showcase {w}x{h}@{spp}, parity, depth {opt.max_depth}, "
+              f"defaults): render {render_s:.3f} s = {paths / render_s / 1e6:.4f} Mpaths/s; "
+              f"wall {phases['wall'] / 1e3:.3f} s; card memory in use (nvidia-smi, sampled "
+              f"every 250 ms) {mem_base} MiB before it, {mem_peak} MiB at its peak: "
+              f"{mem_mib} MiB taken; image mean {float(img.mean()):.6f} ({smi}; host CPU "
+              f"{cpu_model()})", flush=True)
+        rgbe = float_to_rgbe(img)
+        r = Renderer(scene, opt)
+        peak_mib = row_blocks_check(r, rgbe)
+        print(f"   peak device allocation of those row blocks "
+              f"(torch.cuda.max_memory_allocated above what this process held before) "
+              f"{peak_mib:.1f} MiB", flush=True)
+        pixels = pixels_check(r, img, rgbe)
+
+        small, dt, calls, launches, steps = counted_render(scene, opt)
+        want_passes = blocks * (-(-DEFAULT_COUNTED_SPP // chunk))
+        print(f"   in process at {DEFAULT_COUNTED_SPP} spp (launch counts set to 0 just "
+              f"before): {dt:.3f} s = {w * h * DEFAULT_COUNTED_SPP / dt / 1e6:.4f} Mpaths/s; "
+              f"passes {len(calls)} (the schedule's {want_passes}), rows "
+              f"{sorted({c.get('row_offset') for c in calls})[:3]}...; sample steps {steps}; "
+              f"K1 launches {launches} ({launches / max(steps, 1):.2f} a sample step); at "
+              f"{spp} spp the schedule runs {spp // DEFAULT_COUNTED_SPP} times the passes",
+              flush=True)
+        if len(calls) != want_passes or launches <= 0:
+            fail(f"the {DEFAULT_COUNTED_SPP}-spp render made {len(calls)} passes and "
+                 f"{launches} K1 launches; the schedule has {want_passes} passes")
+        if small.shape != (h, w, 3) or not np.isfinite(small).all():
+            fail("the in-process render is not finite or has the wrong shape")
+        checkpoint_check(scene, opt, blocks, tmp)
+    return {"card": smi, "cpu": cpu_model(), "render_s": render_s,
+            "mpaths_s": paths / render_s / 1e6, "cli_ms": phases, "card_memory_mib": mem_mib,
+            "card_memory_before_mib": mem_base,
+            "peak_allocated_mib": peak_mib, "passes": blocks * (-(-spp // chunk)),
+            "counted_spp": DEFAULT_COUNTED_SPP, "counted_passes": len(calls),
+            "counted_steps": steps, "k1_launches": launches, "counted_s": dt, **pixels}
+
+
+def acceptance_scenes(smi):
+    """Phase 5g: BASELINE configs 2-4 through the default engine: their
+    goldens at 64x64@2 under the flip gate, then each (and showcase) at
+    bench.py's size, counter RNG, one warm and one timed render with K1's
+    launches and sample steps counted from 0."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    for name in ACCEPTANCE:
+        golden_gate(name=name, golden=name, size=64, spp=2)
+    w, h, spp = BENCH_SIZE
+    out = {}
+    for name in ("showcase",) + ACCEPTANCE:
+        scene, opt = showcase_options(w, h, spp, obj=name, rng="counter", shard="none")
+        r = Renderer(scene, opt)
+        with uncounted():
+            r.render()  # warm-up
+        reset_launch_counts()
+        with counted_calls(mr, "_make_advance", wrap_result=True) as steps:
+            img, dt = timed_render(r.render)
+        launches = launch_counts()["K1"]
+        n = len(steps.calls)
+        print(f"   {name} {w}x{h}@{spp} counter ({r.accel.num_clusters} clusters): {dt:.4f} s = "
+              f"{w * h * spp / dt / 1e6:.4f} Mpaths/s; K1 launches {launches} over {n} sample "
+              f"steps ({launches / max(n, 1):.2f} a step); image mean {float(np.mean(img)):.6f} "
+              f"({smi})", flush=True)
+        if launches <= 0 or not np.isfinite(img).all():
+            fail(f"{name} at {w}x{h}@{spp} launched K1 no time or is not finite")
+        out[name] = {"s": dt, "mpaths_s": w * h * spp / dt / 1e6, "k1_launches": launches,
+                     "steps": n}
+    return out
+
+
 def cards_path():
     """--cards: the sharded Renderer over every card against one card, and
     a two-process NCCL render_multihost (see the module's docstring)."""
@@ -2253,6 +2755,8 @@ def cards_path():
         if sharded.shape != single.shape or not np.isfinite(sharded).all() or not ok:
             fail(f"--shard auto over {n} cards ({rng}) differs from --shard none")
 
+    cards_default_size(n)
+
     r = Renderer(scene, dataclasses.replace(opt, num_samples=CARDS_MULTIHOST_SPP, rng="counter"))
     objs = (r.camera, r.scene_arrays, r.accel, r.lights)
     kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
@@ -2292,6 +2796,29 @@ def cards_path():
           flush=True)
     if not all(equal):
         fail("the two-process render_multihost differs from render_beauty_sharded")
+
+
+def cards_default_size(n):
+    """--cards: showcase at the default 1920x1080, CARDS_SPP samples,
+    counter RNG (BASELINE config 5's layout at fewer samples): ``--shard
+    auto`` over the ``n`` cards against ``--shard none`` on one, bit for
+    bit, both timed."""
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    w, h, _ = DEFAULT_SIZE
+    scene, opt = showcase_options(w, h, CARDS_SPP, rng="counter")
+    paths = w * h * CARDS_SPP
+    single, t_single = timed_render(Renderer(scene, dataclasses.replace(opt, shard="none")).render)
+    reset_launch_counts()
+    sharded, t_sharded = timed_render(Renderer(scene, dataclasses.replace(opt, shard="auto")).render)
+    launches = launch_counts()["K1"]
+    err = float(np.abs(sharded - single).max())
+    print(f"   Renderer showcase {w}x{h}@{CARDS_SPP} counter: --shard auto over {n} cards "
+          f"{t_sharded:.4f} s = {paths / t_sharded / 1e6:.4f} Mpaths/s; --shard none on cuda:0 "
+          f"{t_single:.4f} s = {paths / t_single / 1e6:.4f} Mpaths/s; K1 launches (sharded) "
+          f"{launches}; worst difference {err:.3e} (limit 0, bit-equal)", flush=True)
+    if launches <= 0 or sharded.shape != (h, w, 3) or not np.isfinite(sharded).all() or err:
+        fail(f"--shard auto over {n} cards at {w}x{h} differs from --shard none")
 
 
 def cards_worker(rank: int, store: str, out: str) -> int:
@@ -3049,6 +3576,12 @@ def main() -> int:
                     "the main path")
     ap.add_argument("--cards", action="store_true",
                     help="only build and drive the paths that need several cards")
+    ap.add_argument("--workload", action="store_true",
+                    help="only build and drive the default command at its full size and the "
+                    "acceptance scenes")
+    ap.add_argument("--default-ab", action="store_true",
+                    help="only build, run the default command without and with the memory "
+                    "sampler in turns, then in this process with every pass timed")
     ap.add_argument("--cards-worker", nargs=3, metavar=("RANK", "STORE", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3112,6 +3645,23 @@ def main() -> int:
         print("   " + "\n   ".join(nvidia_smi_line(every=True)), flush=True)
         cards_path()
         print("chip_smoke: --cards stops here", flush=True)
+        return 4  # nonzero: no result line is printed
+
+    if args.default_ab:
+        phase("the default command with and without the memory sampler, then in process")
+        default_ab(smi)
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
+        print("chip_smoke: --default-ab stops here", flush=True)
+        return 4  # nonzero: no result line is printed
+
+    if args.workload:
+        phase("default workload: python -m complex_materials_renderer_tpu_torch, showcase "
+              "1920x1080 @ 256 spp")
+        default_workload(smi)
+        phase("acceptance scenes: isobox, gembox, vessel")
+        acceptance_scenes(smi)
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
+        print("chip_smoke: --workload stops here", flush=True)
         return 4  # nonzero: no result line is printed
 
     main_opts = showcase_options(512, 512, 16)
@@ -3213,6 +3763,12 @@ def main() -> int:
     io_rows = host_io_times()
     bvh_rows = bvh_host_path()
 
+    phase("default workload: python -m complex_materials_renderer_tpu_torch, showcase "
+          "1920x1080 @ 256 spp")
+    workload = default_workload(smi)
+    phase("acceptance scenes: isobox, gembox, vessel")
+    workload["scenes"] = acceptance_scenes(smi)
+
     phase("kernel timing")
     ms, plain_ms, bound_ms, bound_by = time_kernel(r, media9, misc, base)
     ms_k3, plain_ms_k3, bound_ms_k3, bound_by_k3 = time_k3(r)
@@ -3241,6 +3797,7 @@ def main() -> int:
         "cli_ms": cli_runs, "cli_k1_launches": cli_launches, "host_io_ms": io_rows,
         "build_bvh": bvh_rows}}),
           flush=True)
+    print(json.dumps({"default_workload": workload}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined; its ablation instances "
                 f"launched beside the default: {', '.join(mk.ABLATION_SETS)})",

@@ -3,7 +3,9 @@
 Counterpart of complex_materials_renderer_tpu/parallel/multihost.py. The
 global mesh is the processes x their local shards: process p holds the
 global shards p * n_local ... (p + 1) * n_local - 1 of a ('sample',
-'tile') mesh laid out as in ``make_render_mesh``. Tracing is
+'tile') mesh laid out as in ``make_render_mesh``. That layout stands for
+the JAX package's ``make_global_render_mesh`` (its mesh over every
+device of the job), which has no function of its own here. Tracing is
 communication-free; each process renders its own shards, and one
 ``all_gather`` of equal-height padded bands (every process's shard
 images, after a small one that checks that every process holds as many

@@ -17,7 +17,10 @@ in 32x32 pixel tiles so neighbouring lanes trace neighbouring pixels.
 
 Per-lane RNG streams are those of the JAX package (same masked PCG draws,
 same counter seeds, same ld dimensions), so the images agree with it up to
-float rounding. Every function here is host control flow and PyTorch
+float rounding. ``render_pixels_mega``, which the JAX package lacks, runs
+the uniform parity pass over chosen pixels: the per-pixel check of a
+parity frame, which ``render_samples_mega`` (stateless modes only) cannot
+serve. Every function here is host control flow and PyTorch
 tensor glue; the per-pass kernel is ``trace_paths_mega``, or with
 ``trace_engine`` binned or pair the wavefront bounce loop over the binned
 tracer (render/binnedrender.py) or the pair sweep (render/pairrender.py).
@@ -148,6 +151,23 @@ def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr
         nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
         analytic_direct=(direct == "analytic"), ld=ld, debug=debug,
     )
+
+
+def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_media, rng_mode,
+                  tir, direct, schedule_mode, schedule, sortkey, debug, trace_engine,
+                  binned_list, binned_cap):
+    """The pass loop (``_make_advance``) of passes ``step`` lanes wide over
+    the selected engine's kernel, on the device of ``grid``."""
+    dev = grid.device
+    media9 = pack_media(scene.media, scene.scale, device=dev)
+    misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
+    kern = _make_kern(
+        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
+        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
+        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
+    )
+    return _make_advance(kern, _resolve_dynamic(schedule_mode, grid),
+                         _phase_schedule(step, max_depth, schedule), scene, sortkey, max_depth)
 
 
 def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
@@ -316,16 +336,37 @@ def _packed_passes(camera, pixel_xy, linear, step, num_samples, rng_mode,
         yield g, state._replace(alive=state.alive & val_lane), d0
 
 
+def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resolution):
+    """(radiance summed over ``num_samples`` samples, the next RNG words)
+    of one lane a pixel in parity mode: each sample's camera ray is drawn
+    from the pixel's stream, which the pass carries to the next sample.
+    The lanes are padded to whole blocks with dead lanes."""
+    dev = pixel_xy.device
+    r = pixel_xy.shape[0]
+    rp = -(-r // BLOCK) * BLOCK
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    # Pad lanes point at the bank's spill row r.
+    lane0 = torch.cat([
+        torch.arange(r, dtype=torch.int64, device=dev),
+        torch.full((rp - r,), r, dtype=torch.int64, device=dev),
+    ])
+    for _ in range(num_samples):
+        state = _pad_lanes(_camera_state(camera, pixel_xy, rng_t, full_resolution), rp)
+        rad_t, rng_t = advance(state, lane0, r)
+        acc = acc + rad_t
+    return acc, rng_t
+
+
 def first_pass_state(camera: Camera, resolution, num_samples: int, rng_mode: str = "parity",
-                     full_resolution=None):
+                     full_resolution=None, row_offset=0):
     """(state, ld dimension base) of the first kernel pass that
-    ``render_beauty_mega`` makes over a tile at the frame's origin: the
-    first sample of every pixel in parity mode, the first pixel group's
-    packed samples in the counter and ld modes."""
+    ``render_beauty_mega`` makes over a tile whose first row is the frame's
+    ``row_offset``: the first sample of every pixel in parity mode, the
+    first pixel group's packed samples in the counter and ld modes."""
     dev = camera.origin.device
     width, height = resolution
     full = tuple(full_resolution) if full_resolution else (width, height)
-    pixel_xy, linear, _ = _tile_lanes(width, height, 0, 0, full[0], dev)
+    pixel_xy, linear, _ = _tile_lanes(width, height, 0, row_offset, full[0], dev)
     step = _step_lanes(linear.shape[0], rng_mode)
     if rng_mode in ("counter", "ld"):
         _, state, d0 = next(_packed_passes(camera, pixel_xy, linear, step, num_samples,
@@ -381,19 +422,13 @@ def render_beauty_mega(
     full_w, full_h = full_resolution if full_resolution else (width, height)
     pixel_xy_t, linear_t, inv = _tile_lanes(width, height, pixel_offset, row_offset, full_w, dev)
     r = linear_t.shape[0]
-    rp = -(-r // BLOCK) * BLOCK  # lanes padded to whole blocks
     step = _step_lanes(r, rng_mode)
-
-    media9 = pack_media(scene.media, scene.scale, device=dev)
-    misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
-    dynamic = _resolve_dynamic(schedule_mode, grid)
-    sched = _phase_schedule(step, max_depth, schedule)
-    kern = _make_kern(
-        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
-        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
-        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
+    _advance = _pass_advance(
+        scene, grid, lights, step, max_depth=max_depth, rr_depth=rr_depth,
+        nee_max_media=nee_max_media, rng_mode=rng_mode, tir=tir, direct=direct,
+        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
+        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
     )
-    _advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
 
     if rng_mode in ("counter", "ld"):
         sg, pg = _sample_packing(step, num_samples)
@@ -416,17 +451,8 @@ def render_beauty_mega(
             if rng_state is not None
             else rng_ops.seed_from_pixel(linear_t)
         )
-        acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-        # Pad lanes point at the bank's spill row r.
-        lane0 = torch.cat([
-            torch.arange(r, dtype=torch.int64, device=dev),
-            torch.full((rp - r,), r, dtype=torch.int64, device=dev),
-        ])
-        for _ in range(num_samples):
-            state = _pad_lanes(_camera_state(camera, pixel_xy_t, rng_t, (full_w, full_h)), rp)
-            rad_t, rng_t = _advance(state, lane0, r)
-            acc = acc + rad_t
-        final_rng = rng_t
+        acc, final_rng = _parity_samples(_advance, camera, pixel_xy_t, rng_t, num_samples,
+                                         (full_w, full_h))
 
     img = acc[inv].reshape(height, width, 3) / float(num_samples)
     if return_rng:
@@ -491,16 +517,12 @@ def render_samples_mega(
         sample_idx = torch.cat([sample_idx, sample_idx.new_zeros((pad,))])
         valid = torch.cat([valid, valid.new_zeros((pad,))])
 
-    media9 = pack_media(scene.media, scene.scale, device=dev)
-    misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
-    dynamic = _resolve_dynamic(schedule_mode, grid)
-    sched = _phase_schedule(ch, max_depth, schedule)
-    kern = _make_kern(
-        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
-        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
-        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
+    advance = _pass_advance(
+        scene, grid, lights, ch, max_depth=max_depth, rr_depth=rr_depth,
+        nee_max_media=nee_max_media, rng_mode=rng_mode, tir=tir, direct=direct,
+        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
+        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
     )
-    advance = _make_advance(kern, dynamic, sched, scene, sortkey, max_depth)
 
     out = torch.zeros((n_steps * ch, 3), dtype=torch.float32, device=dev)
     lane = torch.arange(ch, dtype=torch.int64, device=dev)
@@ -520,3 +542,62 @@ def render_samples_mega(
         rad, _ = advance(state, lane, ch, dim0=d0)
         out[base:base + ch] = torch.where(val[:, None], rad, 0.0)
     return out[:n]
+
+
+def render_pixels_mega(
+    camera: Camera,
+    scene: SceneArrays,
+    grid: DeviceClusterGrid,
+    lights: Lights,
+    pixel_xy,
+    num_samples: int,
+    full_resolution,
+    max_depth: int = 32,
+    rr_depth: int = 16,
+    nee_max_media: int = 4,
+    rng_state=None,
+    return_rng=False,
+    tir: str = "reflect",
+    schedule_mode: str = "auto",
+    schedule: str = "",
+    sortkey: str = "dir",
+    debug: str = "",
+    trace_engine: str = "mega",
+    binned_list: int = 8,
+    binned_cap: int = 12,
+    direct: str = "scatter",
+):
+    """``num_samples`` parity samples of each of caller-chosen pixels: the
+    parity counterpart of ``render_samples_mega``, which the stateless
+    modes alone can serve by (pixel, sample) pairs.
+
+    ``pixel_xy`` (L, 2) integer full-frame pixel coordinates, one lane a
+    pixel, padded to whole blocks, all through the uniform parity pass's
+    sample loop at once. A pixel's stream
+    is seeded from its frame index, as ``render_beauty_mega`` seeds it, or
+    taken from ``rng_state`` (L,) (u32 words in int64) to carry it across
+    calls. Returns the (L, 3) float32 mean over this call's samples on the
+    device of ``grid`` (and with ``return_rng`` the next RNG words), so a
+    pixel's value is the one the uniform render of the frame gives it.
+    """
+    dev = grid.device
+    full_w, full_h = full_resolution
+    pixel_xy = torch.as_tensor(pixel_xy).to(dev, torch.int64)
+    n = pixel_xy.shape[0]
+    rng_t = (
+        rng_ops.to_u32(torch.as_tensor(rng_state).to(dev))
+        if rng_state is not None
+        else rng_ops.seed_from_pixel(pixel_xy[:, 1] * full_w + pixel_xy[:, 0])
+    )
+    advance = _pass_advance(
+        scene, grid, lights, -(-n // BLOCK) * BLOCK, max_depth=max_depth, rr_depth=rr_depth,
+        nee_max_media=nee_max_media, rng_mode="parity", tir=tir, direct=direct,
+        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
+        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
+    )
+    acc, next_rng = _parity_samples(advance, camera, pixel_xy, rng_t, num_samples,
+                                    (full_w, full_h))
+    img = acc / float(num_samples)
+    if return_rng:
+        return img, next_rng
+    return img

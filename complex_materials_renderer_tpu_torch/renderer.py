@@ -222,9 +222,6 @@ class Renderer:
         interrupted render resumes from it to the same image (the file is
         removed on completion).
         """
-        from .render.integrator import render_beauty
-        from .render.megarender import render_beauty_mega
-
         opt = self.options
         checkpoint_path = checkpoint_path or (opt.checkpoint or None)
         resolution = (opt.width, opt.height)
@@ -244,18 +241,7 @@ class Renderer:
         if opt.shard == "auto" and len(devices) > 1:
             return self._render_sharded(devices)
 
-        engine = self._resolve_engine()
-        if engine in ("mega", "binned", "pair"):
-            knobs = _engine_knobs(engine)
-            if (knobs["schedule_mode"] == "auto"
-                    and opt.width * opt.height * opt.num_samples < (1 << 18)):
-                # Preview-sized jobs take the dynamic mode, as in the JAX
-                # package (renderer.py:317-327).
-                knobs["schedule_mode"] = "all"
-            beauty_fn = partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
-        else:
-            beauty_fn = partial(render_beauty, tir=opt.tir, direct=opt.direct)
-
+        beauty_fn = self._beauty_fn()
         chunk = opt.sample_chunk or _auto_sample_chunk(opt.width, opt.height)
         chunk = max(1, min(chunk, opt.num_samples))
         rows = _auto_row_chunk(opt.width)
@@ -314,6 +300,24 @@ class Renderer:
         if checkpoint_path and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
         return acc
+
+    def _beauty_fn(self):
+        """The tile renderer the single-device loop calls each pass: the
+        megarender pass loop with the engine's knobs, or the wavefront loop."""
+        from .render.integrator import render_beauty
+        from .render.megarender import render_beauty_mega
+
+        opt = self.options
+        engine = self._resolve_engine()
+        if engine not in ("mega", "binned", "pair"):
+            return partial(render_beauty, tir=opt.tir, direct=opt.direct)
+        knobs = _engine_knobs(engine)
+        if (knobs["schedule_mode"] == "auto"
+                and opt.width * opt.height * opt.num_samples < (1 << 18)):
+            # Preview-sized jobs take the dynamic mode, as in the JAX
+            # package (renderer.py:317-327).
+            knobs["schedule_mode"] = "all"
+        return partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
 
     def _render_sharded(self, devices) -> np.ndarray:
         """The beauty pass in bands tile-sharded over ``devices``

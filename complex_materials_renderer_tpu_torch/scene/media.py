@@ -1,10 +1,13 @@
 """Companion .json scene/media parsing (counterpart of
-complex_materials_renderer_tpu/scene/media.py ``load_media_json``).
+complex_materials_renderer_tpu/scene/media.py ``load_media_json`` and
+``pack_media_buffer``).
 
 Replaces the reference's nlohmann::json scene load (model.cpp:44-105):
 a ``"scene"`` key overrides camera/look-at/fov/light/intensity/scale in the
 options (JSON wins over CLI-era defaults, model.cpp:54-79); every other
-key is a material-id -> medium record.
+key is a material-id -> medium record. ``pack_media_buffer`` gives the
+packed float stream the reference uploads (model.cpp:49: ``count,
+(matID, sigma_s.rgb, sigma_a.rgb, g.rgb, ior)*count``).
 """
 
 from __future__ import annotations
@@ -58,3 +61,24 @@ def load_media_json(path: str, options: RenderOptions) -> Tuple[MediaTable, Rend
     )
     return table, options
 
+
+
+def pack_media_buffer(path: str) -> np.ndarray:
+    """Reference-format packed media stream (model.cpp:49-103), float32.
+
+    The reference's count includes the ``"scene"`` entry (it pushes
+    ``data.size()`` before filtering, model.cpp:50); the buffer keeps that
+    count, as the JAX package's does.
+    """
+    with open(path, "r") as f:
+        data = json.load(f)
+    out: List[float] = [float(len(data))]
+    for key, value in data.items():
+        if key == "scene":
+            continue
+        out.append(float(key))
+        out.extend(float(x) for x in value["sigma_s"])
+        out.extend(float(x) for x in value["sigma_a"])
+        out.extend(float(x) for x in value["g"])
+        out.append(float(value["ior"]))
+    return np.asarray(out, np.float32)

@@ -45,7 +45,7 @@ def _golden_render(name, spp, golden_name=None, **extra):
     return img, ref
 
 
-@pytest.mark.parametrize("name", ["isobox", "gembox"])
+@pytest.mark.parametrize("name", ["isobox", "gembox", "vessel"])
 def test_golden_gate(name):
     img, ref = _golden_render(name, 2, backend="cluster", engine="mega")
     assert img.shape == ref.shape and img.dtype == np.float32
@@ -55,7 +55,7 @@ def test_golden_gate(name):
 
 @pytest.mark.parametrize("name,spp,backend", [
     ("isobox", 2, "bvh"), ("isobox", 2, "cluster"), ("gembox", 2, "cluster"),
-    ("showcase", 4, "cluster"),
+    ("vessel", 2, "cluster"), ("showcase", 4, "cluster"),
 ])
 def test_wavefront_golden_gate(name, spp, backend):
     """The goldens were rendered by the JAX wavefront engine on its BVH

@@ -3,6 +3,7 @@ parsing, scene loading, the cluster build and its device layout, and the
 .hdr writer give equal fields, arrays and bytes."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -14,12 +15,14 @@ from complex_materials_renderer_tpu.accel import clusters as jclusters
 from complex_materials_renderer_tpu.io import hdr as jhdr
 from complex_materials_renderer_tpu.kernels.pallas_trace import device_cluster_grid as jax_device_grid
 from complex_materials_renderer_tpu.scene import load_scene as jax_load_scene
+from complex_materials_renderer_tpu.scene import pack_media_buffer as jax_pack_media_buffer
 from complex_materials_renderer_tpu_torch import config as tconfig
 from complex_materials_renderer_tpu_torch import renderer as trenderer
 from complex_materials_renderer_tpu_torch.accel import clusters as tclusters
 from complex_materials_renderer_tpu_torch.io import hdr as thdr
 from complex_materials_renderer_tpu_torch.kernels.cluster_grid import device_cluster_grid
 from complex_materials_renderer_tpu_torch.scene import load_scene as torch_load_scene
+from complex_materials_renderer_tpu_torch.scene import pack_media_buffer
 
 from helpers import make_test_scene
 
@@ -86,6 +89,20 @@ def test_load_scene_matches(name):
         np.testing.assert_array_equal(np.asarray(fa), np.asarray(fb))
     assert list(a.material_names) == list(b.material_names)
     assert _fields(a.options, drop=()) == _fields(b.options)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_pack_media_buffer_bytes_equal(name):
+    """The reference's packed media stream (its count includes the
+    "scene" entry) is the JAX package's, byte for byte."""
+    path = os.path.join(REPO, "scenes", f"{name}.json")
+    a = jax_pack_media_buffer(path)
+    b = pack_media_buffer(path)
+    assert b.dtype == a.dtype == np.float32
+    assert b.tobytes() == a.tobytes()
+    with open(path) as f:
+        assert int(b[0]) == len(json.load(f))
+    assert b.size == 1 + 11 * (int(b[0]) - 1)
 
 
 def _scene_tris(name):
