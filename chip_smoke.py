@@ -74,11 +74,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    after (each K4 launch there must be the tile walk's);
 4. drives the main path: a default (megakernel) render of
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
-   through ``Renderer``, timed after one warm-up, with K1's launch count
-   and the G of its launches by width;
+   through ``Renderer``, timed after one warm-up (which captures the
+   pass's CUDA graphs), with K1's launch count (the K1 launches that the
+   graph replays ran, counted on the card by the control kernel) and the
+   G of the captured K1 launches by width;
    then the 64x64 at 32 spp render against tests/golden/showcase_gate.npz
    under the flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels
    with |diff| > 1e-2);
+4a. holds the mega pass as one device program (render/megarender.py
+   ``PassPlan`` captured as a CUDA graph, its loops conditional nodes)
+   bit-equal to the eager executor (the same steps driven from the host)
+   on the 512x512@16 render in parity, counter and ld, each also under
+   the forced schedule ``1:1,8:1,32:2`` (it spills in every phase), and on
+   the many-cluster scene at 256x256@4 in the dynamic modes all and
+   hybrid, each with the graph's K1 launches (counted on the card) equal
+   to the eager executor's; runs the main path's call once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the copy to the host
+   after it); holds K1 with the pass control block (32 live blocks, an ld
+   base past the Sobol table; then a run flag of 0) bit-equal to its
+   plain version with the same block, untouched beyond its live blocks,
+   and times its first launch with the block beside the host-int launch,
+   and 8 live blocks of the 65,536-lane launch beside the 8,192-lane
+   launch (the G the dynamic modes now take); holds the control kernel
+   equal to its plain version and times it beside an empty launch and
+   ``torch.count_nonzero``; times the default command's pass (1920x34@16)
+   on both executors in turns, with its capture time; and with
+   ``--profile`` profiles that pass on both (the card's busy share);
 4b. renders the main path under CMR_MEGA_DEBUG nofuse, ordered and
    carrywalk (exact walks), each timed after a warm-up, each of its K1
    launches from the token's library: the image within atol 1e-6 of the
@@ -205,7 +226,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 7. prints its command time, a ``{"host_runtime": {...}}`` line (the
    CLI's phase tables, the BVH build times, the card and the host CPU), a
    ``{"default_workload": {...}}`` line (5f's and 5g's numbers), a
-   ``{"kernels": [...]}`` line (one K1 row
+   ``{"pass_graph": {...}}`` line (4a's numbers), a
+   ``{"kernels": [...]}`` line (one K1 row, one row of the control kernel,
    that names its ablation instances; K4 in two rows: showcase's
    renders with the walk the rule launches there, and the tile walk on
    the many-cluster scene with the launches of its traces), the
@@ -336,32 +358,54 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} [at {time.perf_counter() - T_START:.1f} s]", flush=True)
+
+
+def device_counts() -> list:
+    """[K1 launches that ran, control launches] counted on the cards by
+    the graph replays (kernels/pass_control.py), summed over the cards."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    tot = [0, 0]
+    for d in pc.counted_devices():
+        a, b = pc.device_counts(d).tolist()
+        tot = [tot[0] + a, tot[1] + b]
+    return tot
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper to 0."""
+    """Set the launch count of every kernel wrapper, and the counts on the
+    cards, to 0."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     mk.trace_paths_mega.launches = 0
     ctr.trace_core.launches = 0
     bt.listing.launches = 0
     bt.run_round.launches = 0
     ps.sweep.launches = 0
+    pc.pass_control.launches = 0
+    for d in pc.counted_devices():
+        pc.device_counts(d).zero_()
 
 
 def launch_counts() -> dict:
-    """The launch count of every kernel wrapper."""
+    """The launch count of every kernel: K1's and the control kernel's
+    launched by their wrappers plus those that graph replays ran (counted
+    on the card)."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
-    return {"K1": mk.trace_paths_mega.launches, "K3": ctr.trace_core.launches,
-            "K4": bt.listing.launches, "K5": bt.run_round.launches, "K6": ps.sweep.launches}
+    on_card = device_counts()
+    return {"K1": mk.trace_paths_mega.launches + on_card[0], "K3": ctr.trace_core.launches,
+            "K4": bt.listing.launches, "K5": bt.run_round.launches, "K6": ps.sweep.launches,
+            "PC": pc.pass_control.launches + on_card[1]}
 
 
 class uncounted:
@@ -369,19 +413,28 @@ class uncounted:
     compare or time a kernel are not the main path's."""
 
     def __enter__(self):
+        from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+        from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
         self.saved = launch_counts()
+        self.host = (mk.trace_paths_mega.launches, pc.pass_control.launches)
+        self.cards = {d: pc.device_counts(d).clone() for d in pc.counted_devices()}
 
     def __exit__(self, *exc):
         from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
         from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
         from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
         from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+        from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
-        mk.trace_paths_mega.launches = self.saved["K1"]
+        mk.trace_paths_mega.launches, pc.pass_control.launches = self.host
         ctr.trace_core.launches = self.saved["K3"]
         bt.listing.launches = self.saved["K4"]
         bt.run_round.launches = self.saved["K5"]
         ps.sweep.launches = self.saved["K6"]
+        for d in pc.counted_devices():
+            pc.device_counts(d).copy_(self.cards[d]) if d in self.cards \
+                else pc.device_counts(d).zero_()
         return False
 
 
@@ -591,20 +644,20 @@ def main_path(r_opts):
     print(f"   accel build + upload {time.perf_counter() - t0:.3f} s; clusters "
           f"{r.accel.num_clusters}, supers {r.accel.num_supers}, width {r.accel.width}", flush=True)
     t0 = time.perf_counter()
-    r.render()  # warm-up
+    with recorded_groups(mk) as groups:  # the warm-up captures the graphs
+        r.render()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     reset_launch_counts()
     torch.cuda.synchronize()
-    with recorded_groups(mk) as groups:
-        t0 = time.perf_counter()
-        img = r.render()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    launches = mk.trace_paths_mega.launches
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()["K1"]
     paths = opt.width * opt.height * opt.num_samples
     mean = float(np.mean(img))
-    print(f"   K1 launches by width and threads per lane: {groups.line()}", flush=True)
+    print(f"   K1 nodes captured by width and threads per lane: {groups.line()}", flush=True)
     digest = hashlib.sha256(np.ascontiguousarray(img, np.float32).tobytes()).hexdigest()[:16]
     print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity: warm-up {warm:.3f} s, "
           f"timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K1 launches {launches}; "
@@ -613,7 +666,7 @@ def main_path(r_opts):
         fail("the main path launched the megakernel no time")
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         fail("main-path image is not finite or has the wrong shape")
-    return r, launches, img
+    return r, launches, img, launch_counts()["PC"]
 
 
 def flip_gate(img, ref):
@@ -928,15 +981,16 @@ def ablation_renders(main_opts, mega_img):
     for debug in mk.EXACT_ABLATIONS:
         os.environ["CMR_MEGA_DEBUG"] = debug
         try:
-            with uncounted():
-                r.render()  # warm-up
+            # The warm-up captures the graphs: the K1 library they launch is
+            # asked for then.
+            with uncounted(), requested_masks() as masks:
+                r.render()
             reset_launch_counts()
             torch.cuda.synchronize()
-            with requested_masks() as masks:
-                img, dt = timed_render(r.render)
+            img, dt = timed_render(r.render)
         finally:
             del os.environ["CMR_MEGA_DEBUG"]
-        launches = mk.trace_paths_mega.launches
+        launches = launch_counts()["K1"]
         diff = float(np.abs(np.asarray(img, np.float64) - np.asarray(mega_img, np.float64)).max())
         print(f"   {debug}: showcase {opt.width}x{opt.height}@{opt.num_samples} parity {dt:.3f} s "
               f"= {paths / dt / 1e6:.4f} Mpaths/s; K1 launches {launches}, all of mask "
@@ -946,6 +1000,304 @@ def ablation_renders(main_opts, mega_img):
             fail(f"the main path under {debug} did not run the {debug} instance of K1")
         if not diff <= ABLATION_ATOL:
             fail(f"the main path under {debug} is not the default image (max |diff| {diff:.3e})")
+
+
+GRAPH_SPILL = "1:1,8:1,32:2"  # a forced schedule that spills in every phase
+GRAPH_TILED = (256, 256, 4)  # the tiled scene's dynamic-mode comparison
+CONTROL_REPS = 200
+
+
+class executor_as:
+    """Makes the Renderer's calls of ``render_beauty_mega`` take
+    ``executor`` ('eager': the host loop the graph is compared with)."""
+
+    def __init__(self, executor):
+        self.executor = executor
+
+    def __enter__(self):
+        from functools import partial
+
+        from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+        self.mr, self.orig = mr, mr.render_beauty_mega
+        mr.render_beauty_mega = partial(self.orig, executor=self.executor)
+
+    def __exit__(self, *exc):
+        self.mr.render_beauty_mega = self.orig
+        return False
+
+
+def counted_k1(fn):
+    """(result, seconds, K1 launches: the wrappers' and those counted on
+    the card) of ``fn()``, the counts left as they were."""
+    with uncounted():
+        reset_launch_counts()
+        out, dt = timed_render(fn)
+        return out, dt, launch_counts()["K1"]
+
+
+def graph_against_eager(label, fn_eager, fn_graph):
+    """The graph executor's result bit-equal to the eager executor's, with
+    the same K1 launches (eager: the wrapper's count; graph: the count on
+    the card, of a replay after the capturing call); returns their times."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    eager, t_eager, n_eager = counted_k1(fn_eager)
+    n_cap = len(mr.captures)
+    _, t_first, _ = counted_k1(fn_graph)
+    captured = sum(s for _, s in mr.captures[n_cap:])
+    graph, t_graph, n_graph = counted_k1(fn_graph)
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    graph = graph if isinstance(graph, tuple) else (graph,)
+    equal = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                for a, b in zip(eager, graph))
+    print(f"   {label}: graph bit-equal to eager {equal}; K1 launches eager {n_eager}, graph "
+          f"(on the card) {n_graph}; eager {t_eager:.4f} s, graph {t_graph:.4f} s (first call "
+          f"{t_first:.4f} s, {len(mr.captures) - n_cap} captures {captured:.4f} s)", flush=True)
+    if not equal:
+        fail(f"{label}: the graph executor differs from the eager executor")
+    if n_graph != n_eager or n_graph <= 0:
+        fail(f"{label}: the graph ran {n_graph} K1 launches, the eager executor {n_eager}")
+    return t_eager, t_graph
+
+
+def k1_control_vs_plain(r, media9, misc, base):
+    """K1 with the control block against its plain version with the same
+    block on the card (65,536 fresh ld lanes, one bounce: 32 live blocks
+    and dim0 past the Sobol table's edge, then a run flag of 0), and K1's
+    first launch timed with the block beside the host-int launch; then a
+    launch over 8 live blocks at the full width's G against the 8,192-lane
+    launch's G (the dynamic modes' launches: the graph takes G from the
+    static width)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+    from complex_materials_renderer_tpu_torch.kernels.cluster_test import group_size
+
+    st = band_state(r, "ld")
+    n = st.org.shape[0]
+    kw = dict(base, max_iters=1, ld=True)
+    worst = 0.0
+    with uncounted():
+        for live, dim0, run in ((32, 5000, 1), (64, 2, 0)):
+            ctrl = pc.new_ctrl(st.org.device)
+            ctrl[:3] = torch.tensor([live, dim0, run], dtype=torch.int32)
+            got = mk.trace_paths_mega(r.accel, media9, misc, clone_state(st), ctrl=ctrl, **kw)
+            want = mk.trace_paths_mega_plain(r.accel, media9, misc, clone_state(st), ctrl=ctrl,
+                                             **kw)
+            torch.cuda.synchronize()
+            n_flip, err = compare_states(f"K1 with the control block (live_blocks {live}, dim0 "
+                                         f"{dim0}, run {run})", got, want)
+            kept = all(torch.equal(a[live * 1024 * run:], b[live * 1024 * run:])
+                       for a, b in zip(got, st))
+            if n_flip or err != 0.0 or not kept:
+                fail("K1 with the control block is not bit-equal to its plain version, or "
+                     "touched a lane beyond its live blocks")
+            worst = max(worst, err)
+        pkw = dict(base, max_iters=1)
+        pst = band_state(r, "parity")
+        ctrl = pc.new_ctrl(pst.org.device)
+        ctrl[:3] = torch.tensor([n // 1024, 0, 1], dtype=torch.int32)
+        host = time_k1(r, media9, misc, pst, pkw, 20)
+        with_ctrl = time_k1(r, media9, misc, pst, dict(pkw, ctrl=ctrl), 20)
+        host2 = time_k1(r, media9, misc, pst, pkw, 20)
+        ctrl[0] = 8
+        wide = time_k1(r, media9, misc, pst, dict(pkw, ctrl=ctrl), 20)
+        narrow = time_k1(r, media9, misc, state_head(pst, 8 * 1024), pkw, 20)
+    print(f"   K1's first launch ({n} lanes, G={group_size(n)}): with the control block "
+          f"{with_ctrl:.5f} ms, host ints {host:.5f}, {host2:.5f} ms; 8 live blocks of the "
+          f"{n}-lane launch (G={group_size(n)}) {wide:.5f} ms against the 8,192-lane launch "
+          f"(G={group_size(8192)}) {narrow:.5f} ms", flush=True)
+    return worst, with_ctrl
+
+
+def state_head(st, k):
+    """A copy of the first ``k`` lanes of state ``st``."""
+    from complex_materials_renderer_tpu_torch.kernels.megakernel import MegaState
+
+    return MegaState(*(x[:k].clone() for x in st))
+
+
+def time_control(n=65536):
+    """The control kernel against its plain version on the card at the
+    main path's width (the spill loop's flags), then timed: CUDA events
+    over CONTROL_REPS launches each, beside as many empty launches of its
+    grid and ``torch.count_nonzero`` of the lanes (the library call nearest
+    it). Returns (ms, plain ms, bound ms, library ms, max error)."""
+    import ctypes
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import build
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    alive = torch.rand(n, device="cuda", generator=g) < 0.3
+    flags = pc.AFTER_K1 | pc.COND | pc.DEVICE_COUNT
+    err = 0
+    with uncounted():
+        for f, kw in ((pc.INIT | pc.COND | pc.DEVICE_COUNT, dict(dim0=2, threshold=1024)),
+                      (flags | pc.SET_LIVE, dict(advance=8, threshold=16384)),
+                      (pc.SET_FULL, {})):
+            ctrl_k = torch.tensor([3, 10, 1, 0, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+            cnt_k = torch.zeros(2, dtype=torch.int64, device="cuda")
+            ctrl_p, cnt_p = ctrl_k.clone(), cnt_k.clone()
+            pc.pass_control(alive, ctrl_k, cnt_k, f, **kw)
+            pc.pass_control_plain(alive, ctrl_p, cnt_p, f, **kw)
+            torch.cuda.synchronize()
+            err = max(err, int((ctrl_k - ctrl_p).abs().max()), int((cnt_k - cnt_p).abs().max()))
+        if err:
+            fail(f"the control kernel differs from its plain version by {err}")
+        ctrl = pc.new_ctrl("cuda")
+        cnt = torch.zeros(2, dtype=torch.int64, device="cuda")
+        lib = build.pass_control()
+        stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+
+        def many(fn):
+            return cuda_time(lambda i: [fn() for _ in range(CONTROL_REPS)], 5) / CONTROL_REPS
+
+        ms = many(lambda: pc.pass_control(alive, ctrl, cnt, flags, advance=8, threshold=1024))
+        empty = many(lambda: lib.cmr_pass_control_empty(stream()))
+        ms2 = many(lambda: pc.pass_control(alive, ctrl, cnt, flags, advance=8, threshold=1024))
+        plain = cuda_time(lambda i: pc.pass_control_plain(alive, ctrl, cnt, flags, advance=8,
+                                                          threshold=1024), 20)
+        library = many(lambda: torch.count_nonzero(alive))
+    nbytes = n + 4 * pc.CTRL_LEN * 2 + 16 * 2
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"   control kernel ({n} lanes, flags AFTER_K1 | COND): {ms:.5f}, {ms2:.5f} ms a "
+          f"launch in a run of {CONTROL_REPS}; an empty launch of its grid {empty:.5f} ms; "
+          f"plain {plain:.4f} ms; torch.count_nonzero {library:.5f} ms; bound {nbytes} bytes "
+          f"= {bound:.6f} ms (bytes; its time is its launch latency); against its plain "
+          f"version: max difference {err}", flush=True)
+    return min(ms, ms2), plain, bound, library, float(err)
+
+
+def graph_phase(main_opts, rt, media9, misc, base, profile):
+    """The mega pass as one device program: the graph executor (the
+    default on the card) against the eager executor (the host loop) on
+    showcase 512x512@16 in parity, counter and ld, under GRAPH_SPILL in
+    each, and on the tiled scene in the dynamic modes all and hybrid; one
+    call under torch.cuda.set_sync_debug_mode('error'); K1 with the control
+    block and the control kernel against their plain versions; the default
+    command's pass timed on both executors (and profiled with --profile)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = main_opts
+    out = {"frames": {}}
+    for rng in ("parity", "counter", "ld"):
+        for sched in ("", GRAPH_SPILL):
+            r = Renderer(scene, dataclasses.replace(opt, rng=rng))
+            label = f"showcase {opt.width}x{opt.height}@{opt.num_samples} {rng}" + (
+                f" CMR_MEGA_SCHED={sched}" if sched else "")
+            if sched:
+                os.environ["CMR_MEGA_SCHED"] = sched
+            try:
+                def eager():
+                    with executor_as("eager"):
+                        return torch.from_numpy(r.render())
+                t_e, t_g = graph_against_eager(label, eager, lambda: torch.from_numpy(r.render()))
+            finally:
+                os.environ.pop("CMR_MEGA_SCHED", None)
+            out["frames"][label] = {"eager_s": t_e, "graph_s": t_g}
+    w, h, spp = GRAPH_TILED
+    for mode in ("all", "hybrid"):
+        args = (rt.camera, rt.scene_arrays, rt.accel, rt.lights, (w, h), spp)
+        kw = dict(rng_mode="parity", schedule_mode=mode, full_resolution=(w, h),
+                  max_depth=rt.options.max_depth, rr_depth=rt.options.rr_depth,
+                  nee_max_media=rt.options.nee_max_media, return_rng=True)
+        t_e, t_g = graph_against_eager(
+            f"tiled {w}x{h}@{spp} parity, schedule mode {mode}",
+            lambda: mr.render_beauty_mega(*args, executor="eager", **kw),
+            lambda: mr.render_beauty_mega(*args, **kw))
+        out["frames"][f"tiled {mode}"] = {"eager_s": t_e, "graph_s": t_g}
+
+    # One call with a synchronising operation raising: the band call of the
+    # main path, replayed (its graph is captured above); the copy to the
+    # host after it.
+    r = Renderer(scene, opt)
+    args = (r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, BAND_ROWS),
+            opt.num_samples)
+    kw = dict(rng_mode="parity", full_resolution=(opt.width, opt.height), row_offset=BAND_ROWS,
+              return_rng=True)
+    mr.render_beauty_mega(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, words = mr.render_beauty_mega(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"   torch.cuda.set_sync_debug_mode('error') around one render_beauty_mega call "
+          f"({opt.width}x{BAND_ROWS}@{opt.num_samples}, the main path's call): no synchronising "
+          f"operation; image mean {float(img.mean().cpu()):.6f}", flush=True)
+
+    out["k1_ctrl_err"], out["k1_ctrl_ms"] = k1_control_vs_plain(r, media9, misc, base)
+    out["control"] = time_control()
+
+    # The default command's pass: one 16-sample call over its first row
+    # block, on both executors in turns (the graph captured first).
+    from complex_materials_renderer_tpu_torch.renderer import _auto_row_chunk, _auto_sample_chunk
+
+    w, h, spp = DEFAULT_SIZE
+    rows, chunk = _auto_row_chunk(w), _auto_sample_chunk(w, h)
+    dscene, dopt = showcase_options(w, h, spp)
+    rd = Renderer(dscene, dopt)
+    args = (rd.camera, rd.scene_arrays, rd.accel, rd.lights, (w, rows), chunk)
+    kw = dict(rng_mode="parity", full_resolution=(w, h), return_rng=True)
+    n_cap = len(mr.captures)
+    mr.render_beauty_mega(*args, **kw)
+    cap_s = sum(s for _, s in mr.captures[n_cap:])
+    times = {"graph": [], "eager": []}
+    with uncounted():
+        for ex in ("graph", "eager", "eager", "graph", "graph", "eager"):
+            _, dt = timed_render(lambda: mr.render_beauty_mega(
+                *args, executor="auto" if ex == "graph" else "eager", **kw))
+            times[ex].append(dt * 1e3)
+    paths = w * rows * chunk
+    print(f"   the default command's pass ({w}x{rows}@{chunk}, {paths} paths), in turns: graph "
+          f"{', '.join(f'{t:.2f}' for t in times['graph'])} ms, eager "
+          f"{', '.join(f'{t:.2f}' for t in times['eager'])} ms; its capture {cap_s:.3f} s",
+          flush=True)
+    out["pass_ms"] = times
+    out["pass_capture_s"] = cap_s
+    if profile:
+        out["profile"] = {ex: profile_call(lambda ex=ex: mr.render_beauty_mega(
+            *args, executor=ex, **kw), f"the default command's pass, {ex} executor")
+            for ex in ("auto", "eager")}
+    return out
+
+
+def profile_call(fn, label):
+    """torch.profiler over one call of ``fn`` after a warm one: wall ms,
+    the kernels' device ms and their share of the wall (the card's busy
+    share), the largest kernels."""
+    import torch
+    import torch.profiler as tp
+
+    fn()
+    torch.cuda.synchronize()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    busy = sum(dev_ms(e) for e in rows)
+    print(f"   profile of {label}: wall {wall:.2f} ms, kernels {busy:.2f} ms on the card "
+          f"(busy share {busy / wall:.3f}), {sum(e.count for e in rows)} kernel launches",
+          flush=True)
+    for e in sorted(rows, key=lambda e: -dev_ms(e))[:8]:
+        print(f"     {dev_ms(e):10.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
 
 
 def lane_bounces(r, media9, misc, st, kw):
@@ -2257,26 +2609,19 @@ BENCH_SIZE = (256, 256, 8)  # bench.py's size of them: counter RNG, a warm and a
 class counted_calls:
     """Counts the calls of ``module.name`` (each with its keyword
     arguments) while the block runs: the passes of the single-device
-    loop (``render_beauty_mega``) or the megarender pass loop's sample steps
-    (the pass loops that ``_make_advance`` builds)."""
+    loop (``render_beauty_mega``). The sample steps are
+    ``megarender.pass_advances``."""
 
-    def __init__(self, module, name, wrap_result=False):
-        self.module, self.name, self.wrap_result = module, name, wrap_result
+    def __init__(self, module, name):
+        self.module, self.name = module, name
         self.calls = []
 
     def __enter__(self):
         self.orig = orig = getattr(self.module, self.name)
 
         def counted(*a, **kw):
-            if not self.wrap_result:
-                self.calls.append(kw)
-                return orig(*a, **kw)
-            inner = orig(*a, **kw)
-
-            def step(*a2, **kw2):
-                self.calls.append(kw2)
-                return inner(*a2, **kw2)
-            return step
+            self.calls.append(kw)
+            return orig(*a, **kw)
 
         setattr(self.module, self.name, counted)
         return self
@@ -2490,10 +2835,10 @@ def counted_render(scene, opt):
 
     r = Renderer(scene, dataclasses.replace(opt, num_samples=DEFAULT_COUNTED_SPP))
     reset_launch_counts()
-    with counted_calls(mr, "render_beauty_mega") as passes, \
-            counted_calls(mr, "_make_advance", wrap_result=True) as steps:
+    steps = mr.pass_advances
+    with counted_calls(mr, "render_beauty_mega") as passes:
         img, dt = timed_render(r.render)
-    return img, dt, passes.calls, launch_counts()["K1"], len(steps.calls)
+    return img, dt, passes.calls, launch_counts()["K1"], mr.pass_advances - steps
 
 
 def checkpoint_check(scene, opt, blocks, tmp):
@@ -2695,10 +3040,10 @@ def acceptance_scenes(smi):
         with uncounted():
             r.render()  # warm-up
         reset_launch_counts()
-        with counted_calls(mr, "_make_advance", wrap_result=True) as steps:
-            img, dt = timed_render(r.render)
+        steps = mr.pass_advances
+        img, dt = timed_render(r.render)
         launches = launch_counts()["K1"]
-        n = len(steps.calls)
+        n = mr.pass_advances - steps
         print(f"   {name} {w}x{h}@{spp} counter ({r.accel.num_clusters} clusters): {dt:.4f} s = "
               f"{w * h * spp / dt / 1e6:.4f} Mpaths/s; K1 launches {launches} over {n} sample "
               f"steps ({launches / max(n, 1):.2f} a step); image mean {float(np.mean(img)):.6f} "
@@ -3724,8 +4069,12 @@ def main() -> int:
         return 4  # nonzero: no result line is printed
 
     phase("main path: showcase 512x512 @ 16 spp, megakernel")
-    r, launches, mega_img = main_path(main_opts)
+    r, launches, mega_img, pc_launches = main_path(main_opts)
     golden_gate()
+
+    phase("the mega pass as one device program: the graph executor against the eager one, "
+          "a call under sync-debug 'error', K1's control block, the control kernel")
+    graph = graph_phase(main_opts, rt, media9, misc, base, args.profile)
 
     phase(f"K1 ablations on the main path: {', '.join(mk.EXACT_ABLATIONS)} against the default "
           "image; K1's decomposition")
@@ -3791,6 +4140,12 @@ def main() -> int:
         for engine in ("mega", "wavefront", "binned", "pair"):
             profile_pass(r, engine)
 
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    graph["captures"] = len(mr.captures)
+    graph["capture_s"] = sum(s for _, s in mr.captures)
+    print(f"   graphs captured in this process: {graph['captures']} in {graph['capture_s']:.3f} s",
+          flush=True)
     print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"host_runtime": {
         "card": smi, "cpu": cpu_model(), "compiler": cxx_version, "library_build_s": host_build_s,
@@ -3798,6 +4153,7 @@ def main() -> int:
         "build_bvh": bvh_rows}}),
           flush=True)
     print(json.dumps({"default_workload": workload}), flush=True)
+    print(json.dumps({"pass_graph": graph}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined; its ablation instances "
                 f"launched beside the default: {', '.join(mk.ABLATION_SETS)})",
@@ -3811,6 +4167,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "pass control (the mega pass's alive count, live_blocks, ld base, K1 count and "
+                "the CUDA graph's loop conditions; glue with no Pallas kernel of its own: the "
+                "jit's scalar work between the JAX pass loop's kernel calls)",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/pass_control.cu",
+        "replaces": "complex_materials_renderer_tpu/render/megarender.py:213",
+        "launches": pc_launches,
+        "max_abs_err": graph["control"][4],
+        "ms": graph["control"][0],
+        "plain_ms": graph["control"][1],
+        "bound_ms": graph["control"][2],
+        "bound_by": "bytes",
+        "library_ms": graph["control"][3],
     }, {
         "name": "closest-hit trace over the cluster grid (K3)",
         "route": "cuda",

@@ -94,6 +94,7 @@
 #include <cstdint>
 
 #include "cluster_test.cuh"
+#include "pass_control.cuh"
 
 #ifndef CMR_NEE_MAX_MEDIA
 #error "build with -DCMR_NEE_MAX_MEDIA=<n>"
@@ -108,6 +109,7 @@ constexpr int K_NEE = 2 * CMR_NEE_MAX_MEDIA + 2;  // cluster_test.nee_list_len
 constexpr int THREADS = 128;  // threads per block, THREADS / G lanes
 constexpr int MAX_MEDIA = 63;
 constexpr int DRAWS_PER_BOUNCE = 8;
+constexpr int SOBOL_DIMS = 1024;  // rows of the Sobol table (ops/rng.py SOBOL_DIMS)
 
 constexpr float INV_FOURPI = 0.07957747154594767f;
 constexpr float LN_CLAMP = 9.210340371976184f;
@@ -139,6 +141,10 @@ struct Params {
   const float* __restrict__ misc;          // (16,)
   const int* __restrict__ sob;             // (1024, 30) Sobol direction numbers
   int dim_base;                            // clipped ld dimension base
+  // The pass control block (pass_control.cuh), or null: then every lane of
+  // [0, n_lanes) runs with ``dim_base``. Else the run flag, live_blocks and
+  // the unclipped ld base come from the card.
+  const int* __restrict__ ctrl;
   float* org;
   float* dir;
   float* thr;
@@ -1059,6 +1065,21 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
 
 template <int K, int G>
 __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
+  // The launch covers the static width n_lanes. With a control block, a CTA
+  // at or beyond live_blocks * 1024 lanes returns at once, and every CTA
+  // does when the run flag is 0: their lanes keep their state, as the TPU
+  // kernel's blocks beyond live_blocks do (megakernel.py :1589-1609). The
+  // ld base is clipped here as the JAX wrapper clips it (:1548-1552).
+  int n_lanes = p.n_lanes;
+  int dim_base = p.dim_base;
+  if (p.ctrl != nullptr) {
+    if (p.ctrl[CTRL_RUN] == 0) return;
+    n_lanes = min(n_lanes, max(p.ctrl[CTRL_LIVE], 0) * CTRL_BLOCK_LANES);
+    if (p.ld) {
+      dim_base = min(max(p.ctrl[CTRL_DIM0], 0), SOBOL_DIMS - p.max_iters * DRAWS_PER_BOUNCE);
+    }
+  }
+  if ((int)(blockIdx.x * (THREADS / G)) >= n_lanes) return;  // the whole CTA
   __shared__ float s_media[MAX_MEDIA * 9];
   __shared__ float s_misc[16];
   for (int i = threadIdx.x; i < p.M * 9; i += blockDim.x) s_media[i] = p.media9[i];
@@ -1067,7 +1088,7 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
 
   const cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
   const int lane = (blockIdx.x * THREADS + threadIdx.x) / G;
-  if (lane >= p.n_lanes) return;  // the whole tile
+  if (lane >= n_lanes) return;  // the whole tile
   Lane L;
   L.alive = p.alive[lane] != 0;
   if (!L.alive) return;  // a dead lane never changes
@@ -1082,7 +1103,7 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   rng.ph = (uint32_t)p.aux[lane];
   rng.ld = p.ld != 0;
   rng.sob = p.sob;
-  rng.dim_base = p.dim_base;
+  rng.dim_base = dim_base;
 
   // A lane's k-th iteration is the block loop's k-th (the draws of dead
   // lanes are masked and ld dims advance in lockstep), so the per-lane
@@ -1144,6 +1165,12 @@ template <int G>
 int launch(const Params& p, cudaStream_t stream) {
   const long long threads = (long long)p.n_lanes * G;
   const int blocks = (int)((threads + THREADS - 1) / THREADS);
+#if CMR_MEGA_ABLATE & 32
+  // nophys: the per-lane and per-block iteration counts start at 0.
+  const size_t words = (size_t)p.n_lanes + (p.n_lanes + BLOCK_LANES - 1) / BLOCK_LANES;
+  const cudaError_t zero = cudaMemsetAsync(p.iters, 0, words * sizeof(int), stream);
+  if (zero != cudaSuccess) return (int)zero;
+#endif
   megakernel<K_NEE, G><<<blocks, THREADS, 0, stream>>>(p);
 #if CMR_MEGA_ABLATE & 32
   const int err = (int)cudaGetLastError();
@@ -1159,17 +1186,18 @@ extern "C" {
 
 // Launch on ``stream`` with ``group`` threads per lane (1, 2, 4, 8, 16 or
 // 32); returns cudaGetLastError() right after the
-// launch. ``iters`` (nophys only, else null): n_lanes + one int a 1024-lane
-// block, zeroed.
+// launch. ``ctrl``: the pass control block (CTRL_LEN int32 on the card) or
+// null. ``iters`` (nophys only, else null): n_lanes + one int a 1024-lane
+// block, which the launch zeroes first.
 int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const float* run_rows,
                           const float* media9, const float* misc, const int* sob, int dim_base,
-                          float* org, float* dir, float* thr, float* rad, long long* rng,
+                          const int* ctrl, float* org, float* dir, float* thr, float* rad, long long* rng,
                           int* depth, unsigned char* alive, const long long* aux, int n_lanes,
                           int C, int S, int subs, int run, int row_w, int M, int SF, int s_opq,
                           int background, int max_depth, int rr_depth, int tir_kill,
                           int analytic_direct, int ld, int max_iters, int group, int* iters,
                           void* stream) {
-  const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base,
+  const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base, ctrl,
                       org, dir, thr, rad, rng, depth, alive, aux,
                       n_lanes, C, S, subs, run, row_w, M, SF, s_opq,
                       background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters,

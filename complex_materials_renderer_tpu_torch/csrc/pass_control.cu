@@ -1,0 +1,204 @@
+// Pass control for the mega pass, and the CUDA graph conditional nodes that
+// the pass plan's loops become.
+//
+// New glue with no TPU counterpart of its own: it stands for the scalar
+// work that the JAX package's jit program does between kernel calls
+// (render/megarender.py ``_make_advance`` :213-314: the ``sum(alive)`` of
+// ``live_blocks_of`` and of the spill loop's ``while_loop`` condition, the
+// ``any(alive)`` of the dynamic modes' ``while_loop`` and ``cond``, and the
+// ``dim0 + 8 * cap`` carry). The port's pass plan (render/megarender.py
+// ``PassPlan``) runs a pass as a fixed sequence of sorts, scatters, K1
+// launches and launches of this kernel; on the card that sequence is one
+// CUDA graph and each loop of it a conditional node, so no value goes back
+// to the host between a pass's first launch and its last.
+//
+// The kernel, after a sort or a K1 launch (``flags``, kernels/pass_control.py):
+//   AFTER_K1     if the K1 launch just before ran (run flag set and
+//                live_blocks > 0): dim0 += ``advance`` (8 * its bounce cap)
+//                and, with DEVICE_COUNT, one more K1 launch in counts[0];
+//   INIT         dim0 = ``dim0``, and as SET_FULL;
+//   SET_FULL     live_blocks = every block of the ``n`` lanes, run flag 1;
+//   SET_LIVE     live_blocks = ceil(alive / 1024), run flag = alive > 0;
+//   COND         the condition alive > ``threshold`` into the control block
+//                and, with SET_HANDLE, into the enclosing conditional node
+//                (``cudaGraphSetConditional``);
+//   DEVICE_COUNT counts[1] += 1 (the launches of this kernel that ran).
+// It always counts the alive lanes of ``alive[0, n)`` (CTRL_NALIVE).
+//
+// What bounds it: launch latency. It reads n bytes (65,536 on the main
+// path: 20 ns at 3.35 TB/s) and a few words; one block of 1024 threads sums
+// the bytes 16 at a time (a bool is 0 or 1, so a word's popcount counts
+// its true bytes) and thread 0 does the scalar updates. Its time on the
+// card is that of an empty launch (PERF.md §6).
+//
+// The graph side (cmr_graph_cond_*): the pass plan captures a pass with
+// torch.cuda.graph; at a loop it creates a conditional handle in the graph
+// being captured, launches this kernel to set it, adds a conditional node
+// (WHILE for the spill loop and the dynamic modes' loop, IF for the hybrid
+// mode's guarded bounces) after the capture's current dependencies, moves
+// the outer capture past that node, and captures the loop body into the
+// node's body graph on a second stream. The body ends with this kernel,
+// which sets the handle again: the WHILE node runs its body while that
+// value is nonzero (CUDA >= 12.4).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+// -shared -Xcompiler -fPIC (kernels/build.py).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "pass_control.cuh"
+
+namespace cmr {
+
+constexpr int PC_INIT = 1;
+constexpr int PC_SET_FULL = 2;
+constexpr int PC_SET_LIVE = 4;
+constexpr int PC_AFTER_K1 = 8;
+constexpr int PC_COND = 16;
+constexpr int PC_DEVICE_COUNT = 32;
+constexpr int PC_SET_HANDLE = 64;
+constexpr int PC_THREADS = 1024;
+
+__global__ void __launch_bounds__(PC_THREADS)
+    pass_control(const unsigned char* __restrict__ alive, int n, int* ctrl, long long* counts,
+                 int flags, int dim0, int advance, int threshold,
+                 cudaGraphConditionalHandle handle) {
+  __shared__ int warp_sums[PC_THREADS / 32];
+  int c = 0;
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(alive) & 15) == 0) {
+    const int n16 = n / 16;
+    const uint4* v = reinterpret_cast<const uint4*>(alive);
+    for (int i = threadIdx.x; i < n16; i += PC_THREADS) {
+      const uint4 w = v[i];
+      c += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+    }
+    head = n16 * 16;
+  }
+  for (int i = head + threadIdx.x; i < n; i += PC_THREADS) c += alive[i] != 0;
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  c = warp_sums[threadIdx.x];
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+  if (threadIdx.x != 0) return;
+
+  const int n_alive = c;
+  if (flags & PC_AFTER_K1) {
+    if (ctrl[CTRL_RUN] != 0 && ctrl[CTRL_LIVE] > 0) {
+      ctrl[CTRL_DIM0] += advance;
+      if (flags & PC_DEVICE_COUNT) counts[0] += 1;
+    }
+  }
+  if (flags & PC_INIT) ctrl[CTRL_DIM0] = dim0;
+  if (flags & (PC_INIT | PC_SET_FULL)) {
+    ctrl[CTRL_LIVE] = (n + CTRL_BLOCK_LANES - 1) / CTRL_BLOCK_LANES;
+    ctrl[CTRL_RUN] = 1;
+  }
+  if (flags & PC_SET_LIVE) {
+    ctrl[CTRL_LIVE] = (n_alive + CTRL_BLOCK_LANES - 1) / CTRL_BLOCK_LANES;
+    ctrl[CTRL_RUN] = n_alive > 0 ? 1 : 0;
+  }
+  ctrl[CTRL_NALIVE] = n_alive;
+  if (flags & PC_COND) {
+    const unsigned int cond = n_alive > threshold ? 1u : 0u;
+    ctrl[CTRL_COND] = (int)cond;
+    if (flags & PC_SET_HANDLE) cudaGraphSetConditional(handle, cond);
+  }
+  if (flags & PC_DEVICE_COUNT) counts[1] += 1;
+}
+
+// An empty launch of the control kernel's grid: the floor its time is
+// held against.
+__global__ void __launch_bounds__(PC_THREADS) pass_control_empty() {}
+
+}  // namespace cmr
+
+// The error for a stream whose capture is not active: invalidated (an
+// operation the capture could not record), or none at all.
+static int not_capturing(cudaStreamCaptureStatus status) {
+  return (int)(status == cudaStreamCaptureStatusInvalidated ? cudaErrorStreamCaptureInvalidated
+                                                            : cudaErrorIllegalState);
+}
+
+extern "C" {
+
+// Launch on ``stream``; returns cudaGetLastError() right after the launch.
+// ``alive``: n bytes; ``ctrl``: CTRL_LEN int32; ``counts``: 2 int64.
+int cmr_pass_control_launch(const unsigned char* alive, int n, int* ctrl, long long* counts,
+                            int flags, int dim0, int advance, int threshold,
+                            unsigned long long handle, void* stream) {
+  cmr::pass_control<<<1, cmr::PC_THREADS, 0, (cudaStream_t)stream>>>(
+      alive, n, ctrl, counts, flags, dim0, advance, threshold,
+      (cudaGraphConditionalHandle)handle);
+  return (int)cudaGetLastError();
+}
+
+int cmr_pass_control_empty(void* stream) {
+  cmr::pass_control_empty<<<1, cmr::PC_THREADS, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// A conditional handle in the graph that ``stream`` is capturing into.
+int cmr_graph_cond_handle(void* stream, unsigned long long* handle_out) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, nullptr, &graph,
+                                             nullptr, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive) return not_capturing(status);
+  cudaGraphConditionalHandle handle;
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  *handle_out = (unsigned long long)handle;
+  return (int)err;
+}
+
+// Add a conditional node (``is_while``: WHILE, else IF) on ``handle`` after
+// the current dependencies of ``stream``'s capture, make it the capture's
+// only dependency, and start capturing ``body_stream`` into its body graph.
+int cmr_graph_cond_begin(void* stream, unsigned long long handle, int is_while,
+                         void* body_stream) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, nullptr, &graph,
+                                             &deps, &n_deps);
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive) return not_capturing(status);
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = (cudaGraphConditionalHandle)handle;
+  params.conditional.type = is_while ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
+  if (err != cudaSuccess) return (int)err;
+  cudaGraph_t body = params.conditional.phGraph_out[0];
+  err = cudaStreamUpdateCaptureDependencies((cudaStream_t)stream, &node, 1,
+                                            cudaStreamSetCaptureDependencies);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamBeginCaptureToGraph((cudaStream_t)body_stream, body, nullptr, nullptr, 0,
+                                            cudaStreamCaptureModeRelaxed);
+}
+
+// A non-blocking stream on ``device`` for conditional bodies: the port's
+// own, since torch hands the streams of its pool out in turn, and in time
+// would hand out the stream being captured.
+int cmr_graph_body_stream(int device, void** stream_out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamCreateWithFlags((cudaStream_t*)stream_out, cudaStreamNonBlocking);
+}
+
+// End the capture of a conditional node's body.
+int cmr_graph_cond_end(void* body_stream) {
+  cudaGraph_t body = nullptr;
+  return (int)cudaStreamEndCapture((cudaStream_t)body_stream, &body);
+}
+
+const char* cmr_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+}

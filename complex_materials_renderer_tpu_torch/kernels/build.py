@@ -18,7 +18,9 @@ build takes seconds, not minutes):
   holding every payload at 1, 2, 4 and 8 threads per lane (thread block
   clusters of 2, 4, 8 and 16 CTAs);
 - ``pair_sweep.cu`` (K6), one per ``--nee-bound``, each holding every
-  payload at every group size G.
+  payload at every group size G;
+- ``pass_control.cu``, the mega pass's control kernel and the CUDA graph
+  conditional nodes of its loops (render/megarender.py ``PassPlan``).
 
 Lists and K-lists live in registers, so their lengths are compile-time;
 a library is built for any value asked for, at its first use. Libraries
@@ -57,7 +59,7 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # kind -> (source, names of the -D values in the key, launch function, its argtypes)
 _KINDS = {
     "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA", "CMR_MEGA_ABLATE"),
-                   "cmr_megakernel_launch", [_vp] * 6 + [_ci] + [_vp] * 8 + [_ci] * 17 + [_vp] * 2),
+                   "cmr_megakernel_launch", [_vp] * 6 + [_ci] + [_vp] * 9 + [_ci] * 17 + [_vp] * 2),
     "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
                       [_vp] * 8 + [_ci] * 8 + [_vp]),
     "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",
@@ -67,6 +69,8 @@ _KINDS = {
                      [_vp, _ci] + [_vp] * 5 + [_ci] * 9 + [_vp]),
     "pair_sweep": ("pair_sweep.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_pair_sweep_launch",
                    [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp]),
+    "pass_control": ("pass_control.cu", (), "cmr_pass_control_launch",
+                     [_vp, _ci, _vp, _vp] + [_ci] * 4 + [ctypes.c_ulonglong, _vp]),
 }
 
 _lock = threading.Lock()
@@ -136,6 +140,15 @@ def _load(key, path: str):
     if hasattr(lib, "cmr_binned_listing_empty"):
         lib.cmr_binned_listing_empty.argtypes = [_ci, _ci, _vp]
         lib.cmr_binned_listing_empty.restype = _ci
+    if hasattr(lib, "cmr_graph_cond_handle"):
+        lib.cmr_pass_control_empty.argtypes = [_vp]
+        lib.cmr_graph_cond_handle.argtypes = [_vp, ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.cmr_graph_cond_begin.argtypes = [_vp, ctypes.c_ulonglong, _ci, _vp]
+        lib.cmr_graph_cond_end.argtypes = [_vp]
+        lib.cmr_graph_body_stream.argtypes = [_ci, ctypes.POINTER(_vp)]
+        for name in ("cmr_pass_control_empty", "cmr_graph_cond_handle", "cmr_graph_cond_begin",
+                     "cmr_graph_cond_end", "cmr_graph_body_stream"):
+            getattr(lib, name).restype = _ci
     if hasattr(lib, "cmr_binned_round_max_clusters"):
         lib.cmr_binned_round_max_clusters.argtypes = [_ci, _ci, ctypes.POINTER(_ci)]
         lib.cmr_binned_round_max_clusters.restype = _ci
@@ -168,12 +181,13 @@ def build(keys, verbose: bool = False) -> None:
 
 def prebuild(nee_bounds=(), verbose: bool = False, cluster_trace: bool = True,
              list_lens=(), rounds=(), sweeps=(), ablations=()) -> None:
-    """Build at once the megakernel for each value of ``nee_bounds`` and
-    for each (nee bound, ablation mask) of ``ablations``, (with
-    ``cluster_trace``) the closest-hit kernel, the listing for each of
-    ``list_lens``, the round for each (list length, nee bound) of
-    ``rounds`` and the sweep for each nee bound of ``sweeps``."""
-    build([("megakernel", n, 0) for n in sorted(set(nee_bounds))]
+    """Build at once the pass control library, the megakernel for each
+    value of ``nee_bounds`` and for each (nee bound, ablation mask) of
+    ``ablations``, (with ``cluster_trace``) the closest-hit kernel, the
+    listing for each of ``list_lens``, the round for each (list length,
+    nee bound) of ``rounds`` and the sweep for each nee bound of
+    ``sweeps``."""
+    build([("pass_control",)] + [("megakernel", n, 0) for n in sorted(set(nee_bounds))]
           + [("megakernel", n, m) for n, m in sorted(set(ablations))]
           + ([("cluster_trace",)] if cluster_trace else [])
           + [("binned_listing", L) for L in sorted(set(list_lens))]
@@ -251,6 +265,13 @@ def pair_sweep(nee_max_media: int):
     if lib.cmr_k_nee() != 2 * nee_max_media + 2:
         raise RuntimeError("sweep library built for another K-list length")
     return lib.cmr_pair_sweep_launch
+
+
+def pass_control():
+    """The pass control library (``csrc/pass_control.cu``): the control
+    kernel's launch function and the graph functions beside it."""
+    lib = _library(("pass_control",))
+    return lib
 
 
 def error_string(err: int) -> str:

@@ -46,6 +46,7 @@ import torch
 from ..ops import rng as rng_ops
 from ..render import hitinfo
 from .cluster_grid import DeviceClusterGrid
+from .pass_control import CTRL_DIM0, CTRL_LEN, CTRL_LIVE, CTRL_RUN
 from .cluster_test import (
     group_size,
     nee_list_len,
@@ -407,7 +408,6 @@ class _Plain(NamedTuple):
     analytic_direct: bool
     ld: bool
     sob: torch.Tensor | None  # (SOBOL_DIMS, 30) int64 direction numbers
-    dim_base: int  # clipped ld dimension base
 
 
 def _box_clamp(cx, O, INV, TMAX):
@@ -592,7 +592,7 @@ def _nee_march(cx, px, py, pz, active):
     return _nee_resolve(cx, hits[:cx.K], t_op, eff, ldist, lv_r, lv_g, lv_b, active)
 
 
-def _make_draw(cx, it, PH):
+def _make_draw(cx, it, PH, dim_base):
     if not cx.ld:
         def pcg(state, mask, site):
             ns = rng_ops.step(state)
@@ -601,20 +601,22 @@ def _make_draw(cx, it, PH):
         return pcg
 
     def draw(s_idx, mask, site):
-        rbase = it * DRAWS_PER_BOUNCE + site
-        v = rng_ops.sobol_value(s_idx, cx.sob[cx.dim_base + rbase])
-        return s_idx, rng_ops.owen_draw(v, PH, cx.dim_base + rbase)
+        dim = dim_base + (it * DRAWS_PER_BOUNCE + site)
+        # A row by a host int, or by a 0-d tensor from the control block.
+        row = cx.sob[dim] if isinstance(dim, int) else cx.sob.index_select(0, dim.reshape(1))[0]
+        return s_idx, rng_ops.owen_draw(rng_ops.sobol_value(s_idx, row), PH, dim)
 
     return draw
 
 
-def _bounce(cx, st, it, PH):
+def _bounce(cx, st, it, PH, dim_base):
     """One bounce iteration of live lanes (megakernel.py:992-1370: the
-    default fused walk, or the ablations of ``cx.mask``)."""
+    default fused walk, or the ablations of ``cx.mask``), drawing ld
+    dimensions from ``dim_base`` (clipped)."""
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      ra_r, ra_g, ra_b, rng, depth, alive) = st
     mask = cx.mask
-    draw = _make_draw(cx, it, PH)
+    draw = _make_draw(cx, it, PH, dim_base)
     zero = torch.zeros_like(ox)
     eff = _W(alive, _full(ox, T_MAX), zero)
     if mask & (ABLATIONS["notrace"] | ABLATIONS["cullonly"]):
@@ -843,8 +845,10 @@ def _bounce(cx, st, it, PH):
 # --------------------------------------------------------------------------
 
 
-def _check_call(grid, state, max_depth, max_iters, ld, dim0, live_blocks):
-    """Shared argument checks; returns (max_iters, lanes to run, ld base)."""
+def _check_call(grid, state, max_depth, max_iters, ld, dim0, live_blocks, ctrl=None):
+    """Shared argument checks; returns (max_iters, lanes to run, ld base).
+    With a control block ``ctrl`` the lanes are the static width and the
+    base is None: both come from the block when the kernel runs."""
     if max_iters is None:
         max_iters = max_depth
     if grid.num_supers > MAX_SUPERS:
@@ -853,20 +857,61 @@ def _check_call(grid, state, max_depth, max_iters, ld, dim0, live_blocks):
             "scene too large for the megakernel (max ~2M triangles)"
         )
     r = state.org.shape[0]
+    nrows = max_iters * DRAWS_PER_BOUNCE
+    if ld and nrows > rng_ops.SOBOL_DIMS:
+        raise ValueError(
+            f"ld mode draws {nrows} dimensions per call; the Sobol "
+            f"table has {rng_ops.SOBOL_DIMS}"
+        )
+    if ctrl is not None:
+        if live_blocks is not None or not (isinstance(dim0, int) and dim0 == 0):
+            raise ValueError("with a control block, live_blocks and dim0 come from it")
+        if ctrl.dtype != torch.int32 or tuple(ctrl.shape) != (CTRL_LEN,) \
+                or ctrl.device != state.org.device or not ctrl.is_contiguous():
+            raise ValueError(f"ctrl must be a contiguous int32 ({CTRL_LEN},) tensor on the "
+                             "state's device")
+        return max_iters, r, None
     blocks = -(-r // BLOCK)
     lb = blocks if live_blocks is None else int(live_blocks)
     lanes = max(0, min(r, lb * BLOCK))
     dim_base = 0
     if ld:
-        nrows = max_iters * DRAWS_PER_BOUNCE
-        if nrows > rng_ops.SOBOL_DIMS:
-            raise ValueError(
-                f"ld mode draws {nrows} dimensions per call; the Sobol "
-                f"table has {rng_ops.SOBOL_DIMS}"
-            )
         # The JAX kernel clips the row base (megakernel.py:1548-1552).
         dim_base = min(max(int(dim0), 0), rng_ops.SOBOL_DIMS - nrows)
     return max_iters, lanes, dim_base
+
+
+def plain_context(grid: DeviceClusterGrid, media9: torch.Tensor, misc: torch.Tensor,
+                  background: int = 1, max_depth: int = 32, rr_depth: int = 16,
+                  nee_max_media: int = 4, tir_kill: bool = False, analytic_direct: bool = False,
+                  ld: bool = False, debug: str = "") -> _Plain:
+    """The per-call constants of the plain version (the slot tables, the
+    media rows and the light row read to the host), which a caller that
+    runs many calls with the same arguments builds once and passes as
+    ``plain``."""
+    mask = ablation_mask(debug)
+    media_rows = media9.detach().cpu().tolist()
+    # A partitioned grid's opaque supers [0, S_OPQ) hold the clusters (and
+    # slots) before the media supers'.
+    cut = min(grid.num_opaque_supers * grid.super_factor, grid.num_clusters) * grid.width
+    return _Plain(
+        slots=slot_table(grid),
+        slots_opq=slot_table(grid, 0, cut) if grid.num_opaque_supers > 0 else None,
+        slots_med=slot_table(grid, cut) if grid.num_opaque_supers > 0 else None,
+        mask=mask,
+        media=media_rows,
+        misc=misc.detach().cpu().tolist(),
+        med_ids=[row[0] for row in media_rows],
+        K=nee_list_len(nee_max_media),
+        background=int(background),
+        max_depth=int(max_depth),
+        rr_depth=int(rr_depth),
+        nee_max_media=int(nee_max_media),
+        tir_kill=bool(tir_kill),
+        analytic_direct=bool(analytic_direct),
+        ld=bool(ld),
+        sob=rng_ops.sobol_table(grid.bounds.device) if ld else None,
+    )
 
 
 def trace_paths_mega_plain(
@@ -885,48 +930,44 @@ def trace_paths_mega_plain(
     ld: bool = False,
     dim0=0,
     debug: str = "",
+    ctrl: torch.Tensor | None = None,
+    plain: _Plain | None = None,
 ) -> MegaState:
     """The plain PyTorch version of ``trace_paths_mega`` (same arguments,
-    same in-place update), on any device."""
+    same in-place update), on any device. ``plain``: the context of
+    ``plain_context`` for these arguments, else built here. With ``ctrl``
+    the run flag, live_blocks and the ld base are read from the control
+    block by tensor operations, so the call sends no value to the host."""
     max_iters, lanes, dim_base = _check_call(
-        grid, state, max_depth, max_iters, ld, dim0, live_blocks
+        grid, state, max_depth, max_iters, ld, dim0, live_blocks, ctrl
     )
-    mask = ablation_mask(debug)
-    media_rows = media9.detach().cpu().tolist()
-    # A partitioned grid's opaque supers [0, S_OPQ) hold the clusters (and
-    # slots) before the media supers'.
-    cut = min(grid.num_opaque_supers * grid.super_factor, grid.num_clusters) * grid.width
-    cx = _Plain(
-        slots=slot_table(grid),
-        slots_opq=slot_table(grid, 0, cut) if grid.num_opaque_supers > 0 else None,
-        slots_med=slot_table(grid, cut) if grid.num_opaque_supers > 0 else None,
-        mask=mask,
-        media=media_rows,
-        misc=misc.detach().cpu().tolist(),
-        med_ids=[row[0] for row in media_rows],
-        K=nee_list_len(nee_max_media),
-        background=int(background),
-        max_depth=int(max_depth),
-        rr_depth=int(rr_depth),
-        nee_max_media=int(nee_max_media),
-        tir_kill=bool(tir_kill),
-        analytic_direct=bool(analytic_direct),
-        ld=bool(ld),
-        sob=rng_ops.sobol_table(state.org.device) if ld else None,
-        dim_base=dim_base,
+    cx = plain if plain is not None else plain_context(
+        grid, media9, misc, background=background, max_depth=max_depth, rr_depth=rr_depth,
+        nee_max_media=nee_max_media, tir_kill=tir_kill, analytic_direct=analytic_direct,
+        ld=ld, debug=debug,
     )
-    lockstep = bool(mask & ABLATIONS["nophys"])
+    dev = state.alive.device
+    idx = torch.arange(state.alive.shape[0], device=dev)
+    if ctrl is None:
+        in_live = idx < lanes
+    else:
+        # Lanes at or beyond live_blocks * 1024 keep their state, and every
+        # lane does when the run flag is 0 (megakernel.py:1589-1609); the
+        # ld base is clipped as megakernel.py:1548-1552 clips it.
+        in_live = (idx < ctrl[CTRL_LIVE].clamp(min=0) * BLOCK) & (ctrl[CTRL_RUN] != 0)
+        dim_base = ctrl[CTRL_DIM0].to(torch.int64).clamp(
+            0, rng_ops.SOBOL_DIMS - max_iters * DRAWS_PER_BOUNCE)
+    lockstep = bool(cx.mask & ABLATIONS["nophys"])
+    blk = idx // BLOCK
     for it in range(max_iters):
         if lockstep:
             # nophys's unmasked writes reach every lane of a 1024-lane block
             # while any lane of it lives (megakernel.py:1386-1394).
-            blk = torch.arange(lanes, device=state.alive.device) // BLOCK
-            live_blk = torch.zeros(-(-lanes // BLOCK), dtype=torch.bool,
-                                   device=state.alive.device)
-            live_blk[blk[state.alive[:lanes]]] = True
-            live = live_blk[blk].nonzero().squeeze(1)
+            live_blk = torch.zeros(-(-idx.shape[0] // BLOCK), dtype=torch.bool, device=dev)
+            live_blk[blk[state.alive & in_live]] = True
+            live = (live_blk[blk] & in_live).nonzero().squeeze(1)
         else:
-            live = state.alive[:lanes].nonzero().squeeze(1)
+            live = (state.alive & in_live).nonzero().squeeze(1)
         if live.numel() == 0:
             break
         st = (
@@ -936,7 +977,7 @@ def trace_paths_mega_plain(
             *(state.rad[live, i] for i in range(3)),
             state.rng[live], state.depth[live], state.alive[live],
         )
-        out = _bounce(cx, st, it, state.aux[live] if ld else None)
+        out = _bounce(cx, st, it, state.aux[live] if ld else None, dim_base)
         state.org[live] = torch.stack(out[0:3], dim=1)
         state.dir[live] = torch.stack(out[3:6], dim=1)
         state.thr[live] = torch.stack(out[6:9], dim=1)
@@ -963,6 +1004,8 @@ def trace_paths_mega(
     ld: bool = False,
     dim0=0,
     debug: str = "",
+    ctrl: torch.Tensor | None = None,
+    plain: _Plain | None = None,
 ) -> MegaState:
     """Advance R paths up to ``max_iters`` bounce iterations in ONE kernel.
 
@@ -971,10 +1014,18 @@ def trace_paths_mega(
     the wavefront and continue (render/megarender.py's schedules). Lanes
     at or beyond ``live_blocks * 1024`` are not touched.
 
+    ``live_blocks`` and ``dim0`` are host ints, or come from the card: with
+    ``ctrl``, the pass control block (``kernels.pass_control``), the launch
+    covers the state's whole width and the kernel reads the run flag,
+    ``live_blocks`` and ``dim0`` there (the JAX kernel's traced scalars,
+    megakernel.py:1487, :1548-1552, :1589-1592), so the call needs no value
+    from the host and can be captured in a CUDA graph.
+
     The state is updated IN PLACE and returned: the counterpart of the
     Pallas call's ``input_output_aliases``. A CUDA state launches the
     kernel of ``csrc/megakernel.cu`` built for ``debug``'s ablation mask
-    (or raises); a CPU state runs ``trace_paths_mega_plain``.
+    (or raises); a CPU state runs ``trace_paths_mega_plain`` (with the
+    context ``plain`` when given).
     """
     if state.org.device.type == "cpu":
         return trace_paths_mega_plain(
@@ -983,20 +1034,47 @@ def trace_paths_mega(
             nee_max_media=nee_max_media, tir_kill=tir_kill,
             max_iters=max_iters, live_blocks=live_blocks,
             analytic_direct=analytic_direct, ld=ld, dim0=dim0, debug=debug,
+            ctrl=ctrl, plain=plain,
         )
     max_iters, lanes, dim_base = _check_call(
-        grid, state, max_depth, max_iters, ld, dim0, live_blocks
+        grid, state, max_depth, max_iters, ld, dim0, live_blocks, ctrl
     )
-    _launch(grid, media9, misc, state, lanes, dim_base, background=background,
+    _launch(grid, media9, misc, state, lanes, dim_base, ctrl, background=background,
             max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
             tir_kill=tir_kill, analytic_direct=analytic_direct, ld=ld,
             max_iters=max_iters, mask=ablation_mask(debug))
     return state
 
 
-trace_paths_mega.launches = 0  # CUDA launches made by trace_paths_mega
+# CUDA launches made by trace_paths_mega outside a graph capture (the
+# launches of a captured pass are counted on the card, kernels.pass_control).
+trace_paths_mega.launches = 0
 
 _SOBOL_I32: dict = {}
+_ITERS: dict = {}
+
+
+def nophys_iters(device, lanes: int) -> torch.Tensor:
+    """nophys's per-lane and per-block iteration counts for launches of up
+    to ``lanes`` lanes on ``device``: allocated once (each launch zeroes
+    what it uses), so a launch allocates nothing and can be captured."""
+    key = (str(device), lanes)
+    if key not in _ITERS:
+        _ITERS[key] = torch.zeros(lanes + -(-lanes // BLOCK), dtype=torch.int32, device=device)
+    return _ITERS[key]
+
+
+def prepare(device, lanes: int, nee_max_media: int, debug: str = "") -> None:
+    """Build the library of ``debug``'s instance and make what its launches
+    on ``device`` of up to ``lanes`` lanes read (the Sobol rows, nophys's
+    counts), so that a capture of them builds and allocates nothing."""
+    from . import build
+
+    mask, _one_thread = cuda_instance(ablation_mask(debug))
+    build.megakernel(nee_max_media, mask)
+    _sobol_i32(device)
+    if mask & ABLATIONS["nophys"]:
+        nophys_iters(device, lanes)
 
 
 def _sobol_i32(device) -> torch.Tensor:
@@ -1021,10 +1099,11 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth,
+def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, *, background, max_depth,
             rr_depth, nee_max_media, tir_kill, analytic_direct, ld, max_iters, mask):
     """Check every tensor and launch the CUDA kernel of ablation mask
-    ``mask`` on the current stream."""
+    ``mask`` on the current stream (with the control block ``ctrl``, or
+    over ``lanes`` lanes at the ld base ``dim_base``)."""
     from . import build
 
     if nee_max_media < 0:
@@ -1054,16 +1133,16 @@ def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth
     lib_mask, one_thread = cuda_instance(mask)
     fn = build.megakernel(nee_max_media, lib_mask)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    group = 1 if one_thread else group_size(lanes)  # carrywalk: one thread, whatever the width
+    # G from the launch's static width (carrywalk: one thread, whatever the width).
+    group = 1 if one_thread else group_size(lanes)
     # nophys: each lane's iterations and each 1024-lane block's most.
-    iters = (torch.zeros(lanes + -(-lanes // BLOCK), dtype=torch.int32, device=dev)
-             if mask & ABLATIONS["nophys"] else None)
+    iters = nophys_iters(dev, r) if mask & ABLATIONS["nophys"] else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             p(grid.bounds), p(grid.super_bounds), p(grid.run_rows),
-            p(media9), p(misc), p(sob), dim_base,
-            p(state.org), p(state.dir), p(state.thr), p(state.rad),
+            p(media9), p(misc), p(sob), 0 if dim_base is None else dim_base,
+            None if ctrl is None else p(ctrl), p(state.org), p(state.dir), p(state.thr), p(state.rad),
             p(state.rng), p(state.depth), p(state.alive), p(state.aux),
             lanes, C, S, grid.runs_per_cluster, grid.run_size, row_w,
             media9.shape[0], grid.super_factor, grid.num_opaque_supers,
@@ -1071,7 +1150,8 @@ def _launch(grid, media9, misc, state, lanes, dim_base, *, background, max_depth
             int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group,
             None if iters is None else p(iters), ctypes.c_void_p(stream),
         )
-    trace_paths_mega.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            trace_paths_mega.launches += 1
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {build.error_string(err)}")
 

@@ -61,11 +61,12 @@ def _output(state: torch.Tensor) -> torch.Tensor:
     return (word >> 22) ^ word
 
 
-def next_float(state: torch.Tensor):
+def next_float(state: torch.Tensor, dim: int | None = None):
     """Step the stream and return (new_state, uniform float32 in [0, 1]).
-    Rank-2 states dispatch to the ``ld`` sampler."""
+    Rank-2 states dispatch to the ``ld`` sampler; ``dim``, where the caller
+    knows it, is the lanes' shared Sobol dimension (else read from them)."""
     if state.dim() == 2:
-        return _next_float_ld(state)
+        return _next_float_ld(state, dim)
     state = step(state)
     word = _output(state)
     return state, u32_to_float(word) * _INV_U32
@@ -125,9 +126,16 @@ def sobol_matrices() -> np.ndarray:
     return _sobol_mat
 
 
+_SOBOL_TABLES: dict = {}
+
+
 def sobol_table(device) -> torch.Tensor:
-    """The direction numbers as u32 words in an int64 tensor on ``device``."""
-    return torch.from_numpy(sobol_matrices().astype(np.int64)).to(device)
+    """The direction numbers as u32 words in an int64 tensor on ``device``
+    (made once per device; read only)."""
+    key = str(torch.device(device))
+    if key not in _SOBOL_TABLES:
+        _SOBOL_TABLES[key] = torch.from_numpy(sobol_matrices().astype(np.int64)).to(device)
+    return _SOBOL_TABLES[key]
 
 
 def sobol_value(s: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
@@ -148,11 +156,12 @@ def owen_draw(v: torch.Tensor, ph: torch.Tensor, dim) -> torch.Tensor:
     return u32_to_float(word) * _INV_U32
 
 
-def _next_float_ld(state: torch.Tensor):
+def _next_float_ld(state: torch.Tensor, dim: int | None = None):
     """One Owen-scrambled Sobol draw. ``state`` rows are
-    ``[sample_index, pixel_hash, dim]``; all lanes share the dim."""
+    ``[sample_index, pixel_hash, dim]``; all lanes share the dim, which is
+    ``dim`` when given (no value is then read back from the device)."""
     s, ph, d = state[:, 0], state[:, 1], state[:, 2]
-    d_row = int(d.max().item()) % SOBOL_DIMS
+    d_row = (int(d.max().item()) if dim is None else dim) % SOBOL_DIMS
     row = sobol_table(state.device)[d_row]
     value = owen_draw(sobol_value(s, row), ph, d)
     new_state = torch.stack([s, ph, (d + 1) & MASK32], dim=-1)

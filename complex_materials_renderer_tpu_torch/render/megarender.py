@@ -20,20 +20,33 @@ same counter seeds, same ld dimensions), so the images agree with it up to
 float rounding. ``render_pixels_mega``, which the JAX package lacks, runs
 the uniform parity pass over chosen pixels: the per-pixel check of a
 parity frame, which ``render_samples_mega`` (stateless modes only) cannot
-serve. Every function here is host control flow and PyTorch
-tensor glue; the per-pass kernel is ``trace_paths_mega``, or with
+serve. The per-pass kernel is ``trace_paths_mega``, or with
 ``trace_engine`` binned or pair the wavefront bounce loop over the binned
 tracer (render/binnedrender.py) or the pair sweep (render/pairrender.py).
+
+As the JAX package runs a tile render as one ``jit`` program, the pass
+loop is a fixed plan of steps (``PassPlan``: sorts, scatters, K1 and the
+pass control kernel of kernels/pass_control.py, which keeps the loop
+counts, ``live_blocks`` and ``dim0`` on the device). On the card the
+megakernel engine captures each call shape's steps once as a CUDA graph
+(``CallGraph``), its loops conditional nodes, and replays it: no value
+goes to the host between a call's first launch and its last. On the CPU,
+and on the card when asked (``executor='eager'``), ``HostLoop`` runs the
+same steps and reads the loop conditions on the host.
 """
 
 from __future__ import annotations
 
 import os
+import time
+import weakref
+from collections import OrderedDict
 from functools import lru_cache, partial
 
 import numpy as np
 import torch
 
+from ..kernels import pass_control as pc
 from ..kernels.cluster_grid import DeviceClusterGrid
 from ..kernels.megakernel import (
     BLOCK,
@@ -42,8 +55,10 @@ from ..kernels.megakernel import (
     fresh_state,
     pack_media,
     pack_misc,
+    plain_context,
     trace_paths_mega,
 )
+from ..kernels.megakernel import prepare as prepare_megakernel
 from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
 from .hitinfo import Lights, SceneArrays
@@ -145,94 +160,343 @@ def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr
                               direct=direct, ld=ld)
     if trace_engine != "mega":
         raise ValueError(f"trace engine must be mega|binned|pair, got {trace_engine!r}")
-    return partial(
-        trace_paths_mega, grid, media9, misc,
-        background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
-        nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
-        analytic_direct=(direct == "analytic"), ld=ld, debug=debug,
-    )
+    knobs = dict(background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
+                 nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
+                 analytic_direct=(direct == "analytic"), ld=ld, debug=debug)
+    # The plain version's constants, read to the host once, not per call.
+    plain = plain_context(grid, media9, misc, **knobs) if grid.device.type == "cpu" else None
+    kern = partial(trace_paths_mega, grid, media9, misc, plain=plain, **knobs)
+    kern.device_ctrl = True  # K1 takes the pass control block
+    kern.prepare = partial(prepare_megakernel, nee_max_media=nee_max_media, debug=debug)
+    return kern
 
 
 def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_media, rng_mode,
                   tir, direct, schedule_mode, schedule, sortkey, debug, trace_engine,
                   binned_list, binned_cap):
     """The pass loop (``_make_advance``) of passes ``step`` lanes wide over
-    the selected engine's kernel, on the device of ``grid``."""
-    dev = grid.device
-    media9 = pack_media(scene.media, scene.scale, device=dev)
-    misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=dev)
+    the selected engine's kernel, on the device of ``grid``; the media and
+    light rows come from the tables' ``PassCache``, uploaded once."""
+    cache = pass_cache(scene, grid, lights)
     kern = _make_kern(
-        grid, scene, lights, media9, misc, trace_engine=trace_engine, max_depth=max_depth,
-        rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir, direct=direct,
-        rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap, debug=debug,
+        grid, scene, lights, cache.media9, cache.misc, trace_engine=trace_engine,
+        max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
+        direct=direct, rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
+        debug=debug,
     )
     return _make_advance(kern, _resolve_dynamic(schedule_mode, grid),
                          _phase_schedule(step, max_depth, schedule), scene, sortkey, max_depth)
 
 
-def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
-    """Build the wavefront advance: run ``state`` to termination and return
-    (radiance, rng) banked by lane id — ``bank_rows`` real rows (one more
-    spill row takes the pad lanes).
+# Sample steps (pass-loop advances) run, counted on the host: one per call
+# of an advance outside a capture, and a graph's captured advances at each
+# replay.
+pass_advances = 0
 
-    ``dim0`` is the ld-mode Sobol dimension base. Alive lanes run exactly
-    ``max_iters`` bounce iterations per kernel call, so the base advances
-    by 8 * max_iters per call. ``kern`` updates the state in place."""
 
-    def _advance(state: MegaState, lane: torch.Tensor, bank_rows: int, dim0: int = 0):
+def _partition_into(state: MegaState, lane: torch.Tensor, scene: SceneArrays, sortkey: str):
+    """``_partition_live`` in place: the same permutation written back into
+    ``state`` and ``lane``, so that a loop body of a graph finds them at the
+    same addresses on every iteration."""
+    sorted_state, sorted_lane = _partition_live(state, lane, scene, sortkey)
+    for x, y in zip((*state, lane), (*sorted_state, sorted_lane)):
+        x.copy_(y)
+
+
+class HostLoop:
+    """The executor that reads the control block on the host at each loop
+    and guard: the CPU executor, and on the card the eager executor that
+    the graph is compared with.
+
+    With ``device_ctrl`` K1 takes the control block itself, and every other
+    step is a tensor operation, so only the loop control (``read``) brings a
+    value to the host (the CPU executor; its K1 and control launches count
+    in the device counts as a graph's do). Without, the host reads the run
+    flag, ``live_blocks`` and ``dim0`` before each kernel call and passes
+    them as ints (the eager executor, and the binned and pair engines, whose
+    per-pass kernels read host counts inside)."""
+
+    capturing = False
+
+    def __init__(self, device, device_ctrl: bool):
+        self.counts = pc.device_counts(device)
+        self.device_ctrl = device_ctrl
+
+    def control(self, alive, ctrl, flags, handle=None, **kw):
+        pc.pass_control(alive, ctrl, self.counts, flags | (pc.DEVICE_COUNT if self.device_ctrl
+                                                           else 0), **kw)
+
+    def cond(self):
+        return None
+
+    @staticmethod
+    def read(ctrl) -> bool:
+        """The host read of a loop or guard condition."""
+        return bool(ctrl[pc.CTRL_COND])
+
+    def loop(self, handle, ctrl, body):
+        while self.read(ctrl):
+            body(handle)
+
+    def guard(self, handle, ctrl, body):
+        if self.read(ctrl):
+            body(handle)
+
+    def k1(self, kern, state, cap, ctrl):
+        if self.device_ctrl:
+            kern(state, max_iters=cap, ctrl=ctrl)
+            return
+        live, dim0, run = ctrl[:3].tolist()
+        if run and live > 0:
+            kern(state, max_iters=cap, live_blocks=live, dim0=dim0)
+
+
+class GraphCapture:
+    """The executor that records a plan into the CUDA graph being captured:
+    each loop a conditional WHILE node, each guard an IF node, whose
+    condition the control kernel sets on the card; K1 takes the control
+    block. A body is captured on a stream of its own, and what it allocates
+    comes from a memory pool of the graph's (``body_pool``)."""
+
+    capturing = True
+
+    def __init__(self, device):
+        self.device = device
+        self.counts = pc.device_counts(device)
+        self.body_stream = pc.body_stream(device)
+        self.body_pool = torch.cuda.MemPool()
+        self.advances = 0
+
+    def control(self, alive, ctrl, flags, handle=None, **kw):
+        pc.pass_control(alive, ctrl, self.counts, flags | pc.DEVICE_COUNT, handle=handle, **kw)
+
+    def cond(self):
+        return pc.cond_handle(torch.cuda.current_stream(self.device))
+
+    def loop(self, handle, ctrl, body):
+        self._conditional(handle, True, body)
+
+    def guard(self, handle, ctrl, body):
+        self._conditional(handle, False, body)
+
+    def _conditional(self, handle, loop, body):
+        pc.cond_begin(torch.cuda.current_stream(self.device), handle, loop, self.body_stream)
+        try:
+            with torch.cuda.stream(self.body_stream), torch.cuda.use_mem_pool(self.body_pool):
+                body(handle)
+        finally:
+            pc.cond_end(self.body_stream)
+
+    def k1(self, kern, state, cap, ctrl):
+        kern(state, max_iters=cap, ctrl=ctrl)
+
+
+class PassPlan:
+    """The wavefront advance (``_make_advance``) as a fixed sequence of
+    steps: ``_partition_live`` sorts, bank scatters, K1 calls at a width
+    and bounce cap, control launches (``kernels.pass_control``), the spill
+    loop ``while (n_alive > next_w) { K1; control }``, and in the dynamic
+    modes ``while any alive { sort; control; K1; control }`` (all) or eight
+    guarded sorted bounces and a tail (hybrid).
+
+    Calling it runs ``state`` to termination and returns (radiance, rng)
+    banked by lane id: ``bank_rows`` real rows (one more spill row takes the
+    pad lanes). ``dim0`` is the ld-mode Sobol dimension base; it lives in
+    the control block, which advances it by 8 * max_iters after each K1
+    call that ran. The executor ``ex`` runs the steps: ``HostLoop`` (the
+    default for the state's device) or ``GraphCapture``."""
+
+    def __init__(self, kern, dynamic, sched, scene, sortkey, max_depth):
+        self.kern, self.dynamic, self.sched = kern, dynamic, sched
+        self.scene, self.sortkey, self.max_depth = scene, sortkey, max_depth
+        # The megakernel reads the control block; the binned and pair
+        # engines' kernels take host ints.
+        self.device_ctrl = bool(getattr(kern, "device_ctrl", False))
+
+    def prepare(self, device, lanes: int) -> None:
+        """Build and allocate, before a capture, what the steps launch."""
+        from ..kernels import build
+
+        build.pass_control()
+        self.kern.prepare(device, lanes)
+
+    def __call__(self, state: MegaState, lane: torch.Tensor, bank_rows: int, dim0: int = 0,
+                 ex=None):
+        global pass_advances
+
+        if ex is None:
+            ex = HostLoop(state.org.device, self.device_ctrl)
+        if ex.capturing:
+            ex.advances += 1
+        else:
+            pass_advances += 1
         dev = state.org.device
+        # The steps update the state, the lanes and the banks in place.
+        state = MegaState(*(x.clone() for x in state))
+        lane = lane.clone()
         rad_bank = torch.zeros((bank_rows + 1, 3), dtype=torch.float32, device=dev)
         rng_bank = torch.zeros((bank_rows + 1,), dtype=torch.int64, device=dev)
+        ctrl = pc.new_ctrl(dev)
+        ex.control(state.alive, ctrl, pc.INIT, dim0=int(dim0))
+        if self.dynamic != "off":
+            self._dynamic(ex, state, lane, ctrl)
+        else:
+            state, lane = self._phases(ex, state, lane, ctrl, rad_bank, rng_bank)
+        rad_bank[lane] = state.rad
+        rng_bank[lane] = state.rng
+        return rad_bank[:bank_rows], rng_bank[:bank_rows]
 
-        def n_alive(st) -> int:
-            return int(st.alive.sum())
+    def _sorted_bounce(self, ex, state, lane, ctrl, cap):
+        """Sort, bound K1 to the live leading blocks, run ``cap`` bounces."""
+        _partition_into(state, lane, self.scene, self.sortkey)
+        ex.control(state.alive, ctrl, pc.SET_LIVE)
+        ex.k1(self.kern, state, cap, ctrl)
 
-        if dynamic != "off":
-            def sorted_bounce(st, ln, d0):
-                st, ln = _partition_live(st, ln, scene, sortkey)
-                kern(st, max_iters=1, live_blocks=-(-n_alive(st) // BLOCK), dim0=d0)
-                return st, ln, d0 + DRAWS_PER_BOUNCE
+    def _dynamic(self, ex, state, lane, ctrl):
+        # The lanes keep their full width; K1 runs the live leading blocks.
+        if self.dynamic == "all":
+            def bounce(h):
+                self._sorted_bounce(ex, state, lane, ctrl, 1)
+                ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=DRAWS_PER_BOUNCE,
+                           handle=h)
 
-            if dynamic == "all":
-                while bool(state.alive.any()):
-                    state, lane, dim0 = sorted_bounce(state, lane, dim0)
-            else:  # hybrid
-                for _ in range(8):
-                    if bool(state.alive.any()):
-                        state, lane, dim0 = sorted_bounce(state, lane, dim0)
-                state, lane = _partition_live(state, lane, scene, sortkey)
-                kern(state, max_iters=max_depth,
-                     live_blocks=-(-n_alive(state) // BLOCK), dim0=dim0)
-            rad_bank[lane] = state.rad
-            rng_bank[lane] = state.rng
-            return rad_bank[:bank_rows], rng_bank[:bank_rows]
+            h = ex.cond()
+            ex.control(state.alive, ctrl, pc.COND, handle=h)
+            ex.loop(h, ctrl, bounce)
+            return
 
-        for i, (w, cap) in enumerate(sched):
+        def guarded(h):
+            self._sorted_bounce(ex, state, lane, ctrl, 1)
+            ex.control(state.alive, ctrl, pc.AFTER_K1, advance=DRAWS_PER_BOUNCE)
+
+        for _ in range(8):  # hybrid: 8 guarded sorted bounces, then the tail
+            h = ex.cond()
+            ex.control(state.alive, ctrl, pc.COND, handle=h)
+            ex.guard(h, ctrl, guarded)
+        self._sorted_bounce(ex, state, lane, ctrl, self.max_depth)
+        ex.control(state.alive, ctrl, pc.AFTER_K1, advance=DRAWS_PER_BOUNCE * self.max_depth)
+
+    def _phases(self, ex, state, lane, ctrl, rad_bank, rng_bank):
+        for i, (w, cap) in enumerate(self.sched):
             if i > 0:
                 # Shrink to this phase's width: live lanes first, bank the
                 # dropped tail (all dead: the spill loop below made sure
                 # that at most w lanes are alive).
-                state, lane = _partition_live(state, lane, scene, sortkey)
+                _partition_into(state, lane, self.scene, self.sortkey)
                 drop = lane[w:]
                 rad_bank[drop] = state.rad[w:]
                 rng_bank[drop] = state.rng[w:]
                 state = MegaState(*(x[:w] for x in state))
                 lane = lane[:w]
-            kern(state, max_iters=cap, dim0=dim0)
-            dim0 += DRAWS_PER_BOUNCE * cap
-            if i + 1 < len(sched):
-                # Paths that die slower than the schedule assumes keep
-                # bouncing at this width until they fit the next one.
-                next_w = sched[i + 1][0]
-                while n_alive(state) > next_w:
-                    kern(state, max_iters=cap, dim0=dim0)
-                    dim0 += DRAWS_PER_BOUNCE * cap
+                ex.control(state.alive, ctrl, pc.SET_FULL)
+            ex.k1(self.kern, state, cap, ctrl)
+            advance = DRAWS_PER_BOUNCE * cap
+            if i + 1 == len(self.sched):
+                ex.control(state.alive, ctrl, pc.AFTER_K1, advance=advance)
+                continue
+            # Paths that die slower than the schedule assumes keep bouncing
+            # at this width until they fit the next one.
+            next_w = self.sched[i + 1][0]
 
-        rad_bank[lane] = state.rad
-        rng_bank[lane] = state.rng
-        return rad_bank[:bank_rows], rng_bank[:bank_rows]
+            def spill(h, state=state, cap=cap, advance=advance, next_w=next_w):
+                ex.k1(self.kern, state, cap, ctrl)
+                ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=advance,
+                           threshold=next_w, handle=h)
 
-    return _advance
+            h = ex.cond()
+            ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=advance,
+                       threshold=next_w, handle=h)
+            ex.loop(h, ctrl, spill)
+        return state, lane
+
+
+def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
+    """Build the wavefront advance: the ``PassPlan`` of ``kern`` under the
+    dynamic mode or the static phase schedule ``sched``."""
+    return PassPlan(kern, dynamic, sched, scene, sortkey, max_depth)
+
+
+class PassCache:
+    """What the pass loop keeps across the calls over one scene's tables:
+    the media and light rows, uploaded once, and on the card the CUDA graph
+    of each call shape (``graphs``; the tables stay referenced, since a
+    graph reads them by address)."""
+
+    def __init__(self, scene, grid, lights):
+        self.tables = (scene, grid, lights)
+        self.media9 = pack_media(scene.media, scene.scale, device=grid.device)
+        self.misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=grid.device)
+        self.graphs: dict = {}
+
+
+_CACHES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+_RECENT: OrderedDict = OrderedDict()
+CACHED_TABLES = 8  # table sets whose PassCache is kept (a sharded render holds one a card)
+
+
+def pass_cache(scene, grid, lights) -> PassCache:
+    """The ``PassCache`` of these tables (by identity): kept while a caller
+    holds it (``Renderer`` does) or while it is one of the CACHED_TABLES
+    most recently used."""
+    key = (id(scene), id(grid), id(lights))
+    cache = _CACHES.get(key)
+    if cache is None:
+        cache = _CACHES[key] = PassCache(scene, grid, lights)
+    _RECENT[key] = cache
+    _RECENT.move_to_end(key)
+    while len(_RECENT) > CACHED_TABLES:
+        _RECENT.popitem(last=False)
+    return cache
+
+
+# (call key, seconds) of every graph captured in this process.
+captures: list = []
+
+
+class CallGraph:
+    """One call shape of a tile renderer captured as a CUDA graph: the
+    call's inputs are copied into static buffers, the graph replayed and its
+    outputs copied out. The capture runs ``program(ex, *inputs)`` once under
+    ``torch.cuda.graph`` with a ``GraphCapture`` executor; a failed capture
+    raises."""
+
+    def __init__(self, key, program, inputs, device):
+        self.inputs = [x.clone() for x in inputs]
+        self.ex = GraphCapture(device)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.device(device), torch.cuda.graph(self.graph,
+                                                         capture_error_mode="relaxed"):
+            self.outputs = program(self.ex, *self.inputs)
+        captures.append((key, time.perf_counter() - t0))
+
+    def __call__(self, inputs):
+        global pass_advances
+
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        pass_advances += self.ex.advances
+        return tuple(o.clone() for o in self.outputs)
+
+
+def _execute(scene, grid, lights, advance, key, program, inputs, executor: str, lanes: int):
+    """Run a tile program: with ``executor='auto'`` as a CUDA graph on the
+    card for the megakernel, on the eager executor on the card for the
+    binned and pair engines, on the CPU executor on the CPU; 'eager' asks
+    for the eager executor (the card's comparison for the graph). No
+    executor stands in for another that fails."""
+    dev = grid.device
+    if executor not in ("auto", "eager"):
+        raise ValueError(f"executor must be auto|eager, got {executor!r}")
+    if executor == "eager" or dev.type != "cuda" or not advance.device_ctrl:
+        return program(HostLoop(dev, advance.device_ctrl and executor == "auto"), *inputs)
+    cache = pass_cache(scene, grid, lights)
+    call = cache.graphs.get(key)
+    if call is None:
+        advance.prepare(dev, lanes)
+        call = cache.graphs[key] = CallGraph(key, program, inputs, dev)
+    return call(inputs)
 
 
 def _tile_lanes(width, height, pixel_offset, row_offset, full_w, dev):
@@ -247,10 +511,22 @@ def _tile_lanes(width, height, pixel_offset, row_offset, full_w, dev):
         [xs.reshape(-1) + pixel_offset, ys.reshape(-1) + row_offset], dim=-1
     )
     linear = pixel_xy[:, 1] * full_w + pixel_xy[:, 0]
-    perm_np, inv_np = _tile_perm(width, height)
-    perm = torch.from_numpy(perm_np.astype(np.int64)).to(dev)
-    inv = torch.from_numpy(inv_np.astype(np.int64)).to(dev)
+    perm, inv = _tile_perm_on(width, height, dev)
     return pixel_xy[perm], linear[perm], inv
+
+
+_TILE_PERMS: dict = {}
+
+
+def _tile_perm_on(width: int, height: int, dev):
+    """``_tile_perm`` as int64 tensors on ``dev``, uploaded once a shape, so
+    that a call of a shape seen before copies nothing from the host."""
+    key = (width, height, str(dev))
+    if key not in _TILE_PERMS:
+        perm_np, inv_np = _tile_perm(width, height)
+        _TILE_PERMS[key] = (torch.from_numpy(perm_np.astype(np.int64)).to(dev),
+                            torch.from_numpy(inv_np.astype(np.int64)).to(dev))
+    return _TILE_PERMS[key]
 
 
 def _step_lanes(r: int, rng_mode: str) -> int:
@@ -265,9 +541,9 @@ def _step_lanes(r: int, rng_mode: str) -> int:
 def _camera_state(camera, pixel_xy, words, full_resolution, ld=False) -> MegaState:
     """Fresh state of one camera ray per lane through ``pixel_xy``,
     jittered by the first two draws of the lanes' RNG ``words`` (PCG words,
-    or the (R, 2) words of ``seed_ld`` in ld mode)."""
-    words, j1 = rng_ops.next_float(words)
-    words, j2 = rng_ops.next_float(words)
+    or the (R, 3) words of ``seed_ld`` at dimension 0 in ld mode)."""
+    words, j1 = rng_ops.next_float(words, dim=0)
+    words, j2 = rng_ops.next_float(words, dim=1)
     org, direction = generate_rays(camera, pixel_xy, torch.stack([j1, j2], dim=-1),
                                    full_resolution)
     if ld:
@@ -308,7 +584,8 @@ def _sample_packing(step: int, num_samples: int):
 def _packed_passes(camera, pixel_xy, linear, step, num_samples, rng_mode,
                    sample_offset, full_resolution):
     """Yield (pixel group, state, ld dimension base) of every pass of the
-    counter and ld modes, in render order."""
+    counter and ld modes, in render order. ``sample_offset``: an int, or a
+    (1,) int64 tensor on the lanes' device."""
     dev = linear.device
     r = linear.shape[0]
     sg, pg = _sample_packing(step, num_samples)
@@ -326,7 +603,7 @@ def _packed_passes(camera, pixel_xy, linear, step, num_samples, rng_mode,
         pix_lane = pix_pad[base:base + pg].repeat_interleave(sg, dim=0)
         lin_lane = lin_pad[base:base + pg].repeat_interleave(sg)
         val_lane = val_pad[base:base + pg].repeat_interleave(sg)
-        s_lane = (sub + c * sg + int(sample_offset)) & rng_ops.MASK32
+        s_lane = (sub + c * sg + sample_offset) & rng_ops.MASK32
         if rng_mode == "ld":
             # Camera jitter = Sobol dims 0, 1; bounce draws start at dim 2.
             words, d0 = rng_ops.seed_ld(lin_lane, s_lane), 2
@@ -336,11 +613,12 @@ def _packed_passes(camera, pixel_xy, linear, step, num_samples, rng_mode,
         yield g, state._replace(alive=state.alive & val_lane), d0
 
 
-def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resolution):
+def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resolution, ex=None):
     """(radiance summed over ``num_samples`` samples, the next RNG words)
     of one lane a pixel in parity mode: each sample's camera ray is drawn
     from the pixel's stream, which the pass carries to the next sample.
-    The lanes are padded to whole blocks with dead lanes."""
+    The lanes are padded to whole blocks with dead lanes. ``ex``: the pass
+    plan's executor."""
     dev = pixel_xy.device
     r = pixel_xy.shape[0]
     rp = -(-r // BLOCK) * BLOCK
@@ -352,7 +630,7 @@ def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resoluti
     ])
     for _ in range(num_samples):
         state = _pad_lanes(_camera_state(camera, pixel_xy, rng_t, full_resolution), rp)
-        rad_t, rng_t = advance(state, lane0, r)
+        rad_t, rng_t = advance(state, lane0, r, ex=ex)
         acc = acc + rad_t
     return acc, rng_t
 
@@ -374,6 +652,44 @@ def first_pass_state(camera: Camera, resolution, num_samples: int, rng_mode: str
         return state, d0
     state = _camera_state(camera, pixel_xy, rng_ops.seed_from_pixel(linear), full)
     return _pad_lanes(state, step), 0
+
+
+
+
+def _sample_offset_on(sample_offset, dev) -> torch.Tensor:
+    """The sample offset as a (1,) int64 tensor on ``dev`` (an int is
+    written there by a fill, which reads nothing back)."""
+    if isinstance(sample_offset, torch.Tensor):
+        return sample_offset.to(dev, torch.int64).reshape(1)
+    return torch.full((1,), int(sample_offset), dtype=torch.int64, device=dev)
+
+
+def _beauty_program(ex, *inputs, advance, width, height, num_samples, rng_mode, step, full):
+    """The device work of one ``render_beauty_mega`` call: (image, next RNG
+    words in row-major order) from the camera, the tile's lanes and inverse
+    permutation, the parity words and the sample offset."""
+    camera, (pixel_xy_t, linear_t, inv, rng_t, offset) = Camera(*inputs[:5]), inputs[5:]
+    dev = linear_t.device
+    r = linear_t.shape[0]
+    if rng_mode in ("counter", "ld"):
+        sg, pg = _sample_packing(step, num_samples)
+        acc = torch.zeros((-(-r // pg) * pg, 3), dtype=torch.float32, device=dev)
+        lane = torch.arange(step, dtype=torch.int64, device=dev)
+        for g, state, d0 in _packed_passes(camera, pixel_xy_t, linear_t, step, num_samples,
+                                           rng_mode, offset, full):
+            rad_step, _ = advance(state, lane, step, dim0=d0, ex=ex)
+            # Pad pixels' lanes start dead, so their radiance stays zero.
+            acc[g * pg:(g + 1) * pg] += rad_step.reshape(pg, sg, 3).sum(dim=1)
+        acc = acc[:r]
+        # Counter/ld streams are re-derived per (pixel, sample): the
+        # carried rng is never consumed on resume; return the next chunk's
+        # seed position as a deterministic placeholder.
+        final_rng = rng_ops.seed_counter(linear_t, offset + num_samples)
+    else:
+        acc, final_rng = _parity_samples(advance, camera, pixel_xy_t, rng_t, num_samples, full,
+                                         ex=ex)
+    img = acc[inv].reshape(height, width, 3) / float(num_samples)
+    return img, final_rng[inv]
 
 
 def render_beauty_mega(
@@ -402,6 +718,7 @@ def render_beauty_mega(
     trace_engine: str = "mega",
     binned_list: int = 8,
     binned_cap: int = 12,
+    executor: str = "auto",
 ):
     """Render an (H, W, 3) tile of the beauty pass with the megakernel, on
     the device of ``grid`` (the tables and the camera must be there too).
@@ -410,54 +727,70 @@ def render_beauty_mega(
     the mean over this call's samples; ``pixel_offset``/``row_offset`` and
     ``full_resolution`` place the tile in the full frame; ``rng_state`` (u32
     words in int64, row-major) carries the parity stream across sample
-    chunks. ``schedule_mode``: auto | off | hybrid | all. ``trace_engine``
-    swaps the per-pass kernel: mega | binned (with ``binned_list`` and
-    ``binned_cap``) | pair. ``debug``: the megakernel's CMR_MEGA_DEBUG
-    ablations (``kernels.megakernel.ABLATIONS``); the other engines ignore it.
+    chunks; ``sample_offset`` is an int or a tensor. ``schedule_mode``: auto
+    | off | hybrid | all. ``trace_engine`` swaps the per-pass kernel: mega |
+    binned (with ``binned_list`` and ``binned_cap``) | pair. ``debug``: the
+    megakernel's CMR_MEGA_DEBUG ablations (``kernels.megakernel.ABLATIONS``);
+    the other engines ignore it.
+
+    On the card the megakernel engine runs the call as one CUDA graph per
+    call shape, as the JAX ``jit`` runs it as one program: no value goes to
+    the host between its first launch and its last. ``executor='eager'``
+    runs the same steps from the host instead (the comparison for the
+    graph; the binned and pair engines always run so).
     """
     if rng_mode not in ("parity", "counter", "ld"):
         raise ValueError(f"rng mode must be parity|counter|ld, got {rng_mode!r}")
     dev = grid.device
     width, height = resolution
-    full_w, full_h = full_resolution if full_resolution else (width, height)
-    pixel_xy_t, linear_t, inv = _tile_lanes(width, height, pixel_offset, row_offset, full_w, dev)
+    full = tuple(full_resolution) if full_resolution else (width, height)
+    pixel_xy_t, linear_t, inv = _tile_lanes(width, height, pixel_offset, row_offset, full[0], dev)
     r = linear_t.shape[0]
     step = _step_lanes(r, rng_mode)
-    _advance = _pass_advance(
-        scene, grid, lights, step, max_depth=max_depth, rr_depth=rr_depth,
-        nee_max_media=nee_max_media, rng_mode=rng_mode, tir=tir, direct=direct,
-        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
-        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
-    )
-
-    if rng_mode in ("counter", "ld"):
-        sg, pg = _sample_packing(step, num_samples)
-        acc = torch.zeros((-(-r // pg) * pg, 3), dtype=torch.float32, device=dev)
-        lane = torch.arange(step, dtype=torch.int64, device=dev)
-        for g, state, d0 in _packed_passes(camera, pixel_xy_t, linear_t, step, num_samples,
-                                           rng_mode, sample_offset, (full_w, full_h)):
-            rad_step, _ = _advance(state, lane, step, dim0=d0)
-            # Pad pixels' lanes start dead, so their radiance stays zero.
-            acc[g * pg:(g + 1) * pg] += rad_step.reshape(pg, sg, 3).sum(dim=1)
-        acc = acc[:r]
-        # Counter/ld streams are re-derived per (pixel, sample): the
-        # carried rng is never consumed on resume; return the next chunk's
-        # seed position as a deterministic placeholder.
-        final_rng = rng_ops.seed_counter(linear_t, int(sample_offset) + num_samples)
+    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+                 rng_mode=rng_mode, tir=tir, direct=direct, schedule_mode=schedule_mode,
+                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
+                 binned_list=binned_list, binned_cap=binned_cap)
+    advance = _pass_advance(scene, grid, lights, step, **knobs)
+    if rng_mode != "parity":
+        rng_t = torch.zeros((0,), dtype=torch.int64, device=dev)  # the streams are derived
+    elif rng_state is not None:
+        rng_t = rng_ops.to_u32(rng_state.to(dev))[_tile_perm_on(width, height, dev)[0]]
     else:
-        perm = torch.from_numpy(_tile_perm(width, height)[0].astype(np.int64)).to(dev)
-        rng_t = (
-            rng_ops.to_u32(rng_state.to(dev))[perm]
-            if rng_state is not None
-            else rng_ops.seed_from_pixel(linear_t)
-        )
-        acc, final_rng = _parity_samples(_advance, camera, pixel_xy_t, rng_t, num_samples,
-                                         (full_w, full_h))
-
-    img = acc[inv].reshape(height, width, 3) / float(num_samples)
+        rng_t = rng_ops.seed_from_pixel(linear_t)
+    inputs = (*camera, pixel_xy_t, linear_t, inv, rng_t, _sample_offset_on(sample_offset, dev))
+    program = partial(_beauty_program, advance=advance, width=width, height=height,
+                      num_samples=num_samples, rng_mode=rng_mode, step=step, full=full)
+    key = ("beauty", width, height, num_samples, full, tuple(sorted(knobs.items())))
+    img, final_rng = _execute(scene, grid, lights, advance, key, program, inputs, executor, step)
     if return_rng:
-        return img, final_rng[inv]
+        return img, final_rng
     return img
+
+
+def _samples_program(ex, *inputs, advance, ch, n_steps, rng_mode, full):
+    """The device work of one ``render_samples_mega`` call: each lane's
+    radiance from the camera and the padded (pixel, sample, valid) lanes."""
+    camera, (pixel_xy, sample_idx, valid) = Camera(*inputs[:5]), inputs[5:]
+    dev = pixel_xy.device
+    out = torch.zeros((n_steps * ch, 3), dtype=torch.float32, device=dev)
+    lane = torch.arange(ch, dtype=torch.int64, device=dev)
+    for base in range(0, n_steps * ch, ch):
+        pix = pixel_xy[base:base + ch]
+        val = valid[base:base + ch]
+        lin = pix[:, 1] * full[0] + pix[:, 0]
+        s_lane = sample_idx[base:base + ch]
+        if rng_mode == "ld":
+            # Camera jitter = Sobol dims 0, 1; bounce draws start at dim 2,
+            # the uniform path's stream for the same (pixel, sample).
+            words, d0 = rng_ops.seed_ld(lin, s_lane), 2
+        else:
+            words, d0 = rng_ops.seed_counter(lin, s_lane), 0
+        state = _camera_state(camera, pix, words, full, ld=rng_mode == "ld")
+        state = state._replace(alive=state.alive & val)
+        rad, _ = advance(state, lane, ch, dim0=d0, ex=ex)
+        out[base:base + ch] = torch.where(val[:, None], rad, 0.0)
+    return (out,)
 
 
 def render_samples_mega(
@@ -483,6 +816,7 @@ def render_samples_mega(
     binned_cap: int = 12,
     direct: str = "scatter",
     chunk_lanes: int = 1 << 16,
+    executor: str = "auto",
 ):
     """One camera sample per lane at caller-chosen (pixel, sample index)
     pairs: the entry point of adaptive sampling (megarender.py:591 of the
@@ -495,7 +829,8 @@ def render_samples_mega(
     stateless RNG modes are defined here (each (pixel, sample) stream is
     derived on its own), so a lane's radiance is the uniform path's for the
     same pair. Lanes run in waves of ``chunk_lanes``, each padded to whole
-    1024-lane blocks, through the engine's pass loop.
+    1024-lane blocks, through the engine's pass loop; on the card as one
+    CUDA graph per L, as ``render_beauty_mega`` (``executor``).
     """
     if rng_mode not in ("counter", "ld"):
         raise ValueError(
@@ -503,7 +838,7 @@ def render_samples_mega(
             f"(counter | ld), got {rng_mode!r}"
         )
     dev = grid.device
-    full_w, full_h = full_resolution
+    full = tuple(full_resolution)
     pixel_xy = torch.as_tensor(pixel_xy).to(dev, torch.int64)
     sample_idx = torch.as_tensor(sample_idx).to(dev, torch.int64) & rng_ops.MASK32
     valid = torch.as_tensor(valid).to(dev, torch.bool)
@@ -516,32 +851,25 @@ def render_samples_mega(
         pixel_xy = torch.cat([pixel_xy, pixel_xy.new_zeros((pad, 2))])
         sample_idx = torch.cat([sample_idx, sample_idx.new_zeros((pad,))])
         valid = torch.cat([valid, valid.new_zeros((pad,))])
-
-    advance = _pass_advance(
-        scene, grid, lights, ch, max_depth=max_depth, rr_depth=rr_depth,
-        nee_max_media=nee_max_media, rng_mode=rng_mode, tir=tir, direct=direct,
-        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
-        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
-    )
-
-    out = torch.zeros((n_steps * ch, 3), dtype=torch.float32, device=dev)
-    lane = torch.arange(ch, dtype=torch.int64, device=dev)
-    for base in range(0, n_steps * ch, ch):
-        pix = pixel_xy[base:base + ch]
-        val = valid[base:base + ch]
-        lin = pix[:, 1] * full_w + pix[:, 0]
-        s_lane = sample_idx[base:base + ch]
-        if rng_mode == "ld":
-            # Camera jitter = Sobol dims 0, 1; bounce draws start at dim 2,
-            # the uniform path's stream for the same (pixel, sample).
-            words, d0 = rng_ops.seed_ld(lin, s_lane), 2
-        else:
-            words, d0 = rng_ops.seed_counter(lin, s_lane), 0
-        state = _camera_state(camera, pix, words, (full_w, full_h), ld=rng_mode == "ld")
-        state = state._replace(alive=state.alive & val)
-        rad, _ = advance(state, lane, ch, dim0=d0)
-        out[base:base + ch] = torch.where(val[:, None], rad, 0.0)
+    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+                 rng_mode=rng_mode, tir=tir, direct=direct, schedule_mode=schedule_mode,
+                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
+                 binned_list=binned_list, binned_cap=binned_cap)
+    advance = _pass_advance(scene, grid, lights, ch, **knobs)
+    program = partial(_samples_program, advance=advance, ch=ch, n_steps=n_steps,
+                      rng_mode=rng_mode, full=full)
+    key = ("samples", n_steps * ch, ch, full, tuple(sorted(knobs.items())))
+    (out,) = _execute(scene, grid, lights, advance, key, program,
+                      (*camera, pixel_xy, sample_idx, valid), executor, ch)
     return out[:n]
+
+
+def _pixels_program(ex, *inputs, advance, num_samples, full):
+    """The device work of one ``render_pixels_mega`` call: (summed
+    radiance, next RNG words) of the pixels from the camera and their
+    parity words."""
+    camera, (pixel_xy, rng_t) = Camera(*inputs[:5]), inputs[5:]
+    return _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full, ex=ex)
 
 
 def render_pixels_mega(
@@ -566,6 +894,7 @@ def render_pixels_mega(
     binned_list: int = 8,
     binned_cap: int = 12,
     direct: str = "scatter",
+    executor: str = "auto",
 ):
     """``num_samples`` parity samples of each of caller-chosen pixels: the
     parity counterpart of ``render_samples_mega``, which the stateless
@@ -578,25 +907,29 @@ def render_pixels_mega(
     taken from ``rng_state`` (L,) (u32 words in int64) to carry it across
     calls. Returns the (L, 3) float32 mean over this call's samples on the
     device of ``grid`` (and with ``return_rng`` the next RNG words), so a
-    pixel's value is the one the uniform render of the frame gives it.
+    pixel's value is the one the uniform render of the frame gives it. On
+    the card as one CUDA graph per L, as ``render_beauty_mega``
+    (``executor``).
     """
     dev = grid.device
-    full_w, full_h = full_resolution
+    full = tuple(full_resolution)
     pixel_xy = torch.as_tensor(pixel_xy).to(dev, torch.int64)
     n = pixel_xy.shape[0]
     rng_t = (
         rng_ops.to_u32(torch.as_tensor(rng_state).to(dev))
         if rng_state is not None
-        else rng_ops.seed_from_pixel(pixel_xy[:, 1] * full_w + pixel_xy[:, 0])
+        else rng_ops.seed_from_pixel(pixel_xy[:, 1] * full[0] + pixel_xy[:, 0])
     )
-    advance = _pass_advance(
-        scene, grid, lights, -(-n // BLOCK) * BLOCK, max_depth=max_depth, rr_depth=rr_depth,
-        nee_max_media=nee_max_media, rng_mode="parity", tir=tir, direct=direct,
-        schedule_mode=schedule_mode, schedule=schedule, sortkey=sortkey, debug=debug,
-        trace_engine=trace_engine, binned_list=binned_list, binned_cap=binned_cap,
-    )
-    acc, next_rng = _parity_samples(advance, camera, pixel_xy, rng_t, num_samples,
-                                    (full_w, full_h))
+    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+                 rng_mode="parity", tir=tir, direct=direct, schedule_mode=schedule_mode,
+                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
+                 binned_list=binned_list, binned_cap=binned_cap)
+    rp = -(-n // BLOCK) * BLOCK
+    advance = _pass_advance(scene, grid, lights, rp, **knobs)
+    program = partial(_pixels_program, advance=advance, num_samples=num_samples, full=full)
+    key = ("pixels", n, num_samples, full, tuple(sorted(knobs.items())))
+    acc, next_rng = _execute(scene, grid, lights, advance, key, program,
+                             (*camera, pixel_xy, rng_t), executor, rp)
     img = acc / float(num_samples)
     if return_rng:
         return img, next_rng

@@ -301,6 +301,14 @@ class Renderer:
             os.remove(checkpoint_path)
         return acc
 
+    def _keep_passes(self) -> None:
+        """Hold the pass loop's cache of this renderer's tables (the media
+        and light rows, and on the card the CUDA graph of each call shape),
+        so that row blocks and later renders reuse it."""
+        from .render.megarender import pass_cache
+
+        self._passes = pass_cache(self.scene_arrays, self.accel, self.lights)
+
     def _beauty_fn(self):
         """The tile renderer the single-device loop calls each pass: the
         megarender pass loop with the engine's knobs, or the wavefront loop."""
@@ -311,6 +319,7 @@ class Renderer:
         engine = self._resolve_engine()
         if engine not in ("mega", "binned", "pair"):
             return partial(render_beauty, tir=opt.tir, direct=opt.direct)
+        self._keep_passes()
         knobs = _engine_knobs(engine)
         if (knobs["schedule_mode"] == "auto"
                 and opt.width * opt.height * opt.num_samples < (1 << 18)):
@@ -412,6 +421,7 @@ class Renderer:
             )
         from .render.megarender import _tile_perm, render_samples_mega
 
+        self._keep_passes()
         knobs = _engine_knobs(engine)
         W, H = opt.width, opt.height
         r = W * H

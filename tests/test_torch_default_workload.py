@@ -195,9 +195,12 @@ class _Stop(Exception):
 
 def _first_call(module, seen, name):
     """A stand-in for ``module``'s kernel wrapper that records the state of
-    its first call and stops the render there."""
+    its first call and stops the render there. The port's pass plan gives
+    K1 its ld base in the pass control block (``ctrl``), the JAX pass loop
+    as ``dim0``."""
     def first(grid, media9, misc, state, **kw):
-        seen[name] = ([np.asarray(x) for x in state], int(np.asarray(kw.get("dim0", 0))))
+        dim0 = kw["ctrl"][1] if kw.get("ctrl") is not None else kw.get("dim0", 0)
+        seen[name] = ([np.asarray(x) for x in state], int(np.asarray(dim0)))
         raise _Stop
     return first
 

@@ -26,7 +26,11 @@ atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
 ``render_samples_mega`` at the uniform (pixel, sample) pairs equals
 ``render_beauty_mega`` bit for bit on every mega-family engine, and four
 logical shards on the one card render the single image bit for bit in
-parity (atol 1e-6 for a sample split in counter)."""
+parity (atol 1e-6 for a sample split in counter). The mega pass captured
+as a CUDA graph (render/megarender.py, the default executor on the card)
+equals the eager executor (the same steps driven from the host) bit for
+bit, with as many K1 launches (counted on the card); K1 with the pass
+control block and the control kernel equal their plain versions."""
 
 import dataclasses
 import os
@@ -55,6 +59,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card present")
     return torch.device("cuda")
+
+
+def _k1_launches():
+    """K1's launches: its wrapper's and those of graph replays, which the
+    control kernel counts on the card."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    return mk.trace_paths_mega.launches + int(pc.device_counts("cuda")[0])
 
 
 def _box(c, h):
@@ -256,9 +268,9 @@ def test_renderer_cuda_matches_cpu(cuda):
     kw = dict(width=48, height=32, num_samples=4, shard="none", backend="cluster", engine="mega")
     scene = load_scene(obj, RenderOptions(obj_path=obj, **kw))
     opt = dataclasses.replace(scene.options, **kw)
-    before = mk.trace_paths_mega.launches
+    before = _k1_launches()
     img_gpu = Renderer(scene, opt, device="cuda").render()
-    assert mk.trace_paths_mega.launches > before
+    assert _k1_launches() > before
     img_cpu = Renderer(scene, opt, device="cpu").render()
     diff = np.abs(img_gpu - img_cpu).max(-1)
     assert int((diff > 1e-2).sum()) <= 2
@@ -656,3 +668,150 @@ def test_sharded_cuda_tile_split_matches_single(cuda, engine):
     img = render_beauty_sharded(*objs, (48, 32), 4, rng_mode="counter", engine=engine, **kw,
                                 mesh=make_render_mesh([cuda] * 4, sample_parallel=2))
     np.testing.assert_allclose(img.cpu().numpy(), ref.cpu().numpy(), atol=1e-6)
+
+
+# --- The mega pass as one device program -------------------------------------
+
+
+def _counted(fn):
+    """(result, K1 launches) of ``fn()``."""
+    before = _k1_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _k1_launches() - before
+
+
+@pytest.mark.parametrize("mode,schedule", [("off", ""), ("off", "1:1,8:1,32:2"), ("all", ""),
+                                           ("hybrid", "")])
+@pytest.mark.parametrize("rng", ["parity", "counter", "ld"])
+def test_graph_matches_eager(cuda, rng, mode, schedule):
+    """The graph executor against the eager executor: image and RNG words
+    bit-equal, and the K1 launches that the replay ran (counted on the
+    card) equal to the eager executor's."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda", rng=rng)
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(rng_mode=rng, schedule_mode=mode, schedule=schedule, max_depth=8, rr_depth=4,
+              full_resolution=(48, 32), return_rng=True)
+    (want, n_eager) = _counted(lambda: mr.render_beauty_mega(*objs, (48, 32), 4,
+                                                             executor="eager", **kw))
+    mr.render_beauty_mega(*objs, (48, 32), 4, **kw)  # captures
+    (got, n_graph) = _counted(lambda: mr.render_beauty_mega(*objs, (48, 32), 4, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert n_graph == n_eager > 0
+
+
+def test_graph_replays_with_new_inputs(cuda):
+    """One graph serves every call of a shape: two replays with other rows,
+    sample offsets and RNG words equal the eager executor's calls; the
+    adaptive and per-pixel entry points likewise."""
+    from complex_materials_renderer_tpu_torch.ops import rng as rng_ops
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda")
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=8, rr_depth=4, full_resolution=(48, 64), return_rng=True)
+    n_captures = len(mr.captures)
+    for row0, offset in ((0, 0), (16, 3), (32, 8)):
+        for rng in ("parity", "counter"):
+            words = rng_ops.seed_from_pixel(torch.arange(48 * 16, device=cuda) * 7 + row0)
+            args = (*objs, (48, 16), 2)
+            call = dict(kw, rng_mode=rng, row_offset=row0, sample_offset=offset,
+                        rng_state=words)
+            want = mr.render_beauty_mega(*args, executor="eager", **call)
+            got = mr.render_beauty_mega(*args, **call)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(mr.captures) - n_captures == 2  # one graph a mode
+    pix = torch.tensor([[3, 4], [40, 60], [47, 0]], device=cuda)
+    kwp = dict(max_depth=8, rr_depth=4, return_rng=True)
+    for seed in (0, 5):
+        want = mr.render_pixels_mega(*objs, pix + seed, 3, (48, 64), executor="eager", **kwp)
+        got = mr.render_pixels_mega(*objs, pix + seed, 3, (48, 64), **kwp)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        sidx = torch.tensor([0, 1, 9], device=cuda) + seed
+        valid = torch.tensor([True, seed > 0, True], device=cuda)
+        kws = dict(max_depth=8, rr_depth=4)
+        want = mr.render_samples_mega(*objs, pix, sidx, valid, (48, 64), executor="eager", **kws)
+        got = mr.render_samples_mega(*objs, pix, sidx, valid, (48, 64), **kws)
+        assert torch.equal(got, want)
+
+
+def test_graph_call_makes_no_sync(cuda):
+    """A replayed call raises nothing under sync-debug 'error': no value
+    goes to the host between its first launch and its last."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda")
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    for rng in ("parity", "ld"):
+        kw = dict(rng_mode=rng, max_depth=8, rr_depth=4, full_resolution=(48, 32),
+                  sample_offset=2, return_rng=True)
+        mr.render_beauty_mega(*objs, (48, 32), 2, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img, _ = mr.render_beauty_mega(*objs, (48, 32), 2, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("live,dim0,run", [(1, 2, 1), (2, 5000, 1), (2, 0, 0)])
+def test_kernel_with_control_block_matches_plain(cuda, live, dim0, run):
+    """K1 with the pass control block equals its plain version with the
+    same block (ld, one bounce), and leaves the lanes beyond its live
+    blocks as they were."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    scene, grid, lights = _scene(cuda)
+    media9 = mk.pack_media(scene.media, scene.scale, device=cuda)
+    misc = mk.pack_misc(lights, scene.world_lo, scene.world_hi, device=cuda)
+    st = _state(2048 + 512, cuda, 5, ld=True)
+    ctrl = pc.new_ctrl(cuda)
+    ctrl[:3] = torch.tensor([live, dim0, run], dtype=torch.int32)
+    kw = dict(max_depth=8, rr_depth=4, nee_max_media=4, max_iters=1, ld=True, ctrl=ctrl)
+    got = mk.trace_paths_mega(grid, media9, misc, mk.MegaState(*(x.clone() for x in st)), **kw)
+    want = mk.trace_paths_mega_plain(grid, media9, misc,
+                                     mk.MegaState(*(x.clone() for x in st)), **kw)
+    kept = live * 1024 if run else 0
+    for a, b, x in zip(got, want, st):
+        assert torch.equal(a, b)
+        assert torch.equal(a[kept:], x[kept:])
+
+
+@pytest.mark.parametrize("n", [65536, 49920, 3072, 65541])
+def test_control_kernel_matches_plain(cuda, n):
+    """The control kernel equals its plain version on the card (the alive
+    count read 16 bytes at a time, and the tail byte by byte)."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    alive = torch.rand(n, device=cuda, generator=gen) < 0.4
+    for flags, kw in ((pc.INIT | pc.COND | pc.DEVICE_COUNT, dict(dim0=2, threshold=1024)),
+                      (pc.AFTER_K1 | pc.SET_LIVE | pc.COND | pc.DEVICE_COUNT,
+                       dict(advance=8, threshold=0)),
+                      (pc.SET_FULL | pc.AFTER_K1, dict(advance=256))):
+        ctrl = torch.tensor([3, 10, 1, 0, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        ctrl_p, counts_p = ctrl.clone(), counts.clone()
+        pc.pass_control(alive, ctrl, counts, flags, **kw)
+        pc.pass_control_plain(alive, ctrl_p, counts_p, flags, **kw)
+        assert torch.equal(ctrl, ctrl_p) and torch.equal(counts, counts_p)
+
+
+def test_many_graphs_capture(cuda):
+    """More captures than torch's stream pool holds streams (32 a device):
+    the conditional bodies are captured on a stream of the port's own, so
+    no capture finds its own stream handed out for a body."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda")
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    kw = dict(max_depth=8, rr_depth=4, full_resolution=(48, 64), schedule="1:1,8:1,32:2")
+    n_captures = len(mr.captures)
+    for rows in range(1, 41):
+        got = mr.render_beauty_mega(*objs, (48, rows), 1, **kw)
+    assert len(mr.captures) - n_captures == 40
+    assert torch.equal(got, mr.render_beauty_mega(*objs, (48, 40), 1, executor="eager", **kw))

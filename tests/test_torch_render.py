@@ -110,7 +110,8 @@ def test_first_pass_state_is_the_first_kernel_input(rng, monkeypatch):
     seen = []
 
     def first_call(grid, media9, misc, state, **kw):
-        seen.append((tmk.MegaState(*(x.clone() for x in state)), kw.get("dim0", 0)))
+        # The pass plan gives K1 its ld base in the pass control block.
+        seen.append((tmk.MegaState(*(x.clone() for x in state)), int(kw["ctrl"][1])))
         raise Stop
 
     objs = _port_objects()

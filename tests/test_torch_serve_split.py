@@ -302,10 +302,14 @@ def test_sweep_group_rule():
 @pytest.mark.parametrize("kind", sorted(build._KINDS))
 def test_launch_argtypes_match_the_c_signatures(kind):
     """The ctypes argtypes of each library's launch function follow its C
-    signature in csrc/: a pointer where the C parameter is one, an int
-    elsewhere (ctypes would pass a pointer as a 32-bit int and cut it)."""
+    signature in csrc/: a pointer where the C parameter is one, a 64-bit
+    int where it is an ``unsigned long long`` (a graph conditional handle),
+    an int elsewhere (ctypes would pass a pointer as a 32-bit int and cut
+    it)."""
     source, _, name, argtypes = build._KINDS[kind]
     with open(os.path.join(REPO, "complex_materials_renderer_tpu_torch", "csrc", source)) as f:
         params = re.search(r"int " + name + r"\(([^)]*)\)", f.read()).group(1).split(",")
-    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    want = [ctypes.c_void_p if "*" in p
+            else ctypes.c_ulonglong if "unsigned long long" in p else ctypes.c_int
+            for p in params]
     assert argtypes == want
