@@ -111,7 +111,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    than notrace with cullonly on the first launch (its closest-hit culls
    were not compiled away);
 5. drives the wavefront path: the same showcase render with ``--engine
-   wavefront`` after a small warm-up, timed, with K3's launch count, held
+   wavefront`` as one CUDA graph a call shape, timed after a render that
+   captures it, with K3's launch count (counted on the card), held
    against the megakernel image (non-flip RMSE <= 1e-3, flip pixels at most
    0.6% of the image: the golden budget of 24 of 4,096, scaled); the
    showcase_gate golden through the wavefront engine; the depth, normal
@@ -120,10 +121,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    scenes/isobox.obj at 64x64 with 2 spp through ``--backend bvh --engine
    wavefront`` on the card against tests/golden/isobox.npz (the gate);
 5b. drives the binned and pair paths: showcase 512x512 at 4 spp through
-   ``--engine binned`` and ``--engine pair``, each timed after a small
-   warm-up with its K3-K6 launch counts (each count set to 0 just before
-   the render), held against the megakernel image of the same render
-   under the wavefront's gate, and showcase_gate through each engine;
+   ``--engine binned`` and ``--engine pair`` as CUDA graphs, each timed
+   after a render that captures it, with its K3-K6 launch counts (each
+   count set to 0 just before the render; a replay's counted on the card),
+   held against the megakernel image of the same render under the
+   wavefront's gate, and showcase_gate through each engine;
+5b'. the wavefront-style engines as device programs: for the wavefront
+   engine on the clusters and on the BVH and the binned and pair engines
+   (showcase 128x128@4 through the Renderer; binned and pair also at
+   128x128@2 through ``render_beauty_mega`` in the static phase schedule)
+   and the binned engine on the many-cluster scene (64x64@2), the graph's
+   image and RNG words bit-equal to the eager executor's with equal K1,
+   K3, K4, K5 and K6 launches (the graph's counted on the card), and one
+   call of each under ``torch.cuda.set_sync_debug_mode("error")``; K5 and
+   K6 taking their counts from the control block held bit-equal to their
+   plain versions at every rung of their launch-shape ladders and timed
+   beside their host-int launches, 0 live blocks and 0 pairs launching
+   nothing; with ``--profile`` one 65,536-lane pass of each engine profiled
+   on the graph and on the eager executor (the busy share);
 5c. drives adaptive sampling: ``render_samples_mega`` at exactly the
    uniform (pixel, sample) pairs of showcase 120x120 at 2 spp (28,800
    lanes), averaged per pixel, must equal ``render_beauty_mega`` of the
@@ -373,6 +388,18 @@ def device_counts() -> list:
     return tot
 
 
+def card_kernel_counts() -> dict:
+    """The K3, K4, K5 and K6 launches that graph replays ran, counted on
+    the cards (``pass_control.kernel_counts``), summed over the cards."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    tot = dict.fromkeys(pc.COUNTED_KERNELS, 0)
+    for d in pc.counted_devices():
+        for k, n in zip(pc.COUNTED_KERNELS, pc.kernel_counts(d).tolist()):
+            tot[k] += n
+    return tot
+
+
 def reset_launch_counts() -> None:
     """Set the launch count of every kernel wrapper, and the counts on the
     cards, to 0."""
@@ -390,12 +417,14 @@ def reset_launch_counts() -> None:
     pc.pass_control.launches = 0
     for d in pc.counted_devices():
         pc.device_counts(d).zero_()
+        pc.kernel_counts(d).zero_()
 
 
 def launch_counts() -> dict:
-    """The launch count of every kernel: K1's and the control kernel's
-    launched by their wrappers plus those that graph replays ran (counted
-    on the card)."""
+    """The launch count of every kernel: those launched by its wrapper plus
+    those that graph replays ran (counted on the card: K1's and the control
+    kernel's by the control kernel, K3-K6's by an add beside each captured
+    launch)."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
@@ -403,8 +432,10 @@ def launch_counts() -> dict:
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     on_card = device_counts()
-    return {"K1": mk.trace_paths_mega.launches + on_card[0], "K3": ctr.trace_core.launches,
-            "K4": bt.listing.launches, "K5": bt.run_round.launches, "K6": ps.sweep.launches,
+    kc = card_kernel_counts()
+    return {"K1": mk.trace_paths_mega.launches + on_card[0],
+            "K3": ctr.trace_core.launches + kc["K3"], "K4": bt.listing.launches + kc["K4"],
+            "K5": bt.run_round.launches + kc["K5"], "K6": ps.sweep.launches + kc["K6"],
             "PC": pc.pass_control.launches + on_card[1]}
 
 
@@ -413,12 +444,17 @@ class uncounted:
     compare or time a kernel are not the main path's."""
 
     def __enter__(self):
+        from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+        from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
         from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+        from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
         from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
-        self.saved = launch_counts()
-        self.host = (mk.trace_paths_mega.launches, pc.pass_control.launches)
-        self.cards = {d: pc.device_counts(d).clone() for d in pc.counted_devices()}
+        self.host = (mk.trace_paths_mega.launches, pc.pass_control.launches,
+                     ctr.trace_core.launches, bt.listing.launches, bt.run_round.launches,
+                     ps.sweep.launches)
+        self.cards = {d: (pc.device_counts(d).clone(), pc.kernel_counts(d).clone())
+                      for d in pc.counted_devices()}
 
     def __exit__(self, *exc):
         from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
@@ -427,14 +463,15 @@ class uncounted:
         from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
         from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
-        mk.trace_paths_mega.launches, pc.pass_control.launches = self.host
-        ctr.trace_core.launches = self.saved["K3"]
-        bt.listing.launches = self.saved["K4"]
-        bt.run_round.launches = self.saved["K5"]
-        ps.sweep.launches = self.saved["K6"]
+        (mk.trace_paths_mega.launches, pc.pass_control.launches, ctr.trace_core.launches,
+         bt.listing.launches, bt.run_round.launches, ps.sweep.launches) = self.host
         for d in pc.counted_devices():
-            pc.device_counts(d).copy_(self.cards[d]) if d in self.cards \
-                else pc.device_counts(d).zero_()
+            if d in self.cards:
+                pc.device_counts(d).copy_(self.cards[d][0])
+                pc.kernel_counts(d).copy_(self.cards[d][1])
+            else:
+                pc.device_counts(d).zero_()
+                pc.kernel_counts(d).zero_()
         return False
 
 
@@ -1008,8 +1045,9 @@ CONTROL_REPS = 200
 
 
 class executor_as:
-    """Makes the Renderer's calls of ``render_beauty_mega`` take
-    ``executor`` ('eager': the host loop the graph is compared with)."""
+    """Makes the Renderer's calls of ``render_beauty_mega`` and of the
+    wavefront ``render_beauty`` take ``executor`` ('eager': the host loop
+    the graph is compared with)."""
 
     def __init__(self, executor):
         self.executor = executor
@@ -1017,13 +1055,17 @@ class executor_as:
     def __enter__(self):
         from functools import partial
 
+        from complex_materials_renderer_tpu_torch.render import integrator as it
         from complex_materials_renderer_tpu_torch.render import megarender as mr
 
-        self.mr, self.orig = mr, mr.render_beauty_mega
-        mr.render_beauty_mega = partial(self.orig, executor=self.executor)
+        self.saved = [(mr, "render_beauty_mega", mr.render_beauty_mega),
+                      (it, "render_beauty", it.render_beauty)]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, partial(fn, executor=self.executor))
 
     def __exit__(self, *exc):
-        self.mr.render_beauty_mega = self.orig
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
         return False
 
 
@@ -1455,8 +1497,24 @@ def k3_vs_plain(r, r_quads_off, r_part):
     return worst
 
 
+def graph_warm(r):
+    """Render once with ``r`` (which captures its call shapes' graphs) and
+    return (seconds, captures, their seconds)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    n_cap = len(mr.captures)
+    t0 = time.perf_counter()
+    r.render()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, len(mr.captures) - n_cap,
+            sum(s for _, s in mr.captures[n_cap:]))
+
+
 def wavefront_path(main_opts, mega_img):
-    """The wavefront engine on the main scene, held against the
+    """The wavefront engine on the main scene, as one CUDA graph a call
+    shape (timed after a render that captures it), held against the
     megakernel image of the same configuration."""
     import torch
 
@@ -1466,28 +1524,26 @@ def wavefront_path(main_opts, mega_img):
     scene, opt = main_opts
     opt = dataclasses.replace(opt, engine="wavefront")
     r = Renderer(scene, opt)
-    t0 = time.perf_counter()
-    Renderer(scene, dataclasses.replace(opt, width=64, height=64, num_samples=1)).render()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    with recorded_groups(ctr) as groups:  # the warm-up captures the graphs
+        warm, n_cap, cap_s = graph_warm(r)
     reset_launch_counts()
     torch.cuda.synchronize()
-    with recorded_groups(ctr) as groups:
-        t0 = time.perf_counter()
-        img = r.render()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    launches = ctr.trace_core.launches
-    print(f"   K3 launches of the wavefront render by threads per ray: "
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()["K3"]
+    print(f"   K3 launches recorded at capture by threads per ray: "
           f"{len(groups.seen)} widths; " + ", ".join(
               f"G={g} x{sum(n for (_, gg), n in groups.seen.items() if gg == g)}"
               for g in sorted({g for _, g in groups.seen})), flush=True)
     paths = opt.width * opt.height * opt.num_samples
     nonflip, flips = flip_gate(img, mega_img)
     budget = WAVEFRONT_FLIP_FRAC * opt.width * opt.height
-    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, wavefront: warm-up "
-          f"(64x64@1) {warm:.3f} s, timed {dt:.3f} s = {paths / dt / 1e6:.4f} Mpaths/s; K3 launches "
-          f"{launches}; image mean {float(np.mean(img)):.6f}; against the megakernel image: "
+    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, wavefront (graph): "
+          f"warm-up render {warm:.3f} s ({n_cap} captures, {cap_s:.3f} s), timed {dt:.3f} s = "
+          f"{paths / dt / 1e6:.4f} Mpaths/s; K3 launches {launches} (on the card); image mean "
+          f"{float(np.mean(img)):.6f}; against the megakernel image: "
           f"non-flip RMSE {nonflip:.3e} (limit 1e-3), flip pixels {flips} (budget {budget:.0f})",
           flush=True)
     if launches <= 0:
@@ -1496,7 +1552,7 @@ def wavefront_path(main_opts, mega_img):
         fail("wavefront image is not finite or has the wrong shape")
     if not (nonflip <= 1e-3 and flips <= budget):
         fail("the wavefront image fails the gate against the megakernel image")
-    return launches
+    return launches, paths / dt / 1e6
 
 
 def aov_phase(main_opts):
@@ -2076,8 +2132,9 @@ def whole_traces(r, media9, sets):
 
 def engine_path(main_opts, engine, mega_img):
     """The showcase render through ``--engine binned`` or ``pair`` at
-    512x512 and ENGINE_SPP samples, timed after a 64x64 one-sample
-    warm-up, held against the megakernel image of the same render."""
+    512x512 and ENGINE_SPP samples, as one CUDA graph a call shape (timed
+    after a render that captures it), held against the megakernel image of
+    the same render."""
     import torch
 
     from complex_materials_renderer_tpu_torch.renderer import Renderer
@@ -2087,10 +2144,7 @@ def engine_path(main_opts, engine, mega_img):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         r = Renderer(scene, opt)
-        t0 = time.perf_counter()
-        Renderer(scene, dataclasses.replace(opt, width=64, height=64, num_samples=1)).render()
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
+        warm, n_cap, cap_s = graph_warm(r)
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2102,9 +2156,10 @@ def engine_path(main_opts, engine, mega_img):
     nonflip, flips = flip_gate(img, mega_img)
     budget = WAVEFRONT_FLIP_FRAC * opt.width * opt.height
     rate = paths / dt / 1e6
-    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, {engine}: warm-up "
-          f"(64x64@1) {warm:.3f} s, timed {dt:.3f} s = {rate:.4f} Mpaths/s; launches K3 "
-          f"{counts['K3']}, K4 {counts['K4']}, K5 {counts['K5']}, K6 {counts['K6']}; image mean "
+    print(f"   showcase {opt.width}x{opt.height}@{opt.num_samples} parity, {engine} (graph): "
+          f"warm-up render {warm:.3f} s ({n_cap} captures, {cap_s:.3f} s), timed {dt:.3f} s = "
+          f"{rate:.4f} Mpaths/s; launches K3 {counts['K3']}, K4 {counts['K4']}, K5 "
+          f"{counts['K5']}, K6 {counts['K6']} (on the card); image mean "
           f"{float(np.mean(img)):.6f}; against the megakernel image: non-flip RMSE "
           f"{nonflip:.3e} (limit 1e-3), flip pixels {flips} (budget {budget:.0f})", flush=True)
     need = ("K4", "K5") if engine == "binned" else ("K3", "K4", "K6")
@@ -2116,6 +2171,284 @@ def engine_path(main_opts, engine, mega_img):
     if not (nonflip <= 1e-3 and flips <= budget):
         fail(f"the {engine} image fails the gate against the megakernel image")
     return counts, rate
+
+
+def k56_control_vs_plain(r, media9, sets):
+    """K5 and K6 with their counts from the control block (as the graphs
+    launch them: one instance a rung of their ladders) against their plain
+    versions and their host-int launches on the card. K5 on the first round
+    of the binned closest trace (65,536 primary lanes, L = 8): at each rung
+    of its (G, S) ladder with the live blocks in the block set to the
+    rung's most (at most the round's own, so the round is whole), bit-equal
+    to the plain round at those live blocks and timed beside the host-int
+    launch at the same G; then 0 live blocks, which serve nothing. K6 on
+    the pair engine's NEE sweep (L = 4): the count of its valid pairs in
+    the block at its rung, timed beside the host-int launch, then at every
+    other rung with the count set to that rung's most (the output does not
+    depend on how the pairs are split between the tiles and the strided
+    pass), each bit-equal to the plain sweep; then 0 pairs. Returns
+    {kernel: [row, ...]}."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    g = r.accel
+    out = {"K5": [], "K6": []}
+    with uncounted():
+        o, d, eff = sets["full"]
+        K, rays5, keys, state, lb = first_round(r, "full", o, d, eff, 8)
+        n_blocks = keys.shape[1] // bt.BLOCK
+        for a, b, G in bt.round_ladder(n_blocks):
+            live = min(b, lb)
+            if live < a:
+                continue
+            want = bt.round_plain(g, media9, live, rays5, keys, state, "full", K, 12)
+            ctrl = pc.new_ctrl("cuda")
+            ctrl[pc.CTRL_LIVE] = live
+            got = bt.run_round(g, media9, None, rays5, keys.clone(), state.clone(), "full", K,
+                               12, ctrl=ctrl, group=G)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                fail(f"K5 with the control block differs from its plain version (rung G={G}, "
+                     f"{live} live blocks)")
+            copies = [(keys.clone(), state.clone()) for _ in range(50)]
+            cuda_time(lambda i: bt.run_round(g, media9, None, rays5, *copies[i], "full", K, 12,
+                                             ctrl=ctrl, group=G), 3)
+            ms_ctrl = cuda_time(lambda i: bt.run_round(
+                g, media9, None, rays5, *copies[3 + i], "full", K, 12, ctrl=ctrl, group=G), 20)
+            ms_host = cuda_time(lambda i: bt.run_round(
+                g, media9, live, rays5, *copies[25 + i], "full", K, 12), 20)
+            row = {"rung": [a, b], "G": G, "S": split_of(G)[1], "live_blocks": live,
+                   "grid_blocks": min(b, n_blocks), "ctrl_ms": ms_ctrl, "host_ms": ms_host}
+            out["K5"].append(row)
+            print(f"   K5 with the control block, rung G={G} S={row['S']} (live blocks {a}-{b}, "
+                  f"grid {row['grid_blocks']} blocks), {live} live blocks: bit-equal to plain; "
+                  f"{ms_ctrl:.5f} ms a launch beside the host-int launch's {ms_host:.5f} ms",
+                  flush=True)
+        ctrl = pc.new_ctrl("cuda")
+        k0, s0 = keys.clone(), state.clone()
+        got = bt.run_round(g, media9, None, rays5, k0, s0, "full", K, 12, ctrl=ctrl,
+                           group=bt.round_ladder(n_blocks)[0][2])
+        torch.cuda.synchronize()
+        if not (torch.equal(k0, keys) and torch.equal(s0, state) and int(got[2].sum()) == 0):
+            fail("K5 with 0 live blocks in the control block changed a lane")
+        # K6
+        o, d, eff = sets["nee"]
+        rays = rays6(o, d)
+        lkeys, _ = bt.listing_plain(g, rays, eff, fresh_tlo(eff), PAIR_LIST)
+        pair_rays, cid, _ = ps.expand_pairs(lkeys, rays, eff, 8)
+        P = cid.shape[0]
+        pairs = int((cid < bt.BIGC).sum())
+        want = ps.sweep_plain(g, media9, pair_rays, cid, "nee", K)
+        for a, b, G in ps.sweep_ladder(P):
+            count = pairs if a <= pairs <= b else min(b, P)
+            ctrl = pc.new_ctrl("cuda")
+            ctrl[pc.CTRL_NALIVE] = count
+            got = ps.sweep(g, media9, pair_rays, cid, "nee", K, ctrl=ctrl, group=G)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K6 with the control block differs from its plain version (rung G={G}, "
+                     f"count {count})")
+            ms_ctrl = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee", K,
+                                                   ctrl=ctrl, group=G), 20)
+            row = {"rung": [a, b], "G": G, "count": count, "real": count == pairs,
+                   "grid_pairs": max(bt.BLOCK, -(-min(b, P) // bt.BLOCK) * bt.BLOCK),
+                   "ctrl_ms": ms_ctrl, "host_ms": None}
+            if count == pairs:
+                row["host_ms"] = cuda_time(lambda i: ps.sweep(g, media9, pair_rays, cid, "nee",
+                                                              K, pairs), 20)
+            out["K6"].append(row)
+            print(f"   K6 with the control block, rung G={G} (pairs {a}-{b}, grid {row['grid_pairs']}"
+                  f" pairs), count {count}" + (" (the sweep's own)" if row["real"] else "")
+                  + f": bit-equal to plain; {ms_ctrl:.5f} ms a launch" + (
+                      f" beside the host-int launch's {row['host_ms']:.5f} ms"
+                      if row["host_ms"] is not None else ""), flush=True)
+        seeds = ps.seed_state_bits(pair_rays, "nee", K)
+        hs = ps.sweep(g, media9, pair_rays, cid, "nee", K, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(hs, seeds):
+            fail("K6 with 0 pairs did not keep every pair's seed state")
+    return out
+
+
+ENGINE_GRAPH_SIZE = (128, 128, 4)  # the engines' graph-against-eager renders
+ENGINE_GRAPH_TILED = (64, 64, 2)  # binned on the many-cluster scene
+ENGINE_GRAPH_BVH = (64, 64, 2)  # wavefront on the BVH (the plain walk)
+
+
+def counted_all(fn):
+    """(result, seconds, launch counts: the wrappers' and those counted on
+    the card) of ``fn()``, the counts left as they were."""
+    with uncounted():
+        reset_launch_counts()
+        out, dt = timed_render(fn)
+        return out, dt, launch_counts()
+
+
+def engine_graph_against_eager(label, fn_eager, fn_graph, used=()):
+    """The graph executor's result bit-equal to the eager executor's, with
+    the same K1, K3, K4, K5 and K6 launches (eager: the wrappers' counts;
+    graph: those counted on the card by a replay after the capturing
+    call), each kernel of ``used`` launched; returns (eager s, graph s,
+    captures, capture s, counts)."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    eager, t_eager, n_eager = counted_all(fn_eager)
+    n_cap = len(mr.captures)
+    _, t_first, _ = counted_all(fn_graph)
+    caps = len(mr.captures) - n_cap
+    cap_s = sum(s for _, s in mr.captures[n_cap:])
+    graph, t_graph, n_graph = counted_all(fn_graph)
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    graph = graph if isinstance(graph, tuple) else (graph,)
+    equal = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                for a, b in zip(eager, graph))
+    kinds = ("K1", "K3", "K4", "K5", "K6")
+    print(f"   {label}: graph bit-equal to eager {equal}; launches eager "
+          f"{[n_eager[k] for k in kinds]}, graph (on the card) {[n_graph[k] for k in kinds]} "
+          f"(K1, K3, K4, K5, K6); eager {t_eager:.4f} s, graph {t_graph:.4f} s (first call "
+          f"{t_first:.4f} s, {caps} captures {cap_s:.4f} s)", flush=True)
+    if not equal:
+        fail(f"{label}: the graph executor differs from the eager executor")
+    if any(n_graph[k] != n_eager[k] for k in kinds) or any(n_graph[k] <= 0 for k in used):
+        fail(f"{label}: the graph's launches differ from the eager executor's, or a kernel of "
+             f"{used} was launched no time")
+    return {"eager_s": t_eager, "graph_s": t_graph, "captures": caps, "capture_s": cap_s,
+            "counts": {k: n_graph[k] for k in kinds}}
+
+
+def engine_cases():
+    """(label, options, kernels it launches) of the wavefront-style
+    engines' graph comparison: wavefront on the clusters, binned and pair
+    on showcase at ENGINE_GRAPH_SIZE, wavefront on the BVH (the plain
+    PyTorch walk: no kernel of the port, and slow, so at
+    ENGINE_GRAPH_BVH), and binned on the many-cluster scene."""
+    w, h, spp = ENGINE_GRAPH_SIZE
+    bw, bh, bspp = ENGINE_GRAPH_BVH
+    tw, th, tspp = ENGINE_GRAPH_TILED
+    return [
+        (f"wavefront showcase {w}x{h}@{spp}",
+         showcase_options(w, h, spp, engine="wavefront", backend="cluster"), ("K3",)),
+        (f"wavefront bvh showcase {bw}x{bh}@{bspp}",
+         showcase_options(bw, bh, bspp, engine="wavefront", backend="bvh"), ()),
+        (f"binned showcase {w}x{h}@{spp}", showcase_options(w, h, spp, engine="binned"),
+         ("K4", "K5")),
+        (f"pair showcase {w}x{h}@{spp}", showcase_options(w, h, spp, engine="pair"),
+         ("K3", "K4", "K6")),
+        (f"binned tiled {TILES}x{TILES} {tw}x{th}@{tspp}",
+         tiled_options(tw, th, tspp, engine="binned"), ("K4", "K5")),
+    ]
+
+
+def engine_graph_phase(profile):
+    """The wavefront, binned and pair engines as device programs: for each
+    case of ``engine_cases`` the Renderer's image on the graph executor
+    (the default on the card) bit-equal to the eager executor's with equal
+    launch counts; for binned and pair also a direct call in the static
+    phase schedule; one call of each case under
+    torch.cuda.set_sync_debug_mode('error'); with ``profile`` the busy
+    share of one 65,536-lane pass of each engine on both executors."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    out = {}
+    for label, (scene, opt), used in engine_cases():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            r = Renderer(scene, opt)
+
+        def eager(r=r):
+            with executor_as("eager"):
+                return torch.from_numpy(r.render())
+
+        out[label] = engine_graph_against_eager(label, eager,
+                                                lambda r=r: torch.from_numpy(r.render()), used)
+        if opt.engine in ("binned", "pair") and "tiled" not in label:
+            args = (r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, opt.height), 2)
+            kw = dict(trace_engine=opt.engine, schedule_mode="off", return_rng=True,
+                      max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                      nee_max_media=opt.nee_max_media)
+            out[label + " off"] = engine_graph_against_eager(
+                f"{opt.engine} {opt.width}x{opt.height}@2, render_beauty_mega, static phases",
+                lambda: mr.render_beauty_mega(*args, executor="eager", **kw),
+                lambda: mr.render_beauty_mega(*args, **kw), used)
+        # One call under sync-debug 'error': the Renderer's band call, its
+        # graph captured above.
+        fn = r._beauty_fn()
+        call = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                    nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
+                    full_resolution=(opt.width, opt.height), return_rng=True)
+        args = (r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, opt.height),
+                opt.num_samples)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want, _ = fn(*args, **call)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img, _ = fn(*args, **call)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        same = torch.equal(img, want)
+        print(f"   {label}: torch.cuda.set_sync_debug_mode('error') around one call of the "
+              f"Renderer's tile function: no synchronising operation; the image its replay's "
+              f"{same}", flush=True)
+        if not same:
+            fail(f"{label}: a replay differs from the call before it")
+    if profile:
+        rp = Renderer(*showcase_options(512, 512, 16))
+        out["profile"] = {engine: busy_share(rp, engine) for engine in ("wavefront", "binned",
+                                                                         "pair")}
+    return out
+
+
+def busy_share(r, engine, reps=3):
+    """The card's busy share of one 65,536-lane pass of ``engine`` (512 x
+    128 lanes, ENGINE_SPP samples) on both executors: the eager pass under
+    torch.profiler (its kernels' device ms over its wall), and the graph
+    pass's host-clock wall (the median of ``reps`` replays after the call
+    that captures it) beside the same kernels' device ms. The profiler's
+    trace of a graph misses kernels in nested conditional bodies (its count
+    is printed beside the eager one), so the graph's share is the eager
+    pass's kernel time over the graph pass's wall: both executors launch
+    the same kernels on the same data (equal counts, bit-equal images)."""
+    from functools import partial
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.render.integrator import render_beauty
+    from complex_materials_renderer_tpu_torch.render.megarender import render_beauty_mega
+
+    eager = profile_pass(r, engine, "eager", spp=ENGINE_SPP)
+    opt = r.options
+    kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
+              rng_mode=opt.rng, full_resolution=(opt.width, opt.height))
+    fn = render_beauty
+    if engine != "wavefront":
+        fn, kw["trace_engine"] = render_beauty_mega, engine
+    call = partial(fn, r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128),
+                   ENGINE_SPP, **kw)
+    call()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[len(walls) // 2]
+    share = eager["busy_ms"] / wall
+    print(f"   {engine} pass (65536 lanes x {ENGINE_SPP} spp) on the graph: wall "
+          f"{', '.join(f'{w:.2f}' for w in walls)} ms (median {wall:.2f}); the eager pass's "
+          f"kernels {eager['busy_ms']:.2f} ms over it: busy share {share:.3f} (eager "
+          f"{eager['busy_share']:.3f})", flush=True)
+    return {"eager": eager, "graph_wall_ms": walls, "graph_busy_share": share}
 
 
 ADAPTIVE_CHECK = 120  # side of the frame at which render_samples_mega is held bit-equal
@@ -3462,9 +3795,9 @@ def recorded_rounds(r, media9, sets, payload, cap_iters=12):
     calls = []
     run = bt.run_round
 
-    def rec(grid, media9, lb, rays, keys, state, payload, K, cap):
+    def rec(grid, media9, lb, rays, keys, state, payload, K, cap, **kw):
         calls.append((lb, rays.clone(), keys.clone(), state.clone(), payload, cap))
-        return run(grid, media9, lb, rays, keys, state, payload, K, cap)
+        return run(grid, media9, lb, rays, keys, state, payload, K, cap, **kw)
 
     rec.launches = 0  # the wrapper counts its launches under its module name
 
@@ -3762,8 +4095,9 @@ def k5_launch_table(r, media9, sets, reps=10):
 
 
 def recorded_sweeps(r, media9, sets, payload, list_len):
-    """The input of every K6 launch of one pair trace of ``sets[payload]``:
-    (pair rays, cluster ids, payload, valid pairs)."""
+    """The input of every K6 launch of one pair trace of ``sets[payload]``
+    on the eager executor (host ints): (pair rays, cluster ids, payload,
+    valid pairs)."""
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
@@ -3772,9 +4106,10 @@ def recorded_sweeps(r, media9, sets, payload, list_len):
     calls = []
     sweep = ps.sweep
 
-    def rec(grid, media9, rays, cid, payload, K, pairs=None):
-        calls.append((rays, cid, payload, pairs))
-        return sweep(grid, media9, rays, cid, payload, K, pairs)
+    def rec(grid, media9, rays, cid, payload, K, pairs=None, **kw):
+        if pairs:  # a sweep of no valid pair launches nothing
+            calls.append((rays, cid, payload, pairs))
+        return sweep(grid, media9, rays, cid, payload, K, pairs, **kw)
 
     rec.launches = 0  # the wrapper counts its launches under its module name
 
@@ -3862,10 +4197,12 @@ def k6_launch_table(r, media9, sets, reps=20):
     return tot_ms, tot_bound
 
 
-def profile_pass(r, engine):
+def profile_pass(r, engine, executor="auto", spp=None):
     """Optional: torch.profiler over one 65,536-lane pass through the
-    ``engine``'s beauty function, of 16 samples (ENGINE_SPP for the binned
-    and pair engines)."""
+    ``engine``'s beauty function, of ``spp`` samples (default 16, and
+    ENGINE_SPP for the binned and pair engines), on ``executor`` (after a
+    call of the same shape, which captures its graph). Returns its wall
+    and busy ms and the busy share."""
     import torch
     import torch.profiler as tp
 
@@ -3874,13 +4211,12 @@ def profile_pass(r, engine):
 
     opt = r.options
     kw = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
-              rng_mode=opt.rng, full_resolution=(opt.width, opt.height))
+              rng_mode=opt.rng, full_resolution=(opt.width, opt.height), executor=executor)
     fn = render_beauty if engine == "wavefront" else render_beauty_mega
-    spp = 16
     if engine in ("binned", "pair"):
         kw["trace_engine"] = engine
-        spp = ENGINE_SPP
-    fn(r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128), 1, **kw)
+    spp = spp or (ENGINE_SPP if engine in ("binned", "pair") else 16)
+    fn(r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, 128), spp, **kw)
     torch.cuda.synchronize()
     with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3895,13 +4231,16 @@ def profile_pass(r, engine):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
     busy = sum(dev_ms(e) for e in rows)
-    print(f"   profile of one {engine} pass (65536 lanes x {spp} spp): wall {wall * 1e3:.2f} ms, "
-          f"device busy {busy:.2f} ms", flush=True)
+    name = "graph" if executor == "auto" else executor
+    print(f"   profile of one {engine} pass (65536 lanes x {spp} spp, {name} executor): wall "
+          f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms (busy share "
+          f"{busy / (wall * 1e3):.3f}), {sum(e.count for e in rows)} kernel launches", flush=True)
     for e in sorted(rows, key=lambda e: -dev_ms(e))[:12]:
         print(f"     {dev_ms(e):10.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
     # Each kernel of the port summed over its instances (G, S, payload).
     names = (("K1", "cmr::megakernel"), ("K3", "cmr::cluster_trace"), ("K4", "cmr::binned_listing"),
-             ("K5", "cmr::binned_round"), ("K6", "cmr::pair_sweep"))
+             ("K5", "cmr::binned_round"), ("K6", "cmr::pair_sweep"),
+             ("PC", "cmr::pass_control"))
     sums = {k: [0.0, 0] for k, _ in names}
     for e in rows:
         for k, prefix in names:
@@ -3910,6 +4249,8 @@ def profile_pass(r, engine):
                 sums[k][1] += e.count
     print("   the port's kernels in that pass: " + ", ".join(
         f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in sums.items() if n), flush=True)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy, "busy_share": busy / (wall * 1e3),
+            "kernels": {k: v for k, v in sums.items() if v[1]}}
 
 
 def main() -> int:
@@ -4082,7 +4423,7 @@ def main() -> int:
     k1_decomposition(r, media9, misc, base)
 
     phase("wavefront path: showcase 512x512 @ 16 spp, AOVs, bvh backend")
-    k3_launches = wavefront_path(main_opts, mega_img)
+    k3_launches, wave_rate = wavefront_path(main_opts, mega_img)
     golden_gate(engine="wavefront")
     aov_phase(main_opts)
     golden_gate(name="isobox", golden="isobox", spp=2, engine="wavefront", backend="bvh")
@@ -4096,6 +4437,14 @@ def main() -> int:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             golden_gate(engine=engine)
+
+    phase("the wavefront-style engines as device programs: wavefront (clusters, BVH), binned, "
+          "pair and binned on the many-cluster scene, graph against eager, a call under "
+          "sync-debug 'error'; K5 and K6 with the control block")
+    engine_graph = engine_graph_phase(args.profile)
+    engine_graph["k56_ctrl"] = k56_control_vs_plain(r, media9, sets)
+    engine_graph["rates"] = {"wavefront": wave_rate, "binned": engines["binned"][1],
+                             "pair": engines["pair"][1]}
 
     phase(f"adaptive sampling: render_samples_mega at the uniform pairs, showcase 512x512 @ "
           f"16 spp --spp-mode adaptive")
@@ -4137,8 +4486,7 @@ def main() -> int:
     k6_launch_table(r, media9, sets)
     if args.profile:
         phase("profile")
-        for engine in ("mega", "wavefront", "binned", "pair"):
-            profile_pass(r, engine)
+        profile_pass(r, "mega")  # the engines' passes: the engines' graph phase
 
     from complex_materials_renderer_tpu_torch.render import megarender as mr
 
@@ -4154,6 +4502,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"default_workload": workload}), flush=True)
     print(json.dumps({"pass_graph": graph}), flush=True)
+    print(json.dumps({"engine_graph": engine_graph}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "megakernel (K1, with the triangle tester K2 inlined; its ablation instances "
                 f"launched beside the default: {', '.join(mk.ABLATION_SETS)})",

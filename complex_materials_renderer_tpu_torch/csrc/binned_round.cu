@@ -40,7 +40,12 @@
 // partials alternate between two slots, so one barrier per serving
 // suffices. 'nee' lanes that do not hold c skip the walk (their test
 // would change nothing). The grid holds the live blocks only; S and G come
-// from the live width (kernels/binned_trace.py ``round_split``); S = 16 is
+// from the live width (kernels/binned_trace.py ``round_split``). In a CUDA
+// graph the live block count is on the card (``live``, the pass control
+// block of kernels/pass_control.py, as K1 reads it): each rung of the
+// (G, S) ladder is an IF node whose instance's grid covers the most live
+// blocks of its rung, and a cluster at or beyond the live count returns at
+// once. S = 16 is
 // beyond the portable cluster size of 8 and is launched with
 // cudaFuncAttributeNonPortableClusterSizeAllowed. A 512-thread CTA leaves
 // up to 128 registers a thread for the L keys and the payload state.
@@ -79,6 +84,7 @@ struct RoundParams {
   int* state;                      // (ns, n), updated in place
   int* iters;                      // (n / 1024,)
   int n, C, cap_iters;
+  const int* live;  // the live block count on the card, or null: every block of the grid
 };
 
 // Minimum of v over the cluster's threads, returned to every thread.
@@ -109,6 +115,7 @@ __global__ void __launch_bounds__(SERVE_THREADS) binned_round(RoundParams p) {
   const cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
   const int S = (int)cluster.num_blocks();
   const int b = blockIdx.x / S;
+  if (p.live != nullptr && b >= __ldg(p.live)) return;  // the whole cluster: no barrier waits
   const int n = p.n;
   const int lane = b * SERVE_BLOCK + (blockIdx.x % S) * (SERVE_THREADS / G) + threadIdx.x / G;
   int keys[L];
@@ -214,17 +221,18 @@ int cmr_k_nee() { return cmr::K_NEE; }
 
 // Serves the first lb blocks of 1024 lanes (n a multiple of 1024, lb >= 1)
 // with thread block clusters of 1024 x group / 512 CTAs, ``group`` (1, 2,
-// 4 or 8) threads per lane. Launch on ``stream``; returns the launch's
-// error, or cudaGetLastError() right after it (cudaErrorInvalidValue for
-// an unknown payload or group). A cluster the card cannot place is an
-// error; nothing falls back to a smaller one.
+// 4 or 8) threads per lane; with ``live`` (an int on the card) the grid
+// holds lb blocks and serves the first *live of them. Launch on
+// ``stream``; returns the launch's error, or cudaGetLastError() right after
+// it (cudaErrorInvalidValue for an unknown payload or group). A cluster
+// the card cannot place is an error; nothing falls back to a smaller one.
 int cmr_binned_round_launch(const float* media, int M, const float* run_rows, const float* rays,
                             int* keys, int* state, int* iters, int n, int lb, int C, int subs,
                             int run, int row_w, int payload, int cap_iters, int group,
-                            void* stream) {
+                            const int* live, void* stream) {
   using namespace cmr;
   const RoundParams p{Grid{run_rows, media, M, subs, run, row_w}, rays, keys, state, iters,
-                      n, C, cap_iters};
+                      n, C, cap_iters, live};
   return (int)dispatch(p, lb, payload, group, (cudaStream_t)stream, nullptr);
 }
 

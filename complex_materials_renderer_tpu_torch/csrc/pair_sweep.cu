@@ -32,7 +32,11 @@
 // those come first (the cluster-major sort puts the padding last); the
 // pairs beyond, padding in the engines' sweeps, take one thread each in a
 // second, strided pass (a launch holds a pair for each of its L x lanes
-// list slots, and most of them are empty: PERF.md). For
+// list slots, and most of them are empty: PERF.md). In a CUDA graph the
+// valid pair count is on the card (``count``, the pass control block of
+// kernels/pass_control.py): each rung of the G ladder is an IF node whose
+// grid covers the most pairs of its rung, and the kernel derives the cover
+// from the count, so the CTAs past it go straight to the strided pass. For
 // 'dist' and 'occl' each CTA derives its block's distinct ids: a bitmap of
 // the grid's cluster ids in shared memory, set from the block's 1024 ids
 // and compacted in ascending order by a CTA-wide scan, so the kernel does
@@ -65,6 +69,7 @@ struct SweepParams {
   const int* __restrict__ cid;     // (n,) cluster id; BIGC = padding
   int* state;                      // (ns, n)
   int n, cover, C;                 // cover: the pairs served a tile each
+  const int* count;                // the valid pairs on the card, or null: cover is the grid's
 };
 
 // The distinct cluster ids below C of one block's 1024 pairs, ascending,
@@ -164,10 +169,16 @@ __global__ void __launch_bounds__(SWEEP_THREADS) pair_sweep(SweepParams p) {
   __shared__ int ids[OWN_ONLY ? 1 : SERVE_BLOCK];
   __shared__ int wsum[SWEEP_THREADS / 32];
   const cg::thread_block cta = cg::this_thread_block();
-  serve_chunk<State, G>(cg::tiled_partition<G>(cta), p, blockIdx.x * (SWEEP_THREADS / G), bits,
-                        ids, wsum);
+  int cover = p.cover;
+  if (p.count != nullptr) {
+    const int pairs = __ldg(p.count);
+    cover = max(SERVE_BLOCK, (pairs + SERVE_BLOCK - 1) / SERVE_BLOCK * SERVE_BLOCK);
+  }
+  const int base0 = blockIdx.x * (SWEEP_THREADS / G);
+  if (base0 < cover)  // CTA-uniform: the chunk's barriers see every thread
+    serve_chunk<State, G>(cg::tiled_partition<G>(cta), p, base0, bits, ids, wsum);
   const cg::thread_block_tile<1> solo = cg::tiled_partition<1>(cta);
-  for (int base = p.cover + blockIdx.x * SWEEP_THREADS; base < p.n;
+  for (int base = cover + blockIdx.x * SWEEP_THREADS; base < p.n;
        base += gridDim.x * SWEEP_THREADS)
     serve_chunk<State, 1>(solo, p, base, bits, ids, wsum);
 }
@@ -199,13 +210,17 @@ int cmr_k_nee() { return cmr::K_NEE; }
 
 // n and cover must be multiples of 1024, 1024 <= cover <= n; payload is
 // 'dist', 'occl' or 'nee'; ``group`` (1, 2, 4, 8, 16 or 32) threads per
-// pair. Launch on ``stream``; returns cudaGetLastError() right after the
-// launch (cudaErrorInvalidValue for another payload or group).
+// pair. With ``count`` (the valid pairs, an int on the card) the grid
+// covers ``cover`` pairs and the kernel serves a tile each to the first
+// max(1024, count rounded up to 1024) of them. Launch on ``stream``;
+// returns cudaGetLastError() right after the launch (cudaErrorInvalidValue
+// for another payload or group).
 int cmr_pair_sweep_launch(const float* media, int M, const float* run_rows, const float* rays,
                           const int* cid, int* state, int n, int cover, int C, int subs, int run,
-                          int row_w, int payload, int group, void* stream) {
+                          int row_w, int payload, int group, const int* count, void* stream) {
   using namespace cmr;
-  const SweepParams p{Grid{run_rows, media, M, subs, run, row_w}, rays, cid, state, n, cover, C};
+  const SweepParams p{Grid{run_rows, media, M, subs, run, row_w}, rays, cid, state, n, cover, C,
+                      count};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (payload) {
     case P_DIST: return (int)launch_group<DistState>(p, group, s);

@@ -15,31 +15,45 @@
 // The kernel, after a sort or a K1 launch (``flags``, kernels/pass_control.py):
 //   AFTER_K1     if the K1 launch just before ran (run flag set and
 //                live_blocks > 0): dim0 += ``advance`` (8 * its bounce cap)
-//                and, with DEVICE_COUNT, one more K1 launch in counts[0];
+//                and, with DEVICE_COUNT and without NOT_K1, one more K1
+//                launch in counts[0];
 //   INIT         dim0 = ``dim0``, and as SET_FULL;
 //   SET_FULL     live_blocks = every block of the ``n`` lanes, run flag 1;
 //   SET_LIVE     live_blocks = ceil(alive / 1024), run flag = alive > 0;
-//   COND         the condition alive > ``threshold`` into the control block
-//                and, with SET_HANDLE, into the enclosing conditional node
-//                (``cudaGraphSetConditional``);
+//   ITER_RESET   the iteration counter = 0, then
+//   ITER_STEP    the iteration counter += 1;
+//   COND         the condition alive > ``threshold`` (with ITER_CAP also
+//                iteration < ``cap``; with ITER_GRACE alive > 0 while
+//                iteration < ``cap``, alive > ``threshold`` after) into the
+//                control block and, with SET_HANDLE, into the enclosing
+//                conditional node (``cudaGraphSetConditional``);
+//   RUNGS        the rung of a launch-shape ladder that holds the count
+//                (with EXTENT: the last true byte's index + 1): rung i for
+//                edges[i] <= value < edges[i + 1], -1 for none, into the
+//                control block and each rung's condition into its IF node;
 //   DEVICE_COUNT counts[1] += 1 (the launches of this kernel that ran).
-// It always counts the alive lanes of ``alive[0, n)`` (CTRL_NALIVE).
-//
+// It always counts the true bytes of ``alive[0, n)`` (CTRL_NALIVE): the
+// alive lanes, or any bool tensor a plan hands in (a round's listed heads,
+// a generation's listed pairs, the lanes a march step still runs).
+
 // What bounds it: launch latency. It reads n bytes (65,536 on the main
 // path: 20 ns at 3.35 TB/s) and a few words; one block of 1024 threads sums
 // the bytes 16 at a time (a bool is 0 or 1, so a word's popcount counts
-// its true bytes) and thread 0 does the scalar updates. Its time on the
+// its true bytes; the highest set bit of the last nonzero word gives the
+// extent) and thread 0 does the scalar updates. Its time on the
 // card is that of an empty launch (PERF.md §6).
 //
 // The graph side (cmr_graph_cond_*): the pass plan captures a pass with
 // torch.cuda.graph; at a loop it creates a conditional handle in the graph
 // being captured, launches this kernel to set it, adds a conditional node
 // (WHILE for the spill loop and the dynamic modes' loop, IF for the hybrid
-// mode's guarded bounces) after the capture's current dependencies, moves
+// mode's guarded bounces, the engines' trace guards and launch-shape
+// rungs) after the capture's current dependencies, moves
 // the outer capture past that node, and captures the loop body into the
 // node's body graph on a second stream. The body ends with this kernel,
 // which sets the handle again: the WHILE node runs its body while that
-// value is nonzero (CUDA >= 12.4).
+// value is nonzero (CUDA >= 12.4). A body may hold conditional nodes of its
+// own (CUDA >= 12.4): each depth is captured on a stream of its own.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -shared -Xcompiler -fPIC (kernels/build.py).
@@ -59,14 +73,36 @@ constexpr int PC_AFTER_K1 = 8;
 constexpr int PC_COND = 16;
 constexpr int PC_DEVICE_COUNT = 32;
 constexpr int PC_SET_HANDLE = 64;
+constexpr int PC_ITER_RESET = 128;
+constexpr int PC_ITER_STEP = 256;
+constexpr int PC_ITER_CAP = 512;
+constexpr int PC_ITER_GRACE = 1024;
+constexpr int PC_RUNGS = 2048;
+constexpr int PC_EXTENT = 4096;
+constexpr int PC_NOT_K1 = 8192;
+constexpr int PC_SET_RUNG_HANDLES = 16384;
 constexpr int PC_THREADS = 1024;
+constexpr int PC_MAX_RUNGS = 8;
+
+// A launch-shape ladder: rung i holds the values in [edges[i], edges[i + 1]).
+struct Rungs {
+  int n;
+  int edges[PC_MAX_RUNGS + 1];
+  cudaGraphConditionalHandle handles[PC_MAX_RUNGS];
+};
+
+// The index + 1 of the highest nonzero byte of a little-endian word.
+__device__ __forceinline__ int top_byte(unsigned int w) { return ((31 - __clz(w)) >> 3) + 1; }
 
 __global__ void __launch_bounds__(PC_THREADS)
     pass_control(const unsigned char* __restrict__ alive, int n, int* ctrl, long long* counts,
-                 int flags, int dim0, int advance, int threshold,
-                 cudaGraphConditionalHandle handle) {
+                 int flags, int dim0, int advance, int threshold, int cap,
+                 cudaGraphConditionalHandle handle, Rungs rungs) {
   __shared__ int warp_sums[PC_THREADS / 32];
+  __shared__ int warp_ext[PC_THREADS / 32];
+  const bool extent = (flags & PC_EXTENT) != 0;  // uniform over the block
   int c = 0;
+  int e = 0;  // the extent: index + 1 of the last true byte this thread saw
   int head = 0;
   if ((reinterpret_cast<uintptr_t>(alive) & 15) == 0) {
     const int n16 = n / 16;
@@ -74,15 +110,31 @@ __global__ void __launch_bounds__(PC_THREADS)
     for (int i = threadIdx.x; i < n16; i += PC_THREADS) {
       const uint4 w = v[i];
       c += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+      if (extent) {
+        if (w.w) e = i * 16 + 12 + top_byte(w.w);
+        else if (w.z) e = i * 16 + 8 + top_byte(w.z);
+        else if (w.y) e = i * 16 + 4 + top_byte(w.y);
+        else if (w.x) e = i * 16 + top_byte(w.x);
+      }
     }
     head = n16 * 16;
   }
-  for (int i = head + threadIdx.x; i < n; i += PC_THREADS) c += alive[i] != 0;
+  for (int i = head + threadIdx.x; i < n; i += PC_THREADS) {
+    if (alive[i] != 0) {
+      ++c;
+      e = i + 1;
+    }
+  }
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+  if (extent) {
+    e = __reduce_max_sync(0xffffffffu, e);
+    if ((threadIdx.x & 31) == 0) warp_ext[threadIdx.x >> 5] = e;
+  }
   __syncthreads();
   if (threadIdx.x >= 32) return;
   c = warp_sums[threadIdx.x];
+  if (extent) e = __reduce_max_sync(0xffffffffu, warp_ext[threadIdx.x]);
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
   if (threadIdx.x != 0) return;
 
@@ -90,7 +142,7 @@ __global__ void __launch_bounds__(PC_THREADS)
   if (flags & PC_AFTER_K1) {
     if (ctrl[CTRL_RUN] != 0 && ctrl[CTRL_LIVE] > 0) {
       ctrl[CTRL_DIM0] += advance;
-      if (flags & PC_DEVICE_COUNT) counts[0] += 1;
+      if ((flags & PC_DEVICE_COUNT) && !(flags & PC_NOT_K1)) counts[0] += 1;
     }
   }
   if (flags & PC_INIT) ctrl[CTRL_DIM0] = dim0;
@@ -103,10 +155,27 @@ __global__ void __launch_bounds__(PC_THREADS)
     ctrl[CTRL_RUN] = n_alive > 0 ? 1 : 0;
   }
   ctrl[CTRL_NALIVE] = n_alive;
+  if (flags & PC_EXTENT) ctrl[CTRL_EXTENT] = e;
+  if (flags & PC_ITER_RESET) ctrl[CTRL_ITER] = 0;
+  if (flags & PC_ITER_STEP) ctrl[CTRL_ITER] += 1;
   if (flags & PC_COND) {
-    const unsigned int cond = n_alive > threshold ? 1u : 0u;
+    const int it = ctrl[CTRL_ITER];
+    bool go = n_alive > threshold;
+    if (flags & PC_ITER_CAP) go = go && it < cap;
+    if (flags & PC_ITER_GRACE) go = n_alive > (it < cap ? 0 : threshold);
+    const unsigned int cond = go ? 1u : 0u;
     ctrl[CTRL_COND] = (int)cond;
     if (flags & PC_SET_HANDLE) cudaGraphSetConditional(handle, cond);
+  }
+  if (flags & PC_RUNGS) {
+    const int value = (flags & PC_EXTENT) ? e : n_alive;
+    int rung = -1;
+    for (int i = 0; i < rungs.n; ++i) {
+      const bool in = rungs.edges[i] <= value && value < rungs.edges[i + 1];
+      if (in) rung = i;
+      if (flags & PC_SET_RUNG_HANDLES) cudaGraphSetConditional(rungs.handles[i], in ? 1u : 0u);
+    }
+    ctrl[CTRL_RUNG] = rung;
   }
   if (flags & PC_DEVICE_COUNT) counts[1] += 1;
 }
@@ -127,13 +196,25 @@ static int not_capturing(cudaStreamCaptureStatus status) {
 extern "C" {
 
 // Launch on ``stream``; returns cudaGetLastError() right after the launch.
-// ``alive``: n bytes; ``ctrl``: CTRL_LEN int32; ``counts``: 2 int64.
+// ``alive``: n bytes; ``ctrl``: CTRL_LEN int32; ``counts``: 2 int64;
+// ``edges``: n_rungs + 1 ints and ``rung_handles``: n_rungs handles (or
+// null), host arrays copied into the launch's parameters, for RUNGS; both
+// may be null when n_rungs is 0.
 int cmr_pass_control_launch(const unsigned char* alive, int n, int* ctrl, long long* counts,
-                            int flags, int dim0, int advance, int threshold,
-                            unsigned long long handle, void* stream) {
+                            int flags, int dim0, int advance, int threshold, int cap,
+                            unsigned long long handle, int n_rungs, const int* edges,
+                            const unsigned long long* rung_handles, void* stream) {
+  cmr::Rungs rungs = {};
+  if (n_rungs < 0 || n_rungs > cmr::PC_MAX_RUNGS) return (int)cudaErrorInvalidValue;
+  rungs.n = n_rungs;
+  for (int i = 0; i < n_rungs; ++i) {
+    rungs.edges[i] = edges[i];
+    rungs.handles[i] = rung_handles ? (cudaGraphConditionalHandle)rung_handles[i] : 0;
+  }
+  if (n_rungs > 0) rungs.edges[n_rungs] = edges[n_rungs];
   cmr::pass_control<<<1, cmr::PC_THREADS, 0, (cudaStream_t)stream>>>(
-      alive, n, ctrl, counts, flags, dim0, advance, threshold,
-      (cudaGraphConditionalHandle)handle);
+      alive, n, ctrl, counts, flags, dim0, advance, threshold, cap,
+      (cudaGraphConditionalHandle)handle, rungs);
   return (int)cudaGetLastError();
 }
 

@@ -19,25 +19,32 @@ Counterpart of complex_materials_renderer_tpu/kernels/binned_trace.py
 The lane order is restored at the end. Payloads ('full', 'dist', 'occl',
 'nee') and their states are those of ``cluster_test``; the round carries
 a payload's state as one (fields, lanes) int32 tensor with float fields as
-their bit patterns, so the host sorts move one tensor per kind.
+their bit patterns, so the sorts move one tensor per kind.
 
 On CUDA tensors ``listing`` and ``run_round`` launch the kernels of
 ``csrc/binned_listing.cu`` and ``csrc/binned_round.cu`` (or raise); on CPU
 tensors they run ``listing_plain`` and ``round_plain``. The plain round is
 block-faithful: it picks the served cluster per 1024-lane block as the
-kernel does, so the two agree on every lane. The JAX ``lax.while_loop``
-conditions are host syncs: one per generation and one per round, the
-round's being the count of live lanes, which sizes the round's launch.
+kernel does, so the two agree on every lane. The generation and round
+loops are the JAX ``lax.while_loop``s (:496-553): run by an executor
+(kernels/pass_control.py), on the card conditional WHILE nodes of the
+caller's CUDA graph whose conditions the control kernel sets, the loop
+state updated in place. K5 takes its live blocks from the control block,
+as the JAX round takes them as a traced scalar (:531-533); its (G, S)
+ladder (``round_split``) is one IF node a rung. On the eager executor the
+host reads each condition and passes K5 its live blocks as an int.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..render.hitinfo import T_MIN
+from . import pass_control as pc
 from .cluster_grid import DeviceClusterGrid
 from .cluster_test import (
     LIST_CTA,
@@ -242,7 +249,7 @@ def listing(grid: DeviceClusterGrid, rays: torch.Tensor, bound: torch.Tensor,
         err = fn(p(grid.bounds), p(grid.super_bounds), p(rays), p(bound), p(tlo), p(keys),
                  p(tlim), n, C, S, grid.super_factor, variant, span, group,
                  ctypes.c_void_p(stream))
-    listing.launches += 1
+    pc.count_launch(listing, "K4", dev)
     if err != 0:
         raise RuntimeError(f"listing kernel launch failed: {build.error_string(err)}")
     return keys, tlim
@@ -328,24 +335,57 @@ def round_split(live_blocks: int):
     return g, BLOCK * g // ROUND_CTA
 
 
-def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: int, rays: torch.Tensor,
-              keys: torch.Tensor, state: torch.Tensor, payload: str, K_NEE: int, cap_iters: int):
+def round_ladder(blocks: int):
+    """The (G, S) ladder of K5 over 1 to ``blocks`` live blocks: (first
+    live blocks, last, G) a rung (``pass_control.ladder`` of
+    ``round_split``)."""
+    return pc.ladder(lambda lb: round_split(lb)[0], blocks)
+
+
+def round_edges(blocks: int) -> list:
+    """The control kernel's rung edges of ``round_ladder`` in listed lanes
+    (live blocks = ceil(lanes / 1024)): a rung from a live blocks holds the
+    lanes from 1024 (a - 1) + 1."""
+    return [BLOCK * (a - 1) + 1 for a, _, _ in round_ladder(blocks)] + [BLOCK * blocks + 1]
+
+
+def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb, rays: torch.Tensor,
+              keys: torch.Tensor, state: torch.Tensor, payload: str, K_NEE: int, cap_iters: int,
+              ctrl: torch.Tensor | None = None, group: int | None = None,
+              iters: torch.Tensor | None = None):
     """(keys, state, iters) after one round: the kernel of
     ``csrc/binned_round.cu`` on CUDA tensors, which updates ``keys`` and
     ``state`` in place (the Pallas call's aliases; launches counted in
-    ``run_round.launches``), ``round_plain`` on CPU tensors. ``lb``, the
-    live blocks, is a host int: it sizes the grid and picks G and S
-    (``round_split``)."""
+    ``run_round.launches``, or on the card when captured), ``round_plain``
+    on CPU tensors. ``lb``, the live blocks, is a host int: it sizes the
+    grid and picks G and S (``round_split``). Or ``lb`` is None and
+    ``ctrl``, a pass control block, holds the live blocks on the card
+    (CTRL_LIVE) and ``group`` is a rung of ``round_ladder``: the grid
+    covers that rung's most live blocks and the kernel serves those below
+    the count. ``iters``, when given, receives the serving iterations (on
+    the card a block beyond the live blocks keeps its value)."""
     _check_payload(payload)
+    n_blocks = keys.shape[1] // BLOCK
+    if ctrl is not None:
+        if lb is not None:
+            raise ValueError("a round with the control block takes no host live blocks")
+        rungs = {g: b for _, b, g in round_ladder(max(1, n_blocks))}
+        if group not in rungs:
+            raise ValueError(f"group {group!r} is no rung of the round's ladder {rungs}")
     if rays.device.type == "cpu":
-        return round_plain(grid, media9, lb, rays, keys, state, payload, K_NEE, cap_iters)
+        out = round_plain(grid, media9, ctrl[pc.CTRL_LIVE] if ctrl is not None else lb, rays,
+                          keys, state, payload, K_NEE, cap_iters)
+        if iters is not None:
+            iters.copy_(out[2])
+            return out[0], out[1], iters
+        return out
     from . import build
 
     dev = rays.device
     L, n = keys.shape
     if n % BLOCK:
         raise ValueError(f"the round takes whole blocks of {BLOCK} lanes, got {n}")
-    if not isinstance(lb, int) or not 0 <= lb <= n // BLOCK:
+    if ctrl is None and (not isinstance(lb, int) or not 0 <= lb <= n // BLOCK):
         raise ValueError(f"live blocks must be a host int in [0, {n // BLOCK}], got {lb!r}")
     if (K_NEE - 2) % 2 or K_NEE < 2:
         raise ValueError(f"K-list length {K_NEE} is not 2 * nee_bound + 2")
@@ -356,18 +396,24 @@ def run_round(grid: DeviceClusterGrid, media9: torch.Tensor, lb: int, rays: torc
     _require(rays, "rays", torch.float32, (6, n), dev)
     _require(keys, "keys", torch.int32, (L, n), dev)
     _require(state, "state", torch.int32, (n_state(payload, K_NEE), n), dev)
-    iters = torch.zeros((n // BLOCK,), dtype=torch.int32, device=dev)
+    if iters is None:
+        iters = torch.zeros((n // BLOCK,), dtype=torch.int32, device=dev)
+    _require(iters, "iters", torch.int32, (n // BLOCK,), dev)
+    if ctrl is not None:
+        _require(ctrl, "ctrl", torch.int32, (pc.CTRL_LEN,), dev)
+        lb, g, live = min(rungs[group], n // BLOCK), group, ctypes.c_void_p(ctrl.data_ptr())
+    else:
+        g, live = (round_split(lb)[0] if lb else 0), None
     if lb == 0:
         return keys, state, iters
     fn = build.binned_round(L, (K_NEE - 2) // 2)
-    g, _ = round_split(lb)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(media9), media9.shape[0], p(grid.run_rows), p(rays), p(keys), p(state),
                  p(iters), n, lb, C, grid.runs_per_cluster, grid.run_size, row_w,
-                 PAYLOAD_IDS[payload], int(cap_iters), g, ctypes.c_void_p(stream))
-    run_round.launches += 1
+                 PAYLOAD_IDS[payload], int(cap_iters), g, live, ctypes.c_void_p(stream))
+    pc.count_launch(run_round, "K5", dev)
     if err != 0:
         raise RuntimeError(f"round kernel launch failed: {build.error_string(err)}")
     return keys, state, iters
@@ -381,32 +427,50 @@ run_round.launches = 0  # CUDA launches made by run_round
 # --------------------------------------------------------------------------
 
 
-def regroup(keys, *lane_arrays):
-    """Sort the lanes by head cluster id, empty lists last, stably
-    (binned_trace.py:513-532). Returns (live lanes, keys, the arrays) with
-    every (rows, lanes) or (lanes,) array permuted along its lanes."""
+def _head_order(keys):
+    """(sorted group keys, permutation) of the stable sort of the lanes by
+    head cluster id, empty lists last (binned_trace.py:513-532)."""
     head = keys[0]
     gkey = torch.where(head != EMPTY, head & ID_MASK, torch.full_like(head, BIGC))
-    g0, perm = torch.sort(gkey, stable=True)
+    return torch.sort(gkey, stable=True)
+
+
+def regroup(keys, *lane_arrays):
+    """Sort the lanes by head cluster id, empty lists last, stably. Returns
+    (live lanes, keys, the arrays) with every (rows, lanes) or (lanes,)
+    array permuted along its lanes."""
+    g0, perm = _head_order(keys)
     live = (g0 < BIGC).sum()
     return (live, keys[:, perm]) + tuple(a[..., perm] for a in lane_arrays)
+
+
+def regroup_into(keys, *lane_arrays) -> None:
+    """``regroup`` in place: the same permutation written back into
+    ``keys`` and each array, so that a loop body of a graph finds them at
+    the same addresses every iteration."""
+    _, perm = _head_order(keys)
+    for a in (keys,) + lane_arrays:
+        a.copy_(a[..., perm])
 
 
 def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
                  d: torch.Tensor, bound: torch.Tensor, payload: str, world_lo=None,
                  world_hi=None, nee_max_media: int = 4, list_len: int = 8, cap_iters: int = 12,
-                 max_gens: int = 64, debug_stats: bool = False):
+                 max_gens: int = 64, debug_stats: bool = False, ex=None):
     """Per-lane-work-proportional trace (binned_trace.py:355); the payload
     contract of the megakernel's traverse: t == the per-lane bound on a
     miss, slot and mat -1. 'nee' returns K ts, K media rows (float) and
     t_opq. ``world_lo``/``world_hi`` clamp 'full' and 'dist' to the scene
     box. ``debug_stats`` also returns [generations, rounds, serving
-    iterations, live-lane rounds]."""
+    iterations, live-lane rounds]. ``ex`` runs the generation and round
+    loops (``pass_control.executor``: the caller's graph capture, the CPU
+    executor or the eager one)."""
     _check_payload(payload)
     check_grid(grid, media9)
     L = list_len
     K_NEE = nee_list_len(nee_max_media)
     dev = o.device
+    ex = pc.executor(dev, ex)
     r = o.shape[0]
     blocks = -(-r // BLOCK)
     rp = blocks * BLOCK
@@ -421,34 +485,63 @@ def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
         pad[3] = 1.0
         rays = torch.cat([rays, pad], dim=1)
         eff = torch.cat([eff, torch.zeros((rp - r,), dtype=torch.float32, device=dev)])
+    # The loop state, updated in place by the loops' steps.
     rays = rays.contiguous()
     state = state_bits(payload_state0(payload, eff, K_NEE))
     lane = torch.arange(rp, dtype=torch.int64, device=dev)
     tlo = torch.where(eff > _T_MIN, torch.full((rp,), -1, dtype=torch.int32, device=dev),
                       torch.full((rp,), EMPTY, dtype=torch.int32, device=dev))
     stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+    rungs = round_ladder(blocks)
+    edges = round_edges(blocks)
+    gen_ctrl = pc.new_ctrl(dev)
 
-    for _ in range(max_gens):
-        if not bool((tlo != EMPTY).any()):
-            break
+    def generation(h_gen):
         bnd = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE).contiguous()
         keys, tlim = listing(grid, rays, bnd, tlo, L)
         stats[0] += 1
-        # The round loop's one host read per round: the live lanes, which
-        # also size the round's launch.
-        live = int((keys[0] != EMPTY).sum())
-        while live:
-            _, keys, rays, state, tlo, tlim, lane = regroup(keys, rays, state, tlo, tlim, lane)
-            keys, state, iters = run_round(grid, media9, -(-live // BLOCK), rays,
-                                           keys.contiguous(), state.contiguous(), payload, K_NEE,
-                                           cap_iters)
+        round_ctrl = pc.new_ctrl(dev)
+
+        def one_round(h_round):
+            regroup_into(keys, rays, state, tlo, tlim, lane)
+            iters = torch.zeros((blocks,), dtype=torch.int32, device=dev)
+            handles = ex.conds(len(rungs))
+            ex.control(keys[0] != EMPTY, round_ctrl, pc.SET_LIVE | pc.RUNGS, edges=edges,
+                       handles=handles)
+
+            def served(ks, st, it):
+                if ks is not keys:  # the plain round returns new tensors
+                    keys.copy_(ks)
+                    state.copy_(st)
+
+            def rung(g, _h):
+                served(*run_round(grid, media9, None, rays, keys, state, payload, K_NEE,
+                                  cap_iters, ctrl=round_ctrl, group=g, iters=iters))
+
+            def host(lb):
+                served(*run_round(grid, media9, lb, rays, keys, state, payload, K_NEE,
+                                  cap_iters, iters=iters))
+
+            ex.rungs(handles, round_ctrl, [partial(rung, g) for _, _, g in rungs],
+                     host=(pc.CTRL_LIVE, host))
             stats[1] += 1
             stats[2] += iters.sum()
-            stats[3] += live
-            live = int((keys[0] != EMPTY).sum())
+            stats[3] += round_ctrl[pc.CTRL_NALIVE]
+            ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, handle=h_round)
+
+        h_round = ex.cond()
+        ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, handle=h_round)
+        ex.loop(h_round, round_ctrl, one_round)
         bnd2 = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE)
         unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
-        tlo = torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY))
+        tlo.copy_(torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY)))
+        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=max_gens,
+                   handle=h_gen)
+
+    h_gen = ex.cond()
+    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=max_gens,
+               handle=h_gen)
+    ex.loop(h_gen, gen_ctrl, generation)
 
     restored = torch.empty_like(state)
     restored[:, lane] = state

@@ -66,11 +66,11 @@ _KINDS = {
                        [_vp] * 7 + [_ci] * 7 + [_vp]),
     "binned_round": ("binned_round.cu", ("CMR_LIST_LEN", "CMR_NEE_MAX_MEDIA"),
                      "cmr_binned_round_launch",
-                     [_vp, _ci] + [_vp] * 5 + [_ci] * 9 + [_vp]),
+                     [_vp, _ci] + [_vp] * 5 + [_ci] * 9 + [_vp] * 2),
     "pair_sweep": ("pair_sweep.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_pair_sweep_launch",
-                   [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp]),
+                   [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp] * 2),
     "pass_control": ("pass_control.cu", (), "cmr_pass_control_launch",
-                     [_vp, _ci, _vp, _vp] + [_ci] * 4 + [ctypes.c_ulonglong, _vp]),
+                     [_vp, _ci, _vp, _vp] + [_ci] * 5 + [ctypes.c_ulonglong, _ci] + [_vp] * 3),
 }
 
 _lock = threading.Lock()

@@ -31,6 +31,7 @@ from .cluster_grid import DeviceClusterGrid
 from .cluster_test import group_size, payload_state0, slot_table, trace_slots
 from .intersect import Hit
 from .megakernel import _require
+from .pass_control import count_launch
 
 
 class ShadedHit(NamedTuple):
@@ -67,14 +68,23 @@ def trace_core_plain(o: torch.Tensor, d: torch.Tensor, grid: DeviceClusterGrid,
     return tuple(out)
 
 
+def lane_values(x, r: int, device) -> torch.Tensor:
+    """``x`` (a number or a tensor) broadcast to (r,) float32 on ``device``;
+    a number is written there by a fill, which reads nothing back and, in a
+    capture, copies nothing from the host."""
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(x.to(device, torch.float32), (r,))
+    return torch.full((r,), x, dtype=torch.float32, device=device)
+
+
 def trace_core(o, d, grid: DeviceClusterGrid, t_min, t_max, active=None):
     """The kernel's outputs (t, slot, u, v, nx, ny, nz, mat, px, py, pz)
     with slot and mat as int32, plus the broadcast ``t_max``
     (pallas_trace.py ``_trace_core``). CUDA launches are counted in
-    ``trace_core.launches``."""
+    ``trace_core.launches``, or on the card when captured
+    (``pass_control.count_launch``)."""
     r = o.shape[0]
-    t_max_arr = torch.broadcast_to(
-        torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (r,))
+    t_max_arr = lane_values(t_max, r, o.device)
     eff_tmax = t_max_arr
     if active is not None:
         eff_tmax = torch.where(active, t_max_arr, torch.zeros_like(t_max_arr))
@@ -146,7 +156,7 @@ def _launch(o, d, grid: DeviceClusterGrid, eff_tmax, t_min):
                      p(o), p(d), p(eff_tmax), p(fout), p(iout),
                      r, C, S, grid.runs_per_cluster, grid.run_size, row_w, grid.super_factor,
                      group_size(r), ctypes.c_void_p(stream))
-        trace_core.launches += 1
+        count_launch(trace_core, "K3", dev)
         if err != 0:
             raise RuntimeError(f"closest-hit kernel launch failed: {build.error_string(err)}")
     t, u, v, nx, ny, nz, px, py, pz = fout

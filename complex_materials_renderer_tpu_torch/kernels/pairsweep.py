@@ -11,16 +11,22 @@ Counterpart of complex_materials_renderer_tpu/kernels/pairsweep.py
    original index) so that the pairs come cluster-major, and gathers each
    pair's ray and seed (the lane's best t, or its nearest opaque t);
 3. SWEEPS the pairs in 1024-pair blocks (``sweep``: K6): each block serves
-   its distinct cluster ids smallest first against all its pairs;
-   the generation's one host read is its pair count, which sizes the
-   sweep's launch; a generation that lists no pair ends the trace;
+   its distinct cluster ids smallest first against all its pairs; K6
+   takes the generation's pair count from the control block
+   (kernels/pass_control.py), its G ladder (``group_size``) one IF node a
+   rung whose grid covers that rung's most pairs;
 4. sends the results back to pair order (the inverse of the sort) and
    FOLDS them per lane; lanes whose list overflowed relist from their L-th
    key, as in the binned trace.
 
 'full' sweeps as 'dist' and derives the shading payload from the winning
 slot at the end (``_derive_full``). The lane field of the flat key caps a
-trace at 65,536 lanes, the Renderer's pass width.
+trace at 65,536 lanes, the Renderer's pass width. The generation loop is
+the JAX ``lax.while_loop`` (:388-405) on ``any(t_lo != EMPTY)`` and the
+generation cap: run by an executor, on the card a conditional WHILE node
+of the caller's CUDA graph, its state updated in place; on the eager
+executor the host reads its condition and passes K6 its pair count as an
+int.
 
 On CUDA tensors ``sweep`` launches the kernel of ``csrc/pair_sweep.cu``
 (or raises); on CPU tensors it runs ``sweep_plain``, which serves per
@@ -32,6 +38,7 @@ pair count to whole steps; it never changes a result.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -63,6 +70,7 @@ from .cluster_test import (
     slot_table,
     trace_slots,
 )
+from . import pass_control as pc
 from .megakernel import _INF, _require
 
 LANE_BITS = 16  # flat pair key = [cluster id << 16 | lane]
@@ -113,22 +121,52 @@ def sweep_plain(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tenso
     return state
 
 
+def seed_state_bits(rays: torch.Tensor, payload: str, K_NEE: int) -> torch.Tensor:
+    """The (ns, P) ``state_bits`` of every pair before the sweep: its seed
+    state, which a pair that no block serves keeps."""
+    return state_bits(_seed_state(payload, rays[6], K_NEE))
+
+
+def sweep_ladder(P: int):
+    """K6's G ladder over 1 to ``P`` valid pairs: (first pairs, last, G) a
+    rung (``pass_control.ladder`` of ``group_size``)."""
+    return pc.ladder(group_size, P)
+
+
 def sweep(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tensor, cid: torch.Tensor,
-          payload: str, K_NEE: int, pairs: int | None = None) -> torch.Tensor:
+          payload: str, K_NEE: int, pairs: int | None = None,
+          ctrl: torch.Tensor | None = None, group: int | None = None,
+          out: torch.Tensor | None = None) -> torch.Tensor:
     """The (ns, P) ``state_bits`` of the pair sweep: the kernel of
     ``csrc/pair_sweep.cu`` on CUDA tensors (launches counted in
-    ``sweep.launches``), ``sweep_plain`` on CPU tensors. The kernel needs
-    ``pairs``, the number of valid pairs (cid < BIGC) as a host int: it
-    picks the threads per pair (``group_size``) and sizes the grid, and the
-    wrapper never reads it back from the card."""
+    ``sweep.launches``, or on the card when captured), ``sweep_plain`` on
+    CPU tensors. The kernel needs ``pairs``, the number of valid pairs (cid
+    < BIGC) as a host int: it picks the threads per pair (``group_size``)
+    and sizes the grid, and the wrapper never reads it back from the card;
+    with no valid pair nothing is launched and every pair keeps its seed
+    state. Or ``pairs`` is None and ``ctrl``, a pass control block, holds
+    the count on the card (CTRL_NALIVE) and ``group`` is a rung of
+    ``sweep_ladder``: the grid covers that rung's most pairs. ``out``, when
+    given, receives the state (and holds the seed state where the kernel is
+    not launched)."""
     if payload not in SWEEP_PAYLOADS:
         raise ValueError(f"the sweep takes 'dist', 'occl' or 'nee', got {payload!r}")
+    P = cid.shape[0]
+    if ctrl is not None:
+        if pairs is not None:
+            raise ValueError("a sweep with the control block takes no host pair count")
+        rungs = {g: b for _, b, g in sweep_ladder(max(1, P))}
+        if group not in rungs:
+            raise ValueError(f"group {group!r} is no rung of the sweep's ladder")
     if rays.device.type == "cpu":
-        return sweep_plain(grid, media9, rays, cid, payload, K_NEE)
+        state = sweep_plain(grid, media9, rays, cid, payload, K_NEE)
+        if out is not None:
+            out.copy_(state)
+            return out
+        return state
     from . import build
 
     dev = rays.device
-    P = cid.shape[0]
     if P % BLOCK:
         raise ValueError(f"the sweep takes whole blocks of {BLOCK} pairs, got {P}")
     if (K_NEE - 2) % 2 or K_NEE < 2:
@@ -139,23 +177,33 @@ def sweep(grid: DeviceClusterGrid, media9: torch.Tensor, rays: torch.Tensor, cid
     _require(media9, "media9", torch.float32, (media9.shape[0], 9), dev)
     _require(rays, "rays", torch.float32, (7, P), dev)
     _require(cid, "cid", torch.int32, (P,), dev)
-    if not isinstance(pairs, int) or not 0 <= pairs <= P:
+    if ctrl is None and (not isinstance(pairs, int) or not 0 <= pairs <= P):
         raise ValueError(f"pairs must be a host int in [0, {P}], got {pairs!r}")
-    state = torch.empty((n_state(payload, K_NEE), P), dtype=torch.int32, device=dev)
-    if P == 0:
-        return state
+    ns = n_state(payload, K_NEE)
+    if out is None:
+        out = seed_state_bits(rays, payload, K_NEE) if pairs == 0 else \
+            torch.empty((ns, P), dtype=torch.int32, device=dev)
+    _require(out, "out", torch.int32, (ns, P), dev)
+    if P == 0 or pairs == 0:
+        return out
+    if ctrl is not None:
+        _require(ctrl, "ctrl", torch.int32, (pc.CTRL_LEN,), dev)
+        most, g = min(rungs[group], P), group
+        count = ctypes.c_void_p(ctrl.data_ptr() + 4 * pc.CTRL_NALIVE)
+    else:
+        most, g, count = pairs, group_size(pairs), None
     fn = build.pair_sweep((K_NEE - 2) // 2)
-    cover = max(BLOCK, -(-pairs // BLOCK) * BLOCK)
+    cover = max(BLOCK, -(-most // BLOCK) * BLOCK)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(p(media9), media9.shape[0], p(grid.run_rows), p(rays), p(cid), p(state), P,
+        err = fn(p(media9), media9.shape[0], p(grid.run_rows), p(rays), p(cid), p(out), P,
                  cover, C, grid.runs_per_cluster, grid.run_size, row_w, PAYLOAD_IDS[payload],
-                 group_size(pairs), ctypes.c_void_p(stream))
-    sweep.launches += 1
+                 g, count, ctypes.c_void_p(stream))
+    pc.count_launch(sweep, "K6", dev)
     if err != 0:
         raise RuntimeError(f"pair sweep launch failed: {build.error_string(err)}")
-    return state
+    return out
 
 
 sweep.launches = 0  # CUDA launches made by sweep
@@ -210,16 +258,18 @@ def _fold(payload: str, state, keys: torch.Tensor, results, K_NEE: int):
 def trace_pairs(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
                 d: torch.Tensor, bound: torch.Tensor, payload: str, world_lo=None,
                 world_hi=None, nee_max_media: int = 4, list_len: int = 12, max_gens: int = 64,
-                chunk_blocks: int = 8):
+                chunk_blocks: int = 8, ex=None):
     """Cluster-major pair-sweep trace (pairsweep.py:177); the payload
     contract of trace_binned. ``list_len`` bounds the candidates of one
-    generation (overflow relists, never truncates)."""
+    generation (overflow relists, never truncates). ``ex`` runs the
+    generation loop (``pass_control.executor``)."""
     if payload not in PAYLOAD_IDS:
         raise ValueError(f"unknown payload {payload!r}")
     check_grid(grid, media9)
     L = list_len
     K_NEE = nee_list_len(nee_max_media)
     dev = o.device
+    ex = pc.executor(dev, ex)
     r = o.shape[0]
     blocks = -(-r // BLOCK)
     rp = blocks * BLOCK
@@ -240,28 +290,50 @@ def trace_pairs(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
         rays = torch.cat([rays, pad], dim=1)
         eff = torch.cat([eff, torch.zeros((rp - r,), dtype=torch.float32, device=dev)])
     rays = rays.contiguous()
-    state = payload_state0(spayload, eff, K_NEE)
+    # The loop state, updated in place by the generations.
+    state = tuple(x.clone() for x in payload_state0(spayload, eff, K_NEE))
     tlo = torch.where(eff > _T_MIN, torch.full((rp,), -1, dtype=torch.int32, device=dev),
                       torch.full((rp,), EMPTY, dtype=torch.int32, device=dev))
+    rungs = sweep_ladder(L * rp)
+    edges = pc.rung_edges(rungs)
+    gen_ctrl = pc.new_ctrl(dev)
 
-    for _ in range(max_gens):
+    def generation(h_gen):
         keys, tlim = listing(grid, rays, payload_bound(spayload, state, K_NEE).contiguous(), tlo,
                              L)
-        # The generation's one host read: its pair count, which also sizes
-        # the sweep; a generation that lists nothing changes nothing.
-        pairs = int((keys != EMPTY).sum())
-        if pairs == 0:
-            break
+        pair_ctrl = pc.new_ctrl(dev)
+        handles = ex.conds(len(rungs))
+        # The generation's pair count, on the card: K6's rung and its cover.
+        ex.control((keys != EMPTY).reshape(-1), pair_ctrl, pc.RUNGS, edges=edges,
+                   handles=handles)
         seed = state[K_NEE] if spayload == "nee" else state[0]
         pair_rays, cid, orig = expand_pairs(keys, rays, seed, chunk_blocks)
-        out = sweep(grid, media9, pair_rays, cid, spayload, K_NEE, pairs)
+        out = seed_state_bits(pair_rays, spayload, K_NEE)
+
+        def rung(g, _h):
+            sweep(grid, media9, pair_rays, cid, spayload, K_NEE, ctrl=pair_ctrl, group=g,
+                  out=out)
+
+        def host(pairs):
+            sweep(grid, media9, pair_rays, cid, spayload, K_NEE, pairs, out=out)
+
+        ex.rungs(handles, pair_ctrl, [partial(rung, g) for _, _, g in rungs],
+                 host=(pc.CTRL_NALIVE, host))
         back = torch.empty_like(out)
         back[:, orig] = out
         results = state_fields(back[:, :L * rp].reshape(-1, L, rp), spayload, K_NEE)
-        state = _fold(spayload, state, keys, results, K_NEE)
+        for x, y in zip(state, _fold(spayload, state, keys, results, K_NEE)):
+            x.copy_(y)
         bnd2 = payload_bound(spayload, state, K_NEE)
         unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
-        tlo = torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY))
+        tlo.copy_(torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY)))
+        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=max_gens,
+                   handle=h_gen)
+
+    h_gen = ex.cond()
+    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=max_gens,
+               handle=h_gen)
+    ex.loop(h_gen, gen_ctrl, generation)
 
     if payload == "full":
         return tuple(x[:r] for x in _derive_full(grid, state, rays))

@@ -27,8 +27,10 @@ import ctypes
 import torch
 
 CTRL_LIVE, CTRL_DIM0, CTRL_RUN, CTRL_NALIVE, CTRL_COND = 0, 1, 2, 3, 4
+CTRL_ITER, CTRL_RUNG, CTRL_EXTENT = 5, 6, 7
 CTRL_LEN = 8
 BLOCK = 1024  # lanes per live block
+MAX_RUNGS = 8  # rungs of one launch-shape ladder (csrc/pass_control.cu)
 
 # Flags of one control launch (csrc/pass_control.cu).
 INIT = 1  # dim0 = ``dim0``; and as SET_FULL
@@ -37,8 +39,20 @@ SET_LIVE = 4  # live_blocks = ceil(alive / 1024), run flag = alive > 0
 AFTER_K1 = 8  # the K1 launch before ran: dim0 += ``advance`` (and counted)
 COND = 16  # condition = alive > ``threshold`` (and the graph's handle)
 DEVICE_COUNT = 32  # count K1's runs and this kernel's in ``device_counts``
+_SET_HANDLE = 64  # set by ``pass_control`` when it is given a handle
+ITER_RESET = 128  # the iteration counter = 0 (before the condition)
+ITER_STEP = 256  # the iteration counter += 1 (before the condition)
+ITER_CAP = 512  # COND also needs iteration < ``cap``
+ITER_GRACE = 1024  # COND is alive > 0 while iteration < ``cap``, alive > ``threshold`` after
+RUNGS = 2048  # the ladder rung that holds the count (or the extent) and its IF nodes
+EXTENT = 4096  # record the last true byte's index + 1; with RUNGS, the rungs' value
+NOT_K1 = 8192  # with AFTER_K1: the kernel before was not K1 (no K1 count)
+_SET_RUNG_HANDLES = 16384  # set by ``pass_control`` when it is given rung handles
 
 _COUNTS: dict = {}
+_KERNEL_COUNTS: dict = {}
+# The kernels whose launches graph replays count on the card (``kernel_counts``).
+COUNTED_KERNELS = ("K3", "K4", "K5", "K6")
 
 
 def new_ctrl(device) -> torch.Tensor:
@@ -46,35 +60,88 @@ def new_ctrl(device) -> torch.Tensor:
     return torch.zeros(CTRL_LEN, dtype=torch.int32, device=device)
 
 
+def _device_key(device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
 def device_counts(device) -> torch.Tensor:
     """The (2,) int64 counts on ``device`` of the K1 launches that ran and
     of the control launches, made by the launches flagged DEVICE_COUNT
     (graph replays and the CPU executor; render/megarender.py)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = str(device)
+    key = _device_key(device)
     if key not in _COUNTS:
-        _COUNTS[key] = torch.zeros(2, dtype=torch.int64, device=device)
+        _COUNTS[key] = torch.zeros(2, dtype=torch.int64, device=key)
     return _COUNTS[key]
+
+
+def kernel_counts(device) -> torch.Tensor:
+    """The (4,) int64 counts on ``device`` of the K3, K4, K5 and K6 launches
+    that graph replays ran (``COUNTED_KERNELS``): a captured launch adds one
+    to its count on the card where it launches (``count_launch``)."""
+    key = _device_key(device)
+    if key not in _KERNEL_COUNTS:
+        _KERNEL_COUNTS[key] = torch.zeros(len(COUNTED_KERNELS), dtype=torch.int64, device=key)
+    return _KERNEL_COUNTS[key]
 
 
 def counted_devices():
     """The devices that hold device counts."""
-    return list(_COUNTS)
+    return sorted(set(_COUNTS) | set(_KERNEL_COUNTS))
+
+
+def count_launch(wrapper, kernel: str, device) -> None:
+    """Count one launch of ``kernel`` by ``wrapper``: in ``wrapper.launches``
+    on the host, or, while the stream is being captured, on the card (an
+    add captured beside the launch, so that each replay of it counts)."""
+    if torch.cuda.is_current_stream_capturing():
+        kernel_counts(device).narrow(0, COUNTED_KERNELS.index(kernel), 1).add_(1)
+    else:
+        wrapper.launches += 1
+
+
+def ladder(rule, hi: int, lo: int = 1):
+    """The rungs of a launch-shape rule over the counts [lo, hi]: a list of
+    (first count, last count, rule value), ascending, where ``rule`` is
+    monotone in the count (each value holds one run of counts)."""
+    rungs = []
+    c = lo
+    while c <= hi:
+        v = rule(c)
+        a, b = c, hi
+        while a < b:  # the last count of this run
+            m = (a + b + 1) // 2
+            if rule(m) == v:
+                a = m
+            else:
+                b = m - 1
+        rungs.append((c, a, v))
+        c = a + 1
+    if len(rungs) > MAX_RUNGS:
+        raise ValueError(f"a ladder of {len(rungs)} rungs exceeds {MAX_RUNGS}")
+    return rungs
+
+
+def rung_edges(rungs) -> list:
+    """The control kernel's edges of ``ladder`` rungs: rung i holds the
+    values in [edges[i], edges[i + 1])."""
+    return [a for a, _, _ in rungs] + [rungs[-1][1] + 1] if rungs else [0]
 
 
 def pass_control_plain(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor,
-                       flags: int, dim0: int = 0, advance: int = 0, threshold: int = 0) -> None:
+                       flags: int, dim0: int = 0, advance: int = 0, threshold: int = 0,
+                       cap: int = 0, edges=()) -> None:
     """The control kernel in plain PyTorch, on any device: updates ``ctrl``
-    (and ``counts``) in place from the alive lanes, with tensor operations
-    only (no value goes to the host)."""
+    (and ``counts``) in place from the true bytes of ``alive``, with tensor
+    operations only (no value goes to the host)."""
     n = alive.shape[0]
     n_alive = alive.sum(dtype=torch.int32)
     if flags & AFTER_K1:
         ran = (ctrl[CTRL_RUN] != 0) & (ctrl[CTRL_LIVE] > 0)
         ctrl[CTRL_DIM0] = ctrl[CTRL_DIM0] + ran.to(torch.int32) * advance
-        if flags & DEVICE_COUNT:
+        if flags & DEVICE_COUNT and not flags & NOT_K1:
             counts[0] += ran.to(torch.int64)
     if flags & INIT:
         ctrl[CTRL_DIM0] = dim0
@@ -85,24 +152,52 @@ def pass_control_plain(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Te
         ctrl[CTRL_LIVE] = torch.div(n_alive + (BLOCK - 1), BLOCK, rounding_mode="floor")
         ctrl[CTRL_RUN] = (n_alive > 0).to(torch.int32)
     ctrl[CTRL_NALIVE] = n_alive
+    extent = None
+    if flags & EXTENT:
+        idx = torch.arange(1, n + 1, dtype=torch.int32, device=alive.device)
+        extent = torch.where(alive, idx, torch.zeros_like(idx)).amax() if n else \
+            torch.zeros((), dtype=torch.int32, device=alive.device)
+        ctrl[CTRL_EXTENT] = extent
+    if flags & ITER_RESET:
+        ctrl[CTRL_ITER] = 0
+    if flags & ITER_STEP:
+        ctrl[CTRL_ITER] = ctrl[CTRL_ITER] + 1
     if flags & COND:
-        ctrl[CTRL_COND] = (n_alive > threshold).to(torch.int32)
+        go = n_alive > threshold
+        if flags & ITER_CAP:
+            go = go & (ctrl[CTRL_ITER] < cap)
+        if flags & ITER_GRACE:
+            go = n_alive > torch.where(ctrl[CTRL_ITER] < cap, 0, threshold)
+        ctrl[CTRL_COND] = go.to(torch.int32)
+    if flags & RUNGS:
+        value = extent if flags & EXTENT else n_alive
+        rung = torch.full((), -1, dtype=torch.int32, device=alive.device)
+        for i in range(len(edges) - 1):
+            inside = (value >= edges[i]) & (value < edges[i + 1])
+            rung = torch.where(inside, i, rung)
+        ctrl[CTRL_RUNG] = rung
     if flags & DEVICE_COUNT:
         counts[1] += 1
 
 
 def pass_control(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor, flags: int,
-                 dim0: int = 0, advance: int = 0, threshold: int = 0, handle=None) -> None:
-    """Update the control block ``ctrl`` after a sort or a K1 launch (the
-    ``flags`` above). ``handle``: a graph conditional handle (``cond_handle``)
-    that a COND launch also sets. CUDA tensors launch the kernel of
+                 dim0: int = 0, advance: int = 0, threshold: int = 0, cap: int = 0,
+                 edges=(), handle=None, handles=None) -> None:
+    """Update the control block ``ctrl`` after a sort or a launch (the
+    ``flags`` above) from the true bytes of the one-dimensional bool tensor
+    ``alive``. ``handle``: a graph conditional handle (``cond_handle``) that
+    a COND launch also sets; ``edges`` and ``handles``: a RUNGS launch's
+    ladder (``rung_edges``) and a handle per rung, each set to whether its
+    rung holds the value. CUDA tensors launch the kernel of
     ``csrc/pass_control.cu`` on the current stream (counted in
     ``pass_control.launches`` unless the stream is being captured), CPU
     tensors run ``pass_control_plain``."""
+    if flags & RUNGS and not 2 <= len(edges) <= MAX_RUNGS + 1:
+        raise ValueError(f"a ladder takes 1 to {MAX_RUNGS} rungs, got edges {list(edges)}")
     if alive.device.type == "cpu":
-        if handle is not None:
+        if handle is not None or any(h is not None for h in handles or ()):
             raise ValueError("a graph conditional handle needs CUDA tensors")
-        pass_control_plain(alive, ctrl, counts, flags, dim0, advance, threshold)
+        pass_control_plain(alive, ctrl, counts, flags, dim0, advance, threshold, cap, edges)
         return
     from . import build
 
@@ -118,13 +213,22 @@ def pass_control(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor, 
         raise ValueError("alive must be one-dimensional")
     fn = build.pass_control().cmr_pass_control_launch
     if handle is not None:
-        flags |= 64  # SET_HANDLE
+        flags |= _SET_HANDLE
+    n_rungs = len(edges) - 1 if flags & RUNGS else 0
+    c_edges = (ctypes.c_int * (n_rungs + 1))(*(int(e) for e in edges)) if n_rungs else None
+    c_handles = None
+    if handles is not None and any(h is not None for h in handles):
+        if len(handles) != n_rungs or any(h is None for h in handles):
+            raise ValueError("a RUNGS launch takes one handle a rung, or none")
+        c_handles = (ctypes.c_ulonglong * n_rungs)(*(int(h) for h in handles))
+        flags |= _SET_RUNG_HANDLES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         err = fn(ctypes.c_void_p(alive.data_ptr()), alive.shape[0],
                  ctypes.c_void_p(ctrl.data_ptr()), ctypes.c_void_p(counts.data_ptr()),
-                 flags, int(dim0), int(advance), int(threshold),
-                 0 if handle is None else handle, ctypes.c_void_p(stream.cuda_stream))
+                 flags, int(dim0), int(advance), int(threshold), int(cap),
+                 0 if handle is None else handle, n_rungs, c_edges, c_handles,
+                 ctypes.c_void_p(stream.cuda_stream))
         if not torch.cuda.is_current_stream_capturing():
             pass_control.launches += 1
     if err != 0:
@@ -144,22 +248,23 @@ def _check(err: int, what: str) -> None:
 _BODY_STREAMS: dict = {}
 
 
-def body_stream(device) -> torch.cuda.ExternalStream:
-    """The stream that conditional bodies on ``device`` are captured on: one
-    of the port's own, made once a device (torch's pool hands its streams
-    out in turn, so one of them would in time be the stream being
-    captured)."""
+def body_stream(device, depth: int = 0) -> torch.cuda.ExternalStream:
+    """The stream that conditional bodies at nesting ``depth`` on ``device``
+    are captured on: one of the port's own a depth, made once (torch's pool
+    hands its streams out in turn, so one of them would in time be the
+    stream being captured; a nested body is captured while its parent's
+    capture is open, so each depth has its own)."""
     from . import build
 
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    if index not in _BODY_STREAMS:
+    if (index, depth) not in _BODY_STREAMS:
         out = ctypes.c_void_p(0)
         _check(build.pass_control().cmr_graph_body_stream(index, ctypes.byref(out)),
                "creating a stream")
-        _BODY_STREAMS[index] = torch.cuda.ExternalStream(out.value,
-                                                         device=torch.device("cuda", index))
-    return _BODY_STREAMS[index]
+        _BODY_STREAMS[index, depth] = torch.cuda.ExternalStream(
+            out.value, device=torch.device("cuda", index))
+    return _BODY_STREAMS[index, depth]
 
 
 def cond_handle(stream: torch.cuda.Stream) -> int:
@@ -191,3 +296,141 @@ def cond_end(body_stream: torch.cuda.Stream) -> None:
 
     _check(build.pass_control().cmr_graph_cond_end(ctypes.c_void_p(body_stream.cuda_stream)),
            "ending a conditional body's capture")
+
+
+class HostLoop:
+    """The executor that reads the control block on the host at each loop,
+    guard and ladder: the CPU executor, and on the card the eager executor
+    that the graph is compared with.
+
+    With ``device_ctrl`` the kernels take the control block themselves
+    (K1's run flag, live_blocks and dim0; K5's live blocks; K6's pair
+    count), and every other step is a tensor operation, so only the loop
+    control (``read``, ``read_field``) brings a value to the host (the CPU
+    executor; its K1 and control launches count in the device counts as a
+    graph's do). Without, the host reads the control block before each such
+    kernel call and passes its values as ints (the eager executor)."""
+
+    capturing = False
+
+    def __init__(self, device, device_ctrl: bool):
+        self.counts = device_counts(device)
+        self.device_ctrl = device_ctrl
+
+    def control(self, alive, ctrl, flags, handle=None, handles=None, **kw):
+        pass_control(alive, ctrl, self.counts,
+                     flags | (DEVICE_COUNT if self.device_ctrl else 0), **kw)
+
+    def cond(self):
+        return None
+
+    def conds(self, n: int):
+        return [None] * n
+
+    @staticmethod
+    def read(ctrl) -> bool:
+        """The host read of a loop or guard condition."""
+        return bool(ctrl[CTRL_COND])
+
+    @staticmethod
+    def read_field(ctrl, field: int) -> int:
+        """The host read of one field of the control block."""
+        return int(ctrl[field])
+
+    def loop(self, handle, ctrl, body):
+        while self.read(ctrl):
+            body(handle)
+
+    def guard(self, handle, ctrl, body):
+        if self.read(ctrl):
+            body(handle)
+
+    def rungs(self, handles, ctrl, bodies, host=None):
+        """Run the body of the rung that the control block holds (the CPU
+        executor, or any executor without a ``host`` call), or ``host`` with
+        the control block's ``field`` as a host int (the eager executor:
+        ``host`` is ``(field, fn)``)."""
+        if host is not None and not self.device_ctrl:
+            field, fn = host
+            fn(self.read_field(ctrl, field))
+            return
+        i = self.read_field(ctrl, CTRL_RUNG)
+        if i >= 0:
+            bodies[i](handles[i])
+
+    def k1(self, kern, state, cap, ctrl):
+        ex = {"ex": self} if getattr(kern, "takes_executor", False) else {}
+        if self.device_ctrl:
+            kern(state, max_iters=cap, ctrl=ctrl, **ex)
+            return
+        live, dim0, run = ctrl[:3].tolist()
+        if run and live > 0:
+            kern(state, max_iters=cap, live_blocks=live, dim0=dim0, **ex)
+
+
+class GraphCapture:
+    """The executor that records a plan into the CUDA graph being captured:
+    each loop a conditional WHILE node, each guard and each rung of a
+    ladder an IF node, whose condition the control kernel sets on the card;
+    the kernels take the control block. A body is captured on a stream of
+    its own depth (``body_stream``), and what the bodies allocate comes from
+    a memory pool of the graph's (``body_pool``)."""
+
+    capturing = True
+    device_ctrl = True
+
+    def __init__(self, device):
+        self.device = device
+        self.counts = device_counts(device)
+        kernel_counts(device)  # made before the capture, which only records
+        self.body_pool = torch.cuda.MemPool()
+        self.depth = 0
+        self.advances = 0
+
+    def control(self, alive, ctrl, flags, handle=None, handles=None, **kw):
+        pass_control(alive, ctrl, self.counts, flags | DEVICE_COUNT, handle=handle,
+                     handles=handles, **kw)
+
+    def cond(self):
+        return cond_handle(torch.cuda.current_stream(self.device))
+
+    def conds(self, n: int):
+        return [self.cond() for _ in range(n)]
+
+    def loop(self, handle, ctrl, body):
+        self._conditional(handle, True, body)
+
+    def guard(self, handle, ctrl, body):
+        self._conditional(handle, False, body)
+
+    def rungs(self, handles, ctrl, bodies, host=None):
+        for h, body in zip(handles, bodies):
+            self._conditional(h, False, body)
+
+    def _conditional(self, handle, loop, body):
+        stream = body_stream(self.device, self.depth)
+        cond_begin(torch.cuda.current_stream(self.device), handle, loop, stream)
+        self.depth += 1
+        try:
+            with torch.cuda.stream(stream):
+                if self.depth == 1:
+                    with torch.cuda.use_mem_pool(self.body_pool):
+                        body(handle)
+                else:
+                    body(handle)
+        finally:
+            self.depth -= 1
+            cond_end(stream)
+
+    def k1(self, kern, state, cap, ctrl):
+        ex = {"ex": self} if getattr(kern, "takes_executor", False) else {}
+        kern(state, max_iters=cap, ctrl=ctrl, **ex)
+
+
+def executor(device, ex=None):
+    """``ex``, or the executor of a call made outside a plan on ``device``:
+    the CPU executor on the CPU, the eager executor on the card."""
+    if ex is not None:
+        return ex
+    device = torch.device(device)
+    return HostLoop(device, device_ctrl=device.type == "cpu")

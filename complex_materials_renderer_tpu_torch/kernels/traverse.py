@@ -6,9 +6,11 @@ Counterpart of complex_materials_renderer_tpu/kernels/traverse.py
 package (no Pallas kernel): every lane carries one node cursor into the
 threaded BVH of ``accel/bvh.py``; a box hit on an interior node moves it
 to the first child, a miss or a tested leaf to the node's miss link. All
-lanes step together in a host loop that ends when no cursor is left
-(one ``any(cur >= 0)`` per step). It is the portable backend, slow on a
-card; the Renderer warns when it is asked for there.
+lanes step together in a loop that ends when no cursor is left (the JAX
+``lax.while_loop`` :184): a conditional WHILE node of the caller's graph on
+the card (``ex``, kernels/pass_control.py), a host read of ``any(cur >= 0)``
+a step on the CPU and on the eager executor. It is the portable backend,
+slow on a card; the Renderer warns when it is asked for there.
 
 ``trace_closest`` and ``trace_shaded`` dispatch on the accel type: a
 ``DeviceBVH`` takes the walk, a ``DeviceClusterGrid`` the closest-hit
@@ -24,7 +26,8 @@ import torch
 
 from ..ops.vec import cross, safe_normalize
 from .cluster_grid import DeviceClusterGrid
-from .cluster_trace import ShadedHit, trace_closest_clusters, trace_shaded_clusters
+from . import pass_control as pc
+from .cluster_trace import ShadedHit, lane_values, trace_closest_clusters, trace_shaded_clusters
 from .intersect import Hit, ray_aabb, ray_triangle, safe_inv_dir
 
 _TENSOR_FIELDS = ("bmin", "bmax", "left", "count", "miss", "v0", "v1", "v2", "tri_index")
@@ -76,21 +79,22 @@ def device_bvh_from_jax(arrays, leaf_size: int | None = None, device="cpu") -> D
                                         else arrays.leaf_size))
 
 
-def trace_closest(o, d, accel, t_min, t_max, active=None) -> Hit:
-    """Closest hit: the BVH walk for a DeviceBVH, K3 for a cluster grid."""
+def trace_closest(o, d, accel, t_min, t_max, active=None, ex=None) -> Hit:
+    """Closest hit: the BVH walk for a DeviceBVH (its loop run by the
+    executor ``ex``), K3 for a cluster grid."""
     if isinstance(accel, DeviceClusterGrid):
         return trace_closest_clusters(o, d, accel, t_min, t_max, active=active)
-    return _trace_closest_bvh(o, d, accel, t_min, t_max, active=active)
+    return _trace_closest_bvh(o, d, accel, t_min, t_max, active=active, ex=ex)
 
 
 def trace_shaded(o, d, accel, scene_v0, scene_v1, scene_v2, scene_mat_ids,
-                 t_min, t_max, active=None) -> ShadedHit:
+                 t_min, t_max, active=None, ex=None) -> ShadedHit:
     """Closest hit with the shading payload. K3 returns it directly; on
     the BVH it comes from the hit triangle's vertices (reference
     getObjectHitInfo, volpath:158-196)."""
     if isinstance(accel, DeviceClusterGrid):
         return trace_shaded_clusters(o, d, accel, t_min, t_max, active=active)
-    hit = _trace_closest_bvh(o, d, accel, t_min, t_max, active=active)
+    hit = _trace_closest_bvh(o, d, accel, t_min, t_max, active=active, ex=ex)
     p = torch.clamp(hit.prim, min=0).to(torch.int64)
     a, b, c = scene_v0[p], scene_v1[p], scene_v2[p]
     n = safe_normalize(cross(b - a, c - a))
@@ -100,15 +104,18 @@ def trace_shaded(o, d, accel, scene_v0, scene_v1, scene_v2, scene_mat_ids,
     return ShadedHit(t=hit.t, hit=got, u=hit.u, v=hit.v, normal=n, mat_id=mat, position=position)
 
 
-def _trace_closest_bvh(o, d, bvh: DeviceBVH, t_min, t_max, active=None) -> Hit:
+def _trace_closest_bvh(o, d, bvh: DeviceBVH, t_min, t_max, active=None, ex=None) -> Hit:
     """Closest hit of every ray by the threaded-BVH walk. Inactive lanes
     start parked (cursor -1) and miss; ``prim`` indexes the original
-    triangle order; ``t`` is ``t_max`` on a miss."""
+    triangle order; ``t`` is ``t_max`` on a miss. The walk's loop is run by
+    the executor ``ex`` (``pass_control.executor``), its state updated in
+    place."""
     r = o.shape[0]
     dev = o.device
+    ex = pc.executor(dev, ex)
     inv_d = safe_inv_dir(d)
-    t_max_arr = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (r,))
-    t_min_arr = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32, device=dev), (r,))
+    t_max_arr = lane_values(t_max, r, dev)
+    t_min_arr = lane_values(t_min, r, dev)
     cur = torch.zeros((r,), dtype=torch.int64, device=dev)
     if active is not None:
         cur = torch.where(active, cur, torch.full_like(cur, -1))
@@ -117,7 +124,9 @@ def _trace_closest_bvh(o, d, bvh: DeviceBVH, t_min, t_max, active=None) -> Hit:
     best_u = torch.zeros((r,), dtype=torch.float32, device=dev)
     best_v = torch.zeros((r,), dtype=torch.float32, device=dev)
     last = bvh.v0.shape[0] - 1
-    while bool((cur >= 0).any()):
+    ctrl = pc.new_ctrl(dev)
+
+    def walk_step(h):
         c = torch.clamp(cur, min=0)
         left, count, miss = bvh.left[c], bvh.count[c], bvh.miss[c]
         live = cur >= 0
@@ -130,12 +139,17 @@ def _trace_closest_bvh(o, d, bvh: DeviceBVH, t_min, t_max, active=None) -> Hit:
             hit, t, u, v = ray_triangle(o, d, bvh.v0[slot], bvh.v1[slot], bvh.v2[slot],
                                         t_min_arr, best_t)
             upd = valid & hit
-            best_t = torch.where(upd, t, best_t)
-            best_slot = torch.where(upd, slot, best_slot)
-            best_u = torch.where(upd, u, best_u)
-            best_v = torch.where(upd, v, best_v)
+            best_t.copy_(torch.where(upd, t, best_t))
+            best_slot.copy_(torch.where(upd, slot, best_slot))
+            best_u.copy_(torch.where(upd, u, best_u))
+            best_v.copy_(torch.where(upd, v, best_v))
         nxt = torch.where(box_hit & ~is_leaf, left, miss)
-        cur = torch.where(live, nxt, torch.full_like(nxt, -1))
+        cur.copy_(torch.where(live, nxt, torch.full_like(nxt, -1)))
+        ex.control(cur >= 0, ctrl, pc.COND, handle=h)
+
+    h = ex.cond()
+    ex.control(cur >= 0, ctrl, pc.COND, handle=h)
+    ex.loop(h, ctrl, walk_step)
     got = best_slot >= 0
     prim = torch.where(got, bvh.tri_index[torch.clamp(best_slot, min=0)],
                        torch.full_like(best_slot, -1, dtype=torch.int32))

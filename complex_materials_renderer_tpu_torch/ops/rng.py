@@ -159,10 +159,14 @@ def owen_draw(v: torch.Tensor, ph: torch.Tensor, dim) -> torch.Tensor:
 def _next_float_ld(state: torch.Tensor, dim: int | None = None):
     """One Owen-scrambled Sobol draw. ``state`` rows are
     ``[sample_index, pixel_hash, dim]``; all lanes share the dim, which is
-    ``dim`` when given (no value is then read back from the device)."""
+    ``dim`` when given, else read from the lanes on the device."""
     s, ph, d = state[:, 0], state[:, 1], state[:, 2]
-    d_row = (int(d.max().item()) if dim is None else dim) % SOBOL_DIMS
-    row = sobol_table(state.device)[d_row]
+    table = sobol_table(state.device)
+    if dim is None:
+        # The row is gathered on the device: no value goes to the host.
+        row = table.index_select(0, (d.amax() % SOBOL_DIMS).reshape(1))[0]
+    else:
+        row = table[dim % SOBOL_DIMS]
     value = owen_draw(sobol_value(s, row), ph, d)
     new_state = torch.stack([s, ph, (d + 1) & MASK32], dim=-1)
     return new_state, value

@@ -19,9 +19,10 @@ call of the engine's own beauty pass:
 A device may appear in the mesh more than once: each appearance is a
 shard of its own (the tests build 8 shards on the one CPU this way).
 The shards run one after the other, device by device, each under its
-device's guard. The pass loop is host-bound (ROADMAP P9): shards of
-distinct cards in threads of their own rendered slower than in turn
-(PERF.md).
+device's guard. Shards of distinct cards in threads of their own
+rendered slower than in turn while the pass loop was host-bound
+(PERF.md); each shard's call is a CUDA graph now (ROADMAP P9, P5), not
+measured in threads since.
 Seeds derive from the global (pixel, sample), so a tile split renders
 the single-device image bit for bit, and a sample split differs from it
 only by the order of the mean's sums.

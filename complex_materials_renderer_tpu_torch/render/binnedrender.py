@@ -12,7 +12,10 @@ whose K-list is marched here as the megakernel marches it.
 
 ``render_beauty_mega(trace_engine="binned")`` swaps its per-pass kernel for
 ``make_binned_kern``'s bounce loop and keeps its schedule, banking and
-sample packing. The JAX ``lax.cond`` guards are host ``if``s.
+sample packing. The bounce loop (the JAX ``lax.while_loop``, :260-272),
+the tracers' ``lax.cond`` guards and the binned trace's loops run on the
+pass plan's executor (kernels/pass_control.py): on the card conditional
+nodes of the pass's CUDA graph, their state updated in place.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import dataclasses
 
 import torch
 
+from ..kernels import pass_control as pc
 from ..kernels.binned_trace import trace_binned
 from ..kernels.cluster_test import NEE_DUP_SPARE, nee_list_len
 from ..kernels.cluster_trace import ShadedHit
@@ -109,48 +113,71 @@ def distance_bound(rngs, transmitted, med, direct_mode: str):
     return torch.where(transmitted, bound, torch.zeros_like(bound))
 
 
+def guarded(ex, cond: torch.Tensor, out: torch.Tensor, fn) -> torch.Tensor:
+    """``out``, overwritten with ``fn()`` under a guard on ``any(cond)`` (a
+    JAX ``lax.cond`` whose other branch returns ``out``), by the executor
+    ``ex``."""
+    ex = pc.executor(cond.device, ex)
+    ctrl = pc.new_ctrl(cond.device)
+
+    def body(_h):
+        out.copy_(fn())
+
+    h = ex.cond()
+    ex.control(cond, ctrl, pc.COND, handle=h)
+    ex.guard(h, ctrl, body)
+    return out
+
+
 def make_binned_tracer(grid, scene: SceneArrays, lights: Lights, media9, nee_max_media: int,
                        list_len: int = 8, cap_iters: int = 12,
-                       direct_mode: str = "scatter") -> Tracer:
+                       direct_mode: str = "scatter", ex=None) -> Tracer:
     wlo, whi = scene.world_lo, scene.world_hi
     K = nee_list_len(nee_max_media)
 
     def closest(org, direction, alive):
         bound = torch.where(alive, torch.full_like(org[:, 0], T_MAX), torch.zeros_like(org[:, 0]))
         out = trace_binned(grid, media9, org, direction, bound, "full", world_lo=wlo,
-                           world_hi=whi, list_len=list_len, cap_iters=cap_iters)
+                           world_hi=whi, list_len=list_len, cap_iters=cap_iters, ex=ex)
         return shaded_hit(*out)
 
     def distance(position, dir_after, transmitted, rngs, med):
-        if not bool(transmitted.any()):
-            return torch.full(position.shape[:1], T_MAX, dtype=torch.float32,
-                              device=position.device)
-        bound = distance_bound(rngs, transmitted, med, direct_mode)
-        dt, dslot = trace_binned(grid, media9, position, dir_after, bound, "dist",
-                                 world_lo=wlo, world_hi=whi, list_len=list_len,
-                                 cap_iters=cap_iters)
-        return torch.where(dslot >= 0.0, dt, torch.full_like(dt, T_MAX))
+        def trace():
+            bound = distance_bound(rngs, transmitted, med, direct_mode)
+            dt, dslot = trace_binned(grid, media9, position, dir_after, bound, "dist",
+                                     world_lo=wlo, world_hi=whi, list_len=list_len,
+                                     cap_iters=cap_iters, ex=ex)
+            return torch.where(dslot >= 0.0, dt, torch.full_like(dt, T_MAX))
+
+        seg = torch.full(position.shape[:1], T_MAX, dtype=torch.float32, device=position.device)
+        return guarded(ex, transmitted, seg, trace)
 
     def direct(position, active):
         light_value, ldir, ldist, eff = light_setup(position, lights, active)
-        if not bool(active.any()):
-            return light_value
-        out = trace_binned(grid, media9, position, ldir, eff, "nee",
-                           nee_max_media=nee_max_media, list_len=list_len, cap_iters=cap_iters)
-        tr = _march_klist(out[:K], out[K:2 * K], out[2 * K], ldist, eff, active, scene.media,
-                          scene.scale)
-        return light_value * tr
+
+        def trace():
+            out = trace_binned(grid, media9, position, ldir, eff, "nee",
+                               nee_max_media=nee_max_media, list_len=list_len,
+                               cap_iters=cap_iters, ex=ex)
+            tr = _march_klist(out[:K], out[K:2 * K], out[2 * K], ldist, eff, active, scene.media,
+                              scene.scale)
+            return light_value * tr
+
+        return guarded(ex, active, light_value.clone(), trace)
 
     return Tracer(closest=closest, distance=distance, direct=direct)
 
 
 def kern_state(state: MegaState, ld: bool, dim0) -> _State:
     """The integrator's state over a MegaState; in ld mode the rng rows
-    are [shuffled sample, pixel hash, dim] with dim the pass loop's base."""
+    are [shuffled sample, pixel hash, dim] with dim the pass loop's base
+    (an int, or a 0-dim int32 tensor: the control block's)."""
     n = state.org.shape[0]
     rng = state.rng
     if ld:
-        rng = torch.stack([state.rng, state.aux, torch.full_like(state.rng, int(dim0))], dim=-1)
+        dim = (dim0.to(torch.int64).expand(n) if isinstance(dim0, torch.Tensor)
+               else torch.full_like(state.rng, int(dim0)))
+        rng = torch.stack([state.rng, state.aux, dim], dim=-1)
     return _State(org=state.org, dir=state.dir, thr=state.thr, rad=state.rad, rng=rng,
                   depth=state.depth, alive=state.alive,
                   lane=torch.arange(n, dtype=torch.int64, device=state.org.device))
@@ -169,26 +196,77 @@ def write_back(state: MegaState, st: _State, ld: bool) -> None:
     state.alive.copy_(st.alive)
 
 
-def make_binned_kern(grid, scene: SceneArrays, lights: Lights, media9, max_depth: int,
-                     rr_depth: int, nee_max_media: int, tir: str, list_len: int = 8,
-                     cap_iters: int = 12, direct: str = "scatter", ld: bool = False):
-    """A drop-in for megarender's per-pass kernel: advance every live lane
-    up to ``max_iters`` bounces, updating the state in place
-    (``live_blocks`` is accepted and unused: the binned tracer compacts by
-    sorting lanes with work first)."""
-    scene = dataclasses.replace(scene, media=media_tensors(scene.media, grid.device))
-    tracer = make_binned_tracer(grid, scene, lights, media9, nee_max_media, list_len, cap_iters,
-                                direct_mode=direct)
+def bounce_kern(make_tracer, bounce, ld: bool, prepare):
+    """megarender's per-pass kernel over a wavefront bounce: advance every
+    live lane up to ``max_iters`` bounces (the JAX ``lax.while_loop`` on
+    ``it < max_iters & any(alive)``), updating the state in place. It takes
+    the pass plan's executor (``ex``) and control block (``ctrl``, whose
+    ld base it reads; ``live_blocks`` is accepted and unused: the wavefront
+    bounce compacts by sorting lanes with work first).
+    ``make_tracer(ex)`` gives the tracer, ``bounce(ex, st, tracer)`` one
+    bounce of ``st``."""
 
-    def kern(state: MegaState, max_iters: int = 1, live_blocks=None, dim0=0):
+    def kern(state: MegaState, max_iters: int = 1, live_blocks=None, dim0=0, ctrl=None,
+             ex=None):
         del live_blocks
-        st = kern_state(state, ld, dim0)
-        for _ in range(max_iters):
-            if not bool(st.alive.any()):
-                break
-            st = _bounce(st, scene, None, lights, max_depth, rr_depth, nee_max_media, tir,
-                         tracer=tracer, direct=direct)
+        dev = state.org.device
+        ex = pc.executor(dev, ex)
+        st = kern_state(state, ld, ctrl[pc.CTRL_DIM0] if ctrl is not None else dim0)
+        if ld:  # the ld rows are the loop's own: updated in place
+            st = st._replace(rng=st.rng.contiguous())
+        tracer = make_tracer(ex)
+        loop_ctrl = pc.new_ctrl(dev)
+        flags = pc.COND | pc.ITER_CAP
+
+        def body(h):
+            for x, y in zip(st, bounce(ex, st, tracer)):
+                x.copy_(y)
+            ex.control(st.alive, loop_ctrl, flags | pc.ITER_STEP, cap=max_iters, handle=h)
+
+        h = ex.cond()
+        ex.control(st.alive, loop_ctrl, flags | pc.ITER_RESET, cap=max_iters, handle=h)
+        ex.loop(h, loop_ctrl, body)
         write_back(state, st, ld)
         return state
 
+    kern.takes_executor = True
+    kern.prepare = prepare
     return kern
+
+
+def engine_prepare(*libraries, ld: bool):
+    """A kern's ``prepare``: build the ``libraries`` (kernels.build
+    functions with their arguments) and the pass control library, and make
+    the Sobol rows in ld mode, before a capture."""
+
+    def prepare(device, lanes: int) -> None:
+        from ..kernels import build
+        from ..ops import rng as rng_ops
+
+        build.pass_control()
+        for fn, *args in libraries:
+            getattr(build, fn)(*args)
+        if ld:
+            rng_ops.sobol_table(device)
+
+    return prepare
+
+
+def make_binned_kern(grid, scene: SceneArrays, lights: Lights, media9, max_depth: int,
+                     rr_depth: int, nee_max_media: int, tir: str, list_len: int = 8,
+                     cap_iters: int = 12, direct: str = "scatter", ld: bool = False):
+    """A drop-in for megarender's per-pass kernel (``bounce_kern``) with
+    every trace through the binned tracer."""
+    scene = dataclasses.replace(scene, media=media_tensors(scene.media, grid.device))
+
+    def make_tracer(ex):
+        return make_binned_tracer(grid, scene, lights, media9, nee_max_media, list_len,
+                                  cap_iters, direct_mode=direct, ex=ex)
+
+    def bounce(ex, st, tracer):
+        return _bounce(st, scene, None, lights, max_depth, rr_depth, nee_max_media, tir,
+                       tracer=tracer, direct=direct)
+
+    prepare = engine_prepare(("binned_listing", list_len), ("binned_round", list_len,
+                                                             nee_max_media), ld=ld)
+    return bounce_kern(make_tracer, bounce, ld, prepare)

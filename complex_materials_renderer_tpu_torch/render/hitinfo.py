@@ -74,8 +74,10 @@ def shade_color(position: torch.Tensor, normal: torch.Tensor, background: int) -
     base = 0.8 * ones
     if background == 2:
         dot_x = normal[:, 0]
-        red = torch.tensor([0.8, 0.0, 0.0], dtype=torch.float32, device=position.device) * ones
-        green = torch.tensor([0.0, 0.8, 0.0], dtype=torch.float32, device=position.device) * ones
+        # Made on the device: a capture copies nothing from the host.
+        zero = torch.zeros_like(dot_x)
+        red = torch.stack([0.8 * ones[:, 0], zero, zero], dim=-1)
+        green = torch.stack([zero, 0.8 * ones[:, 0], zero], dim=-1)
         return torch.where((dot_x > 0.99)[:, None], red,
                            torch.where((dot_x < -0.99)[:, None], green, base))
     return base

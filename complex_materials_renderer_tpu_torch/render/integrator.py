@@ -12,25 +12,33 @@ direction used as world, the 0.9 per-boundary shadow factor).
 The traces go through ``kernels/traverse.py``: on the cluster backend
 they launch the closest-hit kernel K3 on the card, on the BVH backend
 they run the plain threaded-BVH walk. Everything else is PyTorch on the
-lanes. The JAX ``lax.cond`` guards (skip the distance trace when no lane
-transmitted, skip a march step when no lane has distance left) are host
-``if``s here: one sync each, and without a running lane the step would
-not change the image.
+lanes. As the JAX package runs a tile render as one program, the loops
+and guards run on an executor (kernels/pass_control.py): the sample loop,
+the two-phase bounce loop's ``lax.while_loop``s (:569-601) and the BVH
+walk are WHILE loops, the ``lax.cond`` guards (skip the distance trace
+when no lane transmitted, :220; skip a march step when no lane has
+distance left, :160) IF guards, their state updated in place. On the card
+``render_beauty`` captures each call shape once as a CUDA graph whose
+loops and guards are conditional nodes (render/megarender.py
+``CallGraph``), so no value goes to the host between a call's first launch
+and its last; on the CPU, and on the card with ``executor='eager'``, the
+host reads each condition.
 """
 
 from __future__ import annotations
 
-import dataclasses
+from functools import partial
 from typing import NamedTuple
 
 import torch
 
+from ..kernels import pass_control as pc
 from ..kernels.traverse import trace_shaded
 from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
 from ..ops.diffuse import REFLECTANCE, diffuse_eval, diffuse_sample
 from ..ops.fresnel import fresnel_r, reflect, refract
-from ..ops.medium import analytic_direct_scale, eval_transmittance, lookup, media_tensors, sample_distance
+from ..ops.medium import analytic_direct_scale, eval_transmittance, lookup, sample_distance
 from ..ops.phase import g_mean, hg_eval_zero, hg_sample
 from ..ops.vec import dot, norm, safe_normalize
 from .hitinfo import T_MAX, T_MIN, Lights, SceneArrays, shade_color
@@ -68,40 +76,49 @@ def light_setup(position, lights: Lights, active):
 
 
 def sample_direct_light(position, scene: SceneArrays, accel, lights: Lights, active,
-                        max_media: int):
+                        max_media: int, ex=None):
     """Next-event estimation toward the point light through at most
     ``max_media`` media boundary pairs, two traces per pair
     (volpath:337-426). Draws no RNG. A medium-less hit occludes; each
     medium segment multiplies Beer-Lambert transmittance and 0.9; a lane
-    still mid-march after ``max_media`` pairs is dark."""
+    still mid-march after ``max_media`` pairs is dark. Each pair step runs
+    under a guard on ``active & (remaining > 0)`` (the JAX ``lax.cond``,
+    integrator.py:156-165), by the executor ``ex``."""
+    ex = pc.executor(position.device, ex)
     light_value, ldir, _, remaining = light_setup(position, lights, active)
+    # The march's carry, updated in place by the guarded steps.
     trans = torch.ones_like(position)
-    origin = position
+    origin = position.clone()
+    remaining = remaining.clone()
+    ctrl = pc.new_ctrl(position.device)
 
     def shaded(o, t_max, act):
         return trace_shaded(o, ldir, accel, scene.v0, scene.v1, scene.v2, scene.mat_ids,
-                            T_MIN, t_max, active=act)
+                            T_MIN, t_max, active=act, ex=ex)
 
-    for _ in range(max_media):
-        run = active & (remaining > 0.0)
-        if not bool(run.any()):
-            break  # the remaining steps would change nothing
+    def march_step(run, _h):
         h1 = shaded(origin, remaining * 0.999, run)
         med1 = lookup(h1.mat_id, scene.media, scene.scale)
         occluded = run & h1.hit & ~med1.has_medium
-        trans = torch.where(occluded[:, None], torch.zeros_like(trans), trans)
+        tr = torch.where(occluded[:, None], torch.zeros_like(trans), trans)
         enter = run & h1.hit & med1.has_medium
         rem_after_enter = remaining - h1.t
         h2 = shaded(h1.position, torch.clamp(rem_after_enter, min=T_MIN), enter)
         med2 = lookup(h2.mat_id, scene.media, scene.scale)
         occluded2 = enter & h2.hit & ~med2.has_medium
-        trans = torch.where(occluded2[:, None], torch.zeros_like(trans), trans)
+        tr = torch.where(occluded2[:, None], torch.zeros_like(tr), tr)
         pair = enter & h2.hit & med2.has_medium
         seg = torch.minimum(h2.t, rem_after_enter)
         seg_tr = eval_transmittance(seg, med1.sigma_s, med1.sigma_a)
-        trans = torch.where(pair[:, None], trans * 0.9 * seg_tr, trans)
-        origin = torch.where(pair[:, None], h2.position, origin)
-        remaining = torch.where(pair, rem_after_enter - h2.t, torch.zeros_like(remaining))
+        trans.copy_(torch.where(pair[:, None], tr * 0.9 * seg_tr, tr))
+        origin.copy_(torch.where(pair[:, None], h2.position, origin))
+        remaining.copy_(torch.where(pair, rem_after_enter - h2.t, torch.zeros_like(remaining)))
+
+    for _ in range(max_media):
+        run = active & (remaining > 0.0)
+        h = ex.cond()
+        ex.control(run, ctrl, pc.COND, handle=h)
+        ex.guard(h, ctrl, partial(march_step, run))
     trans = torch.where((remaining > 0.0)[:, None], torch.zeros_like(trans), trans)
     return light_value * trans
 
@@ -120,25 +137,35 @@ class Tracer(NamedTuple):
     direct: object
 
 
-def default_tracer(scene: SceneArrays, accel, lights: Lights, nee_max_media: int) -> Tracer:
+def default_tracer(scene: SceneArrays, accel, lights: Lights, nee_max_media: int,
+                   ex=None) -> Tracer:
     """Closest and distance traces via ``trace_shaded``, NEE via the
-    per-leg chained march (``sample_direct_light``)."""
+    per-leg chained march (``sample_direct_light``); ``ex`` runs the
+    guards and the BVH walk's loop (``pass_control.executor``)."""
 
     def closest(org, direction, alive):
         return trace_shaded(org, direction, accel, scene.v0, scene.v1, scene.v2,
-                            scene.mat_ids, T_MIN, T_MAX, active=alive)
+                            scene.mat_ids, T_MIN, T_MAX, active=alive, ex=ex)
 
     def distance(position, dir_after, transmitted, _rngs, _med):
-        # Only medium-transmitted lanes need it.
-        if not bool(transmitted.any()):
-            return torch.full(position.shape[:1], T_MAX, dtype=torch.float32,
-                              device=position.device)
-        h = trace_shaded(position, dir_after, accel, scene.v0, scene.v1, scene.v2,
-                         scene.mat_ids, T_MIN, T_MAX, active=transmitted)
-        return torch.where(h.hit, h.t, torch.full_like(h.t, T_MAX))
+        # Only medium-transmitted lanes need it: a guard on any(transmitted)
+        # (the JAX ``lax.cond``, integrator.py:211-223).
+        run = pc.executor(position.device, ex)
+        seg = torch.full(position.shape[:1], T_MAX, dtype=torch.float32, device=position.device)
+        ctrl = pc.new_ctrl(position.device)
+
+        def dist_trace(_h):
+            h = trace_shaded(position, dir_after, accel, scene.v0, scene.v1, scene.v2,
+                             scene.mat_ids, T_MIN, T_MAX, active=transmitted, ex=run)
+            seg.copy_(torch.where(h.hit, h.t, torch.full_like(h.t, T_MAX)))
+
+        h = run.cond()
+        run.control(transmitted, ctrl, pc.COND, handle=h)
+        run.guard(h, ctrl, dist_trace)
+        return seg
 
     def direct(position, active):
-        return sample_direct_light(position, scene, accel, lights, active, nee_max_media)
+        return sample_direct_light(position, scene, accel, lights, active, nee_max_media, ex=ex)
 
     return Tracer(closest=closest, distance=distance, direct=direct)
 
@@ -313,6 +340,119 @@ def _bounce(state: _State, scene: SceneArrays, accel, lights: Lights, max_depth:
     return _State(org, direction, thr, rad, rngs, depth, alive, lane_id)
 
 
+def _step_into(state: _State, step) -> None:
+    """One loop step written back into ``state``'s tensors, so that a loop
+    body of a graph finds them at the same addresses every iteration."""
+    for x, y in zip(state, step(state)):
+        x.copy_(y)
+
+
+def _while_alive(ex, state: _State, step, cap: int = 0, threshold: int = 0) -> None:
+    """``step`` ``state`` in place while a lane is alive; with ``cap``, as
+    phase A (integrator.py:574-579): while a lane is alive for the first
+    ``cap`` steps, then while more than ``threshold`` are."""
+    ctrl = pc.new_ctrl(state.alive.device)
+    flags = pc.COND | (pc.ITER_GRACE if cap else 0)
+    kw = dict(cap=cap, threshold=threshold) if cap else {}
+
+    def body(h):
+        _step_into(state, step)
+        ex.control(state.alive, ctrl, flags | pc.ITER_STEP, handle=h, **kw)
+
+    h = ex.cond()
+    ex.control(state.alive, ctrl, flags | pc.ITER_RESET, handle=h, **kw)
+    ex.loop(h, ctrl, body)
+
+
+def _wavefront_program(ex, *inputs, scene, accel, lights, width, height, num_samples,
+                       rng_mode, full, max_depth, rr_depth, nee_max_media, compact, tir,
+                       direct):
+    """The device work of one ``render_beauty`` call: (image, next RNG
+    words) from the camera, the pixels, their linear frame indices, the
+    first RNG words and the sample offset. The sample loop is a counted
+    WHILE loop (the JAX ``lax.scan``, integrator.py:604-609), so a graph
+    captures its body once however many samples a call takes."""
+    camera, (pixel_xy, linear, words0, offset) = Camera(*inputs[:5]), inputs[5:]
+    dev = linear.device
+    r = linear.shape[0]
+    tracer = default_tracer(scene, accel, lights, nee_max_media, ex=ex)
+
+    def step(s):
+        s = _bounce(s, scene, accel, lights, max_depth, rr_depth, nee_max_media, tir,
+                    tracer=tracer, direct=direct)
+        return _compact(s, scene) if compact else s
+
+    # The sample loop's carry: the summed radiance, the parity words and
+    # the sample index, updated in place.
+    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    words = words0.clone()
+    s_idx = offset.clone()
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    ctrl = pc.new_ctrl(dev)
+
+    def one_sample(h):
+        s_lane = s_idx & rng_ops.MASK32
+        w = words
+        if rng_mode == "counter":
+            w = rng_ops.seed_counter(linear, s_lane)
+        elif rng_mode == "ld":
+            w = rng_ops.seed_ld(linear, s_lane)
+        w, j1 = rng_ops.next_float(w)
+        w, j2 = rng_ops.next_float(w)
+        org, direction = generate_rays(camera, pixel_xy, torch.stack([j1, j2], dim=-1), full)
+        state = _State(
+            org=org.contiguous(), dir=direction.contiguous(),
+            thr=torch.ones((r, 3), dtype=torch.float32, device=dev),
+            rad=torch.zeros((r, 3), dtype=torch.float32, device=dev),
+            rng=w, depth=torch.zeros((r,), dtype=torch.int32, device=dev),
+            alive=torch.ones((r,), dtype=torch.bool, device=dev),
+            lane=torch.arange(r, dtype=torch.int64, device=dev),
+        )
+        rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+        rng_out = torch.zeros_like(w)
+        # Two-phase loop (integrator.py:561-601): full width until the live
+        # set fits in r/8 (compaction keeps live lanes first, so a slice is
+        # exact), then the narrow state to termination.
+        if compact and r >= 8 * 1024:
+            r2 = max(1024, r // 8)
+            _while_alive(ex, state, step, cap=8, threshold=r2)
+            rad[state.lane] = state.rad
+            rng_out[state.lane] = state.rng
+            state = _State(*(x[:r2] for x in state))
+        _while_alive(ex, state, step)
+        rad[state.lane] = state.rad
+        rng_out[state.lane] = state.rng
+        acc.add_(rad)
+        words.copy_(rng_out)
+        s_idx.add_(1)
+        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=num_samples, handle=h)
+
+    h = ex.cond()
+    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=num_samples, handle=h)
+    ex.loop(h, ctrl, one_sample)
+    img = (acc / float(num_samples)).reshape(height, width, 3)
+    return img, words
+
+
+class _WavefrontPrepare:
+    """What a capture of a wavefront call launches, made before it: the
+    libraries and the tables read on the device (``_execute``'s
+    ``prepare``)."""
+
+    def __init__(self, accel, rng_mode):
+        self.accel, self.rng_mode = accel, rng_mode
+
+    def __call__(self, device, lanes: int) -> None:
+        from ..kernels import build
+        from ..kernels.cluster_grid import DeviceClusterGrid
+
+        build.pass_control()
+        if isinstance(self.accel, DeviceClusterGrid):
+            build.cluster_trace()
+        if self.rng_mode == "ld":
+            rng_ops.sobol_table(device)
+
+
 def render_beauty(
     camera: Camera,
     scene: SceneArrays,
@@ -333,6 +473,7 @@ def render_beauty(
     compact: bool = True,
     tir: str = "reflect",
     direct: str = "scatter",
+    executor: str = "auto",
 ):
     """Render an (H, W, 3) tile of the beauty pass with the wavefront
     engine, on the device of ``accel`` (integrator.py:472; same contract).
@@ -340,75 +481,42 @@ def render_beauty(
     The image is the mean over this call's samples. ``rng_state`` (u32
     words in int64; (R, 3) in ld mode) carries the parity stream across
     sample chunks and ``return_rng`` returns it; ``pixel_offset``,
-    ``row_offset`` and ``full_resolution`` place the tile in the frame.
+    ``row_offset`` and ``full_resolution`` place the tile in the frame;
+    ``sample_offset`` is an int or a tensor.
+
+    On the card the call runs as one CUDA graph per call shape, its loops
+    and guards conditional nodes, as the JAX ``jit`` runs it as one program;
+    ``executor='eager'`` runs the same steps from the host instead (the
+    comparison for the graph). On the CPU the host reads each condition.
     """
+    from .megarender import _execute, _sample_offset_on, pass_cache
+
     if rng_mode not in ("parity", "counter", "ld"):
         raise ValueError(f"rng mode must be parity|counter|ld, got {rng_mode!r}")
     dev = accel.device
-    scene = dataclasses.replace(scene, media=media_tensors(scene.media, dev))
+    cache = pass_cache(scene, accel, lights)
     width, height = resolution
-    full_w, full_h = full_resolution if full_resolution else (width, height)
+    full = tuple(full_resolution) if full_resolution else (width, height)
     ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.int64, device=dev),
                             torch.arange(width, dtype=torch.int64, device=dev), indexing="ij")
     pixel_xy = torch.stack([xs.reshape(-1) + pixel_offset, ys.reshape(-1) + row_offset], dim=-1)
-    linear = pixel_xy[:, 1] * full_w + pixel_xy[:, 0]
+    linear = pixel_xy[:, 1] * full[0] + pixel_xy[:, 0]
     r = pixel_xy.shape[0]
-    tracer = default_tracer(scene, accel, lights, nee_max_media)
-
-    def step(s):
-        s = _bounce(s, scene, accel, lights, max_depth, rr_depth, nee_max_media, tir,
-                    tracer=tracer, direct=direct)
-        return _compact(s, scene) if compact else s
-
+    offset = _sample_offset_on(sample_offset, dev)
     if rng_state is not None:
         words = rng_ops.to_u32(rng_state.to(dev))
     elif rng_mode == "ld":
-        words = rng_ops.seed_ld(linear, 0)
+        words = rng_ops.seed_ld(linear, torch.zeros((1,), dtype=torch.int64, device=dev))
     else:
         words = rng_ops.seed_from_pixel(linear)
-    acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-    for sample_idx in range(num_samples):
-        s_idx = (sample_idx + int(sample_offset)) & rng_ops.MASK32
-        if rng_mode == "counter":
-            words = rng_ops.seed_counter(linear, s_idx)
-        elif rng_mode == "ld":
-            words = rng_ops.seed_ld(linear, s_idx)
-        words, j1 = rng_ops.next_float(words)
-        words, j2 = rng_ops.next_float(words)
-        org, direction = generate_rays(camera, pixel_xy, torch.stack([j1, j2], dim=-1),
-                                       (full_w, full_h))
-        state = _State(
-            org=org.contiguous(), dir=direction,
-            thr=torch.ones((r, 3), dtype=torch.float32, device=dev),
-            rad=torch.zeros((r, 3), dtype=torch.float32, device=dev),
-            rng=words, depth=torch.zeros((r,), dtype=torch.int32, device=dev),
-            alive=torch.ones((r,), dtype=torch.bool, device=dev),
-            lane=torch.arange(r, dtype=torch.int64, device=dev),
-        )
-        rad = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-        rng_out = torch.zeros_like(words)
-        # Two-phase loop (integrator.py:561-601): full width until the live
-        # set fits in r/8 (compaction keeps live lanes first, so a slice is
-        # exact), then the narrow state to termination.
-        if compact and r >= 8 * 1024:
-            r2 = max(1024, r // 8)
-            it = 0
-            while True:
-                live = int(state.alive.sum())
-                if live == 0 or not (it < 8 or live > r2):
-                    break
-                state = step(state)
-                it += 1
-            rad[state.lane] = state.rad
-            rng_out[state.lane] = state.rng
-            state = _State(*(x[:r2] for x in state))
-        while bool(state.alive.any()):
-            state = step(state)
-        rad[state.lane] = state.rad
-        rng_out[state.lane] = state.rng
-        acc = acc + rad
-        words = rng_out
-    img = (acc / float(num_samples)).reshape(height, width, 3)
+    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
+                 rng_mode=rng_mode, compact=compact, tir=tir, direct=direct)
+    program = partial(_wavefront_program, scene=cache.wave_scene, accel=accel, lights=lights,
+                      width=width, height=height, num_samples=num_samples, full=full, **knobs)
+    key = ("wavefront", width, height, num_samples, full, tuple(words.shape),
+           tuple(sorted(knobs.items())))
+    img, final_rng = _execute(scene, accel, lights, _WavefrontPrepare(accel, rng_mode), key,
+                              program, (*camera, pixel_xy, linear, words, offset), executor, r)
     if return_rng:
-        return img, words
+        return img, final_rng
     return img

@@ -27,9 +27,10 @@ tracer (render/binnedrender.py) or the pair sweep (render/pairrender.py).
 As the JAX package runs a tile render as one ``jit`` program, the pass
 loop is a fixed plan of steps (``PassPlan``: sorts, scatters, K1 and the
 pass control kernel of kernels/pass_control.py, which keeps the loop
-counts, ``live_blocks`` and ``dim0`` on the device). On the card the
-megakernel engine captures each call shape's steps once as a CUDA graph
-(``CallGraph``), its loops conditional nodes, and replays it: no value
+counts, ``live_blocks`` and ``dim0`` on the device). On the card each
+engine captures each call shape's steps once as a CUDA graph
+(``CallGraph``), its loops conditional nodes (the binned and pair
+engines' own loops and guards nested in them), and replays it: no value
 goes to the host between a call's first launch and its last. On the CPU,
 and on the card when asked (``executor='eager'``), ``HostLoop`` runs the
 same steps and reads the loop conditions on the host.
@@ -37,6 +38,7 @@ same steps and reads the loop conditions on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import weakref
@@ -48,6 +50,7 @@ import torch
 
 from ..kernels import pass_control as pc
 from ..kernels.cluster_grid import DeviceClusterGrid
+from ..kernels.pass_control import GraphCapture, HostLoop
 from ..kernels.megakernel import (
     BLOCK,
     DRAWS_PER_BOUNCE,
@@ -61,6 +64,7 @@ from ..kernels.megakernel import (
 from ..kernels.megakernel import prepare as prepare_megakernel
 from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
+from ..ops.medium import media_tensors
 from .hitinfo import Lights, SceneArrays
 from .integrator import coherence_key
 
@@ -166,7 +170,7 @@ def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr
     # The plain version's constants, read to the host once, not per call.
     plain = plain_context(grid, media9, misc, **knobs) if grid.device.type == "cpu" else None
     kern = partial(trace_paths_mega, grid, media9, misc, plain=plain, **knobs)
-    kern.device_ctrl = True  # K1 takes the pass control block
+    kern.is_k1 = True  # its calls count as K1 launches
     kern.prepare = partial(prepare_megakernel, nee_max_media=nee_max_media, debug=debug)
     return kern
 
@@ -179,7 +183,7 @@ def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_med
     light rows come from the tables' ``PassCache``, uploaded once."""
     cache = pass_cache(scene, grid, lights)
     kern = _make_kern(
-        grid, scene, lights, cache.media9, cache.misc, trace_engine=trace_engine,
+        grid, cache.wave_scene, lights, cache.media9, cache.misc, trace_engine=trace_engine,
         max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
         direct=direct, rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
         debug=debug,
@@ -203,94 +207,6 @@ def _partition_into(state: MegaState, lane: torch.Tensor, scene: SceneArrays, so
         x.copy_(y)
 
 
-class HostLoop:
-    """The executor that reads the control block on the host at each loop
-    and guard: the CPU executor, and on the card the eager executor that
-    the graph is compared with.
-
-    With ``device_ctrl`` K1 takes the control block itself, and every other
-    step is a tensor operation, so only the loop control (``read``) brings a
-    value to the host (the CPU executor; its K1 and control launches count
-    in the device counts as a graph's do). Without, the host reads the run
-    flag, ``live_blocks`` and ``dim0`` before each kernel call and passes
-    them as ints (the eager executor, and the binned and pair engines, whose
-    per-pass kernels read host counts inside)."""
-
-    capturing = False
-
-    def __init__(self, device, device_ctrl: bool):
-        self.counts = pc.device_counts(device)
-        self.device_ctrl = device_ctrl
-
-    def control(self, alive, ctrl, flags, handle=None, **kw):
-        pc.pass_control(alive, ctrl, self.counts, flags | (pc.DEVICE_COUNT if self.device_ctrl
-                                                           else 0), **kw)
-
-    def cond(self):
-        return None
-
-    @staticmethod
-    def read(ctrl) -> bool:
-        """The host read of a loop or guard condition."""
-        return bool(ctrl[pc.CTRL_COND])
-
-    def loop(self, handle, ctrl, body):
-        while self.read(ctrl):
-            body(handle)
-
-    def guard(self, handle, ctrl, body):
-        if self.read(ctrl):
-            body(handle)
-
-    def k1(self, kern, state, cap, ctrl):
-        if self.device_ctrl:
-            kern(state, max_iters=cap, ctrl=ctrl)
-            return
-        live, dim0, run = ctrl[:3].tolist()
-        if run and live > 0:
-            kern(state, max_iters=cap, live_blocks=live, dim0=dim0)
-
-
-class GraphCapture:
-    """The executor that records a plan into the CUDA graph being captured:
-    each loop a conditional WHILE node, each guard an IF node, whose
-    condition the control kernel sets on the card; K1 takes the control
-    block. A body is captured on a stream of its own, and what it allocates
-    comes from a memory pool of the graph's (``body_pool``)."""
-
-    capturing = True
-
-    def __init__(self, device):
-        self.device = device
-        self.counts = pc.device_counts(device)
-        self.body_stream = pc.body_stream(device)
-        self.body_pool = torch.cuda.MemPool()
-        self.advances = 0
-
-    def control(self, alive, ctrl, flags, handle=None, **kw):
-        pc.pass_control(alive, ctrl, self.counts, flags | pc.DEVICE_COUNT, handle=handle, **kw)
-
-    def cond(self):
-        return pc.cond_handle(torch.cuda.current_stream(self.device))
-
-    def loop(self, handle, ctrl, body):
-        self._conditional(handle, True, body)
-
-    def guard(self, handle, ctrl, body):
-        self._conditional(handle, False, body)
-
-    def _conditional(self, handle, loop, body):
-        pc.cond_begin(torch.cuda.current_stream(self.device), handle, loop, self.body_stream)
-        try:
-            with torch.cuda.stream(self.body_stream), torch.cuda.use_mem_pool(self.body_pool):
-                body(handle)
-        finally:
-            pc.cond_end(self.body_stream)
-
-    def k1(self, kern, state, cap, ctrl):
-        kern(state, max_iters=cap, ctrl=ctrl)
-
-
 class PassPlan:
     """The wavefront advance (``_make_advance``) as a fixed sequence of
     steps: ``_partition_live`` sorts, bank scatters, K1 calls at a width
@@ -309,9 +225,9 @@ class PassPlan:
     def __init__(self, kern, dynamic, sched, scene, sortkey, max_depth):
         self.kern, self.dynamic, self.sched = kern, dynamic, sched
         self.scene, self.sortkey, self.max_depth = scene, sortkey, max_depth
-        # The megakernel reads the control block; the binned and pair
-        # engines' kernels take host ints.
-        self.device_ctrl = bool(getattr(kern, "device_ctrl", False))
+        # Every engine's kernel reads the control block; only K1's calls
+        # count as K1 launches.
+        self.after = pc.AFTER_K1 | (0 if getattr(kern, "is_k1", False) else pc.NOT_K1)
 
     def prepare(self, device, lanes: int) -> None:
         """Build and allocate, before a capture, what the steps launch."""
@@ -324,8 +240,7 @@ class PassPlan:
                  ex=None):
         global pass_advances
 
-        if ex is None:
-            ex = HostLoop(state.org.device, self.device_ctrl)
+        ex = pc.executor(state.org.device, ex)
         if ex.capturing:
             ex.advances += 1
         else:
@@ -357,7 +272,7 @@ class PassPlan:
         if self.dynamic == "all":
             def bounce(h):
                 self._sorted_bounce(ex, state, lane, ctrl, 1)
-                ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=DRAWS_PER_BOUNCE,
+                ex.control(state.alive, ctrl, self.after | pc.COND, advance=DRAWS_PER_BOUNCE,
                            handle=h)
 
             h = ex.cond()
@@ -367,14 +282,14 @@ class PassPlan:
 
         def guarded(h):
             self._sorted_bounce(ex, state, lane, ctrl, 1)
-            ex.control(state.alive, ctrl, pc.AFTER_K1, advance=DRAWS_PER_BOUNCE)
+            ex.control(state.alive, ctrl, self.after, advance=DRAWS_PER_BOUNCE)
 
         for _ in range(8):  # hybrid: 8 guarded sorted bounces, then the tail
             h = ex.cond()
             ex.control(state.alive, ctrl, pc.COND, handle=h)
             ex.guard(h, ctrl, guarded)
         self._sorted_bounce(ex, state, lane, ctrl, self.max_depth)
-        ex.control(state.alive, ctrl, pc.AFTER_K1, advance=DRAWS_PER_BOUNCE * self.max_depth)
+        ex.control(state.alive, ctrl, self.after, advance=DRAWS_PER_BOUNCE * self.max_depth)
 
     def _phases(self, ex, state, lane, ctrl, rad_bank, rng_bank):
         for i, (w, cap) in enumerate(self.sched):
@@ -392,7 +307,7 @@ class PassPlan:
             ex.k1(self.kern, state, cap, ctrl)
             advance = DRAWS_PER_BOUNCE * cap
             if i + 1 == len(self.sched):
-                ex.control(state.alive, ctrl, pc.AFTER_K1, advance=advance)
+                ex.control(state.alive, ctrl, self.after, advance=advance)
                 continue
             # Paths that die slower than the schedule assumes keep bouncing
             # at this width until they fit the next one.
@@ -400,11 +315,11 @@ class PassPlan:
 
             def spill(h, state=state, cap=cap, advance=advance, next_w=next_w):
                 ex.k1(self.kern, state, cap, ctrl)
-                ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=advance,
+                ex.control(state.alive, ctrl, self.after | pc.COND, advance=advance,
                            threshold=next_w, handle=h)
 
             h = ex.cond()
-            ex.control(state.alive, ctrl, pc.AFTER_K1 | pc.COND, advance=advance,
+            ex.control(state.alive, ctrl, self.after | pc.COND, advance=advance,
                        threshold=next_w, handle=h)
             ex.loop(h, ctrl, spill)
         return state, lane
@@ -417,15 +332,19 @@ def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
 
 
 class PassCache:
-    """What the pass loop keeps across the calls over one scene's tables:
-    the media and light rows, uploaded once, and on the card the CUDA graph
-    of each call shape (``graphs``; the tables stay referenced, since a
-    graph reads them by address)."""
+    """What the tile renderers keep across the calls over one scene's
+    tables: the media and light rows and the wavefront engine's scene with
+    its media table on the device, uploaded once, and on the card the CUDA
+    graph of each call shape (``graphs``; the tables stay referenced, since
+    a graph reads them by address). ``grid`` is the accel: a cluster grid,
+    or the wavefront engine's BVH."""
 
     def __init__(self, scene, grid, lights):
         self.tables = (scene, grid, lights)
         self.media9 = pack_media(scene.media, scene.scale, device=grid.device)
         self.misc = pack_misc(lights, scene.world_lo, scene.world_hi, device=grid.device)
+        self.wave_scene = dataclasses.replace(scene, media=media_tensors(scene.media,
+                                                                         grid.device))
         self.graphs: dict = {}
 
 
@@ -461,6 +380,9 @@ class CallGraph:
     raises."""
 
     def __init__(self, key, program, inputs, device):
+        # The program holds what its kernels read by address (the engines'
+        # tables and packed rows): kept while the graph is.
+        self.program = program
         self.inputs = [x.clone() for x in inputs]
         self.ex = GraphCapture(device)
         self.graph = torch.cuda.CUDAGraph()
@@ -480,21 +402,22 @@ class CallGraph:
         return tuple(o.clone() for o in self.outputs)
 
 
-def _execute(scene, grid, lights, advance, key, program, inputs, executor: str, lanes: int):
+def _execute(scene, grid, lights, prepare, key, program, inputs, executor: str, lanes: int):
     """Run a tile program: with ``executor='auto'`` as a CUDA graph on the
-    card for the megakernel, on the eager executor on the card for the
-    binned and pair engines, on the CPU executor on the CPU; 'eager' asks
-    for the eager executor (the card's comparison for the graph). No
-    executor stands in for another that fails."""
+    card, on the CPU executor on the CPU; 'eager' asks for the eager
+    executor (the card's comparison for the graph). ``prepare(device,
+    lanes)`` builds and makes, before a capture, what the program launches
+    and reads. No executor stands in for another that fails."""
     dev = grid.device
     if executor not in ("auto", "eager"):
         raise ValueError(f"executor must be auto|eager, got {executor!r}")
-    if executor == "eager" or dev.type != "cuda" or not advance.device_ctrl:
-        return program(HostLoop(dev, advance.device_ctrl and executor == "auto"), *inputs)
+    if executor == "eager" or dev.type != "cuda":
+        return program(HostLoop(dev, executor == "auto"), *inputs)
     cache = pass_cache(scene, grid, lights)
     call = cache.graphs.get(key)
     if call is None:
-        advance.prepare(dev, lanes)
+        rng_ops.sobol_table(dev)  # the ld draws' rows, read on the device
+        prepare(dev, lanes)
         call = cache.graphs[key] = CallGraph(key, program, inputs, dev)
     return call(inputs)
 
@@ -733,11 +656,10 @@ def render_beauty_mega(
     megakernel's CMR_MEGA_DEBUG ablations (``kernels.megakernel.ABLATIONS``);
     the other engines ignore it.
 
-    On the card the megakernel engine runs the call as one CUDA graph per
-    call shape, as the JAX ``jit`` runs it as one program: no value goes to
-    the host between its first launch and its last. ``executor='eager'``
-    runs the same steps from the host instead (the comparison for the
-    graph; the binned and pair engines always run so).
+    On the card every engine runs the call as one CUDA graph per call
+    shape, as the JAX ``jit`` runs it as one program: no value goes to the
+    host between its first launch and its last. ``executor='eager'`` runs
+    the same steps from the host instead (the comparison for the graph).
     """
     if rng_mode not in ("parity", "counter", "ld"):
         raise ValueError(f"rng mode must be parity|counter|ld, got {rng_mode!r}")
@@ -762,7 +684,8 @@ def render_beauty_mega(
     program = partial(_beauty_program, advance=advance, width=width, height=height,
                       num_samples=num_samples, rng_mode=rng_mode, step=step, full=full)
     key = ("beauty", width, height, num_samples, full, tuple(sorted(knobs.items())))
-    img, final_rng = _execute(scene, grid, lights, advance, key, program, inputs, executor, step)
+    img, final_rng = _execute(scene, grid, lights, advance.prepare, key, program, inputs, executor,
+                              step)
     if return_rng:
         return img, final_rng
     return img
@@ -859,7 +782,7 @@ def render_samples_mega(
     program = partial(_samples_program, advance=advance, ch=ch, n_steps=n_steps,
                       rng_mode=rng_mode, full=full)
     key = ("samples", n_steps * ch, ch, full, tuple(sorted(knobs.items())))
-    (out,) = _execute(scene, grid, lights, advance, key, program,
+    (out,) = _execute(scene, grid, lights, advance.prepare, key, program,
                       (*camera, pixel_xy, sample_idx, valid), executor, ch)
     return out[:n]
 
@@ -928,7 +851,7 @@ def render_pixels_mega(
     advance = _pass_advance(scene, grid, lights, rp, **knobs)
     program = partial(_pixels_program, advance=advance, num_samples=num_samples, full=full)
     key = ("pixels", n, num_samples, full, tuple(sorted(knobs.items())))
-    acc, next_rng = _execute(scene, grid, lights, advance, key, program,
+    acc, next_rng = _execute(scene, grid, lights, advance.prepare, key, program,
                              (*camera, pixel_xy, rng_t), executor, rp)
     img = acc / float(num_samples)
     if return_rng:

@@ -311,15 +311,16 @@ class Renderer:
 
     def _beauty_fn(self):
         """The tile renderer the single-device loop calls each pass: the
-        megarender pass loop with the engine's knobs, or the wavefront loop."""
+        megarender pass loop with the engine's knobs, or the wavefront loop
+        (on the card each a CUDA graph per call shape)."""
         from .render.integrator import render_beauty
         from .render.megarender import render_beauty_mega
 
         opt = self.options
         engine = self._resolve_engine()
+        self._keep_passes()
         if engine not in ("mega", "binned", "pair"):
             return partial(render_beauty, tir=opt.tir, direct=opt.direct)
-        self._keep_passes()
         knobs = _engine_knobs(engine)
         if (knobs["schedule_mode"] == "auto"
                 and opt.width * opt.height * opt.num_samples < (1 << 18)):

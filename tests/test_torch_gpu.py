@@ -30,7 +30,12 @@ parity (atol 1e-6 for a sample split in counter). The mega pass captured
 as a CUDA graph (render/megarender.py, the default executor on the card)
 equals the eager executor (the same steps driven from the host) bit for
 bit, with as many K1 launches (counted on the card); K1 with the pass
-control block and the control kernel equal their plain versions."""
+control block and the control kernel equal their plain versions. So do
+the wavefront, binned and pair engines' calls as CUDA graphs (their loops
+and guards conditional nodes) and the eager executor's, with as many K3,
+K4, K5 and K6 launches (counted on the card); K5 and K6 with their counts
+from the control block equal their plain versions at every rung of their
+launch-shape ladders."""
 
 import dataclasses
 import os
@@ -67,6 +72,19 @@ def _k1_launches():
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     return mk.trace_paths_mega.launches + int(pc.device_counts("cuda")[0])
+
+
+def _kernel_launches():
+    """K3, K4, K5 and K6's launches: their wrappers' and those of graph
+    replays, counted on the card (``pass_control.kernel_counts``)."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    card = pc.kernel_counts("cuda").tolist()
+    host = (ctr.trace_core.launches, bt.listing.launches, bt.run_round.launches,
+            ps.sweep.launches)
+    return dict(zip(pc.COUNTED_KERNELS, (a + b for a, b in zip(host, card))))
 
 
 def _box(c, h):
@@ -322,9 +340,9 @@ def _gembox(device, **kw):
 
 @pytest.mark.parametrize("backend", ["cluster", "bvh"])
 def test_wavefront_cuda_matches_cpu(cuda, backend):
-    before = ctr.trace_core.launches
+    before = _kernel_launches()["K3"]
     img_gpu = _gembox("cuda", engine="wavefront", backend=backend).render()
-    assert (ctr.trace_core.launches > before) == (backend == "cluster")
+    assert (_kernel_launches()["K3"] > before) == (backend == "cluster")
     img_cpu = _gembox("cpu", engine="wavefront", backend=backend).render()
     diff = np.abs(img_gpu - img_cpu).max(-1)
     assert int((diff > 1e-2).sum()) <= 2
@@ -602,14 +620,10 @@ def _gembox_engine(device, engine):
 
 @pytest.mark.parametrize("engine", ["binned", "pair"])
 def test_engine_cuda_matches_cpu(cuda, engine):
-    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
-    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
-
-    before = (bt.listing.launches, bt.run_round.launches, ps.sweep.launches,
-              ctr.trace_core.launches)
+    order = ("K4", "K5", "K6", "K3")
+    before = [_kernel_launches()[k] for k in order]
     img_gpu = _gembox_engine("cuda", engine)
-    after = (bt.listing.launches, bt.run_round.launches, ps.sweep.launches,
-             ctr.trace_core.launches)
+    after = [_kernel_launches()[k] for k in order]
     launched = [a > b for a, b in zip(after, before)]
     assert launched == ([True, True, False, False] if engine == "binned"
                         else [True, False, True, True])
@@ -815,3 +829,163 @@ def test_many_graphs_capture(cuda):
         got = mr.render_beauty_mega(*objs, (48, rows), 1, **kw)
     assert len(mr.captures) - n_captures == 40
     assert torch.equal(got, mr.render_beauty_mega(*objs, (48, 40), 1, executor="eager", **kw))
+
+
+# --- The wavefront, binned and pair engines as device programs -----------------
+
+
+def _engine_call(r, engine, executor, **kw):
+    """One tile call of ``engine`` over the Renderer ``r``'s tables."""
+    from complex_materials_renderer_tpu_torch.render import integrator as it
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    call = dict(max_depth=8, rr_depth=4, full_resolution=(48, 32), return_rng=True,
+                executor=executor, **kw)
+    args = (r.camera, r.scene_arrays, r.accel, r.lights, (48, 32), 2)
+    if engine == "wavefront":
+        return it.render_beauty(*args, **call)
+    return mr.render_beauty_mega(*args, trace_engine=engine, **call)
+
+
+def _counted_all(fn):
+    """(result, K1 and K3-K6 launches) of ``fn()``."""
+    before = dict(_kernel_launches(), K1=_k1_launches())
+    out = fn()
+    torch.cuda.synchronize()
+    after = dict(_kernel_launches(), K1=_k1_launches())
+    return out, {k: after[k] - before[k] for k in after}
+
+
+ENGINE_CASES = [("wavefront", "cluster", {}), ("wavefront", "bvh", {}),
+                ("binned", "cluster", {}), ("binned", "cluster", dict(schedule_mode="all")),
+                ("pair", "cluster", {}), ("pair", "cluster", dict(schedule_mode="all"))]
+
+
+@pytest.mark.parametrize("rng", ["parity", "counter", "ld"])
+@pytest.mark.parametrize("engine,backend,kw", ENGINE_CASES,
+                         ids=[f"{e}-{b}-{kw.get('schedule_mode', 'auto')}"
+                              for e, b, kw in ENGINE_CASES])
+def test_engine_graph_matches_eager(cuda, engine, backend, kw, rng):
+    """Each engine's call as a CUDA graph (the default on the card) against
+    the eager executor (host reads, host ints to K5 and K6): image and RNG
+    words bit-equal, and every kernel's launches that the replay ran
+    (counted on the card) equal to the eager executor's."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = _gembox("cuda", engine=engine, backend=backend)
+    want, n_eager = _counted_all(lambda: _engine_call(r, engine, "eager", rng_mode=rng, **kw))
+    _engine_call(r, engine, "auto", rng_mode=rng, **kw)  # captures
+    got, n_graph = _counted_all(lambda: _engine_call(r, engine, "auto", rng_mode=rng, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert n_graph == n_eager
+    used = {"wavefront": ["K3"] if backend == "cluster" else [], "binned": ["K4", "K5"],
+            "pair": ["K3", "K4", "K6"]}[engine]
+    assert all(n_graph[k] > 0 for k in used) and n_graph["K1"] == 0
+
+
+@pytest.mark.parametrize("engine,backend", [("wavefront", "cluster"), ("wavefront", "bvh"),
+                                            ("binned", "cluster"), ("pair", "cluster")])
+def test_engine_graph_call_makes_no_sync(cuda, engine, backend):
+    """A replayed call of each engine raises nothing under sync-debug
+    'error': no value goes to the host between its first launch and its
+    last."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = _gembox("cuda", engine=engine, backend=backend)
+    want, _ = _engine_call(r, engine, "auto", rng_mode="ld", sample_offset=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, _ = _engine_call(r, engine, "auto", rng_mode="ld", sample_offset=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(img, want) and torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("payload", ["full", "nee"])
+def test_round_with_control_block_matches_plain(cuda, payload):
+    """K5 taking its live blocks from the control block, at every rung of
+    its (G, S) ladder with the live blocks at the rung's most (at most the
+    round's own), equals the plain round at those live blocks; 0 live
+    blocks serve nothing."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    grid, media9, K, rays, _, _, keys, state = _binned_setup(cuda, payload)
+    live, keys, rays, state = bt.regroup(keys, rays, state)
+    blocks = -(-int(live) // bt.BLOCK)
+    n_blocks = keys.shape[1] // bt.BLOCK
+    ran = 0
+    for a, b, G in bt.round_ladder(n_blocks):
+        lb = min(b, blocks)
+        if lb < a:
+            continue
+        want = bt.round_plain(grid, media9, lb, rays, keys, state, payload, K, 12)
+        ctrl = pc.new_ctrl(cuda)
+        ctrl[pc.CTRL_LIVE] = lb
+        got = bt.run_round(grid, media9, None, rays, keys.clone(), state.clone(), payload, K,
+                           12, ctrl=ctrl, group=G)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("keys", "state", "iters"), got, want):
+            assert torch.equal(x, y), (name, G, lb)
+        ran += 1
+    assert ran >= 1
+    k0, s0 = keys.clone(), state.clone()
+    got = bt.run_round(grid, media9, None, rays, k0, s0, payload, K, 12, ctrl=pc.new_ctrl(cuda),
+                       group=bt.round_ladder(n_blocks)[0][2])
+    torch.cuda.synchronize()
+    assert torch.equal(k0, keys) and torch.equal(s0, state) and int(got[2].sum()) == 0
+
+
+@pytest.mark.parametrize("payload", ["dist", "occl", "nee"])
+def test_sweep_with_control_block_matches_plain(cuda, payload):
+    """K6 taking its pair count from the control block, at every rung of
+    its G ladder (the count set to the sweep's own at its rung, else to the
+    rung's most: the output does not depend on the split), equals the
+    plain sweep; 0 pairs keep every pair's seed state."""
+    from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
+    from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    grid, media9, K, rays, bnd, _, keys, _ = _binned_setup(cuda, payload)
+    pair_rays, cid, _ = ps.expand_pairs(keys, rays, bnd, chunk_blocks=2)
+    pairs = int((cid < bt.BIGC).sum())
+    want = ps.sweep_plain(grid, media9, pair_rays, cid, payload, K)
+    P = cid.shape[0]
+    for a, b, G in ps.sweep_ladder(P):
+        ctrl = pc.new_ctrl(cuda)
+        ctrl[pc.CTRL_NALIVE] = pairs if a <= pairs <= b else min(b, P)
+        got = ps.sweep(grid, media9, pair_rays, cid, payload, K, ctrl=ctrl, group=G)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (G, int(ctrl[pc.CTRL_NALIVE]))
+    before = ps.sweep.launches
+    got = ps.sweep(grid, media9, pair_rays, cid, payload, K, 0)
+    assert ps.sweep.launches == before
+    assert torch.equal(got, ps.seed_state_bits(pair_rays, payload, K))
+
+
+@pytest.mark.parametrize("n", [65536, 3072, 65541])
+def test_control_kernel_extensions_match_plain(cuda, n):
+    """The control kernel's iteration counter, cap, grace, rungs on the
+    count and on the extent equal their plain versions on the card."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    alive = torch.rand(n, device=cuda, generator=gen) < 0.01
+    cases = ((pc.COND | pc.ITER_RESET | pc.ITER_CAP, dict(cap=3)),
+             (pc.COND | pc.ITER_STEP | pc.ITER_GRACE, dict(cap=1, threshold=n // 4)),
+             (pc.RUNGS | pc.SET_LIVE, dict(edges=[1, 100, 700, n + 1])),
+             (pc.RUNGS | pc.EXTENT, dict(edges=[0, n // 64 + 1, n // 8 + 1, n + 1])),
+             (pc.AFTER_K1 | pc.NOT_K1 | pc.DEVICE_COUNT, dict(advance=8)))
+    for flags, kw in cases:
+        ctrl = torch.tensor([3, 10, 1, 0, 0, 2, 0, 0], dtype=torch.int32, device=cuda)
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        ctrl_p, counts_p = ctrl.clone(), counts.clone()
+        pc.pass_control(alive, ctrl, counts, flags, **kw)
+        pc.pass_control_plain(alive, ctrl_p, counts_p, flags, **kw)
+        assert torch.equal(ctrl, ctrl_p) and torch.equal(counts, counts_p), flags
