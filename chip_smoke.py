@@ -153,8 +153,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5d. drives sharding: ``render_beauty_sharded`` over a mesh of four
    logical shards on cuda:0, the megakernel per shard, on showcase
    512x512 at 4 spp: four tiles in parity bit-equal to the single render
-   of the frame, 2 x 2 in counter within atol 1e-6, each timed beside the
-   single render with K1's launches; then ``render_multihost`` in a
+   of the frame, 2 x 2 in counter within atol 1e-6, each warmed up at its
+   shape through the same tables, then timed beside the single render
+   with K1's launches, capturing no graph on any card and under
+   ``torch.cuda.set_sync_debug_mode("error")``; then ``render_multihost`` in a
    one-process NCCL world (a file store) equal to ``render_beauty_sharded``
    on the same mesh (NCCL across several cards needs more than the one
    card here);
@@ -260,17 +262,39 @@ pass (``LANES_PER_PASS``, which ``CMR_LANES_PER_PASS`` sets), and exits 4;
 builds, runs 5f's command without and with its memory sampler in turns
 (twice each), then the same render in the process with every pass timed
 and the card's SM clock, power and temperature read every 64 passes, and
-exits 4.
+exits 4. ``--engines`` builds, times showcase 512x512 through each
+engine's Renderer (a warm-up render, then three timed; mega and
+wavefront at 16 spp, binned and pair at 4) and exits 4; it calls only
+what the port has had since every engine ran as a CUDA graph, so a copy
+of this script in an unpacked older tree (``git archive`` under
+``build/``) times that tree in the same call: parent, change, change,
+parent.
 ``--cards`` (a host with an even number of cards, at least 2) builds and
 drives only what needs several cards: the Renderer's sharded band loop
-(``--shard auto``, one tile a card, the cards in turn) against
-``--shard none`` on showcase 512x512 at 16 spp, parity bit-equal and
-counter within atol 1e-6, each timed after a warm-up with K1's launches;
-showcase at 1920x1080 with 16 spp in counter the same way, bit-equal;
-then a two-process NCCL ``render_multihost`` (a file store; each process
-holds half the cards; 2 x (cards / 2) in counter, the 'sample' axis
-across the processes) whose image, on both processes, must equal
-``render_beauty_sharded`` over the same cards bit for bit; and exits 4.
+(``--shard auto``, one tile a card, every card's call of a band queued
+before the band's one host read) against ``--shard none`` on showcase
+512x512 at 16 spp in parity and counter and at 1920x1080 with 16 spp in
+counter, each Renderer warmed up by a render at the timed shapes and
+then timed with K1's launches, the sharded render capturing nothing and
+bit-equal (at 1920x1080 each card's calls in each band timed with CUDA
+events: busy ms, and the wait for the band's slowest card); one band
+over every card replayed under ``torch.cuda.set_sync_debug_mode
+("error")``; the default command's bands (1920x1080@256 parity) in the
+process, timed so; the default command in fresh processes on one
+card (``CUDA_VISIBLE_DEVICES=0``), on two (where there are more) and on
+every card (``--shard auto``, its default), their rates, one row block
+of each card's tiles computed again on cuda:0 RGBE byte-equal to the
+sharded .hdr, the images within one RGBE step of the one-card image (the
+band loop sums a band's samples in one call, the one-card loop in
+chunks); BASELINE config 5 (``-s 1024``, tiles over the cards) in a
+fresh process, two row blocks of each card's tiles checked so; then a
+two-process NCCL ``render_multihost`` (a file store; each process holds
+half the cards; 2 x (cards / 2) in counter, the
+'sample' axis across the processes; warmed up at its shape, no capture
+in the timed call) whose image, on both processes, must equal
+``render_beauty_sharded`` over the same cards bit for bit. It prints a
+``{"cards": {...}}`` line, fails after all of them if any check failed,
+and else exits 4.
 """
 
 from __future__ import annotations
@@ -1089,7 +1113,7 @@ def graph_against_eager(label, fn_eager, fn_graph):
     eager, t_eager, n_eager = counted_k1(fn_eager)
     n_cap = len(mr.captures)
     _, t_first, _ = counted_k1(fn_graph)
-    captured = sum(s for _, s in mr.captures[n_cap:])
+    captured = sum(c.seconds for c in mr.captures[n_cap:])
     graph, t_graph, n_graph = counted_k1(fn_graph)
     eager = eager if isinstance(eager, tuple) else (eager,)
     graph = graph if isinstance(graph, tuple) else (graph,)
@@ -1293,7 +1317,7 @@ def graph_phase(main_opts, rt, media9, misc, base, profile):
     kw = dict(rng_mode="parity", full_resolution=(w, h), return_rng=True)
     n_cap = len(mr.captures)
     mr.render_beauty_mega(*args, **kw)
-    cap_s = sum(s for _, s in mr.captures[n_cap:])
+    cap_s = sum(c.seconds for c in mr.captures[n_cap:])
     times = {"graph": [], "eager": []}
     with uncounted():
         for ex in ("graph", "eager", "eager", "graph", "graph", "eager"):
@@ -1509,7 +1533,7 @@ def graph_warm(r):
     r.render()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0, len(mr.captures) - n_cap,
-            sum(s for _, s in mr.captures[n_cap:]))
+            sum(c.seconds for c in mr.captures[n_cap:]))
 
 
 def wavefront_path(main_opts, mega_img):
@@ -2301,7 +2325,7 @@ def engine_graph_against_eager(label, fn_eager, fn_graph, used=()):
     n_cap = len(mr.captures)
     _, t_first, _ = counted_all(fn_graph)
     caps = len(mr.captures) - n_cap
-    cap_s = sum(s for _, s in mr.captures[n_cap:])
+    cap_s = sum(c.seconds for c in mr.captures[n_cap:])
     graph, t_graph, n_graph = counted_all(fn_graph)
     eager = eager if isinstance(eager, tuple) else (eager,)
     graph = graph if isinstance(graph, tuple) else (graph,)
@@ -2568,13 +2592,50 @@ def timed_render(fn):
     return out, time.perf_counter() - t0
 
 
+def sync_all() -> None:
+    """Wait for the work queued on every card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def no_sync_call(fn):
+    """(result, seconds) of ``fn()`` under ``torch.cuda.set_sync_debug_mode
+    ("error")``, where every synchronising operation raises; every card is
+    synchronised before and after, outside it."""
+    import torch
+
+    sync_all()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_all()
+    return out, time.perf_counter() - t0
+
+
+def captures_by_card(since: int) -> dict:
+    """{card: graphs captured} since ``megarender.captures[since]``."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    out: dict = {}
+    for c in mr.captures[since:]:
+        out[str(c.device)] = out.get(str(c.device), 0) + 1
+    return out
+
+
 def sharding_path(r):
     """render_beauty_sharded over SHARDS logical shards on cuda:0, the
     megakernel per shard: SHARDS tiles in parity bit-equal to the single
     render of the frame, 2 x (SHARDS / 2) in counter within atol 1e-6, each
-    timed beside its single render with K1's launches counted from 0; then
-    render_multihost in a one-process NCCL world (a file store) equal to
-    render_beauty_sharded on the same mesh."""
+    warmed up at the timed shape through the same tables and then timed
+    with no capture and under sync-debug 'error', beside its single render,
+    with K1's launches counted from 0; then render_multihost in a
+    one-process NCCL world (a file store) equal to render_beauty_sharded on
+    the same mesh."""
     import tempfile
 
     import torch
@@ -2595,24 +2656,32 @@ def sharding_path(r):
     cases = (("parity", 1), ("counter", 2))
     for rng, sp in cases:
         mesh = make_render_mesh([dev] * SHARDS, sample_parallel=sp)
+
+        def sharded():
+            return render_beauty_sharded(*objs, res, spp, rng_mode=rng, mesh=mesh, engine="mega",
+                                         **kw)
+
         with uncounted():
-            render_beauty_sharded(*objs, (64, 64), spp, rng_mode=rng, mesh=mesh, engine="mega",
-                                  **kw)  # warm-up
+            sharded()  # warm-up: the timed call's shapes, through the same tables
             ref, t_single = timed_render(lambda: mr.render_beauty_mega(
                 *objs, res, spp, rng_mode=rng, **kw))
         reset_launch_counts()
-        img, t_sharded = timed_render(lambda: render_beauty_sharded(
-            *objs, res, spp, rng_mode=rng, mesh=mesh, engine="mega", **kw))
+        n_cap = len(mr.captures)
+        img, t_sharded = no_sync_call(sharded)
+        caps = captures_by_card(n_cap)
         launches = launch_counts()["K1"]
         a, b = img.cpu().numpy(), ref.cpu().numpy()
         err = float(np.abs(a - b).max())
         ok = err == 0.0 if rng == "parity" else err <= 1e-6
         print(f"   sharded mega, showcase {res[0]}x{res[1]}@{spp} {rng}, mesh {mesh.shape} on "
-              f"cuda:0: {t_sharded:.3f} s (single render {t_single:.3f} s); K1 launches "
-              f"{launches}; worst difference from the single render {err:.3e} (limit "
-              f"{'0, bit-equal' if rng == 'parity' else '1e-6'})", flush=True)
+              f"cuda:0: {t_sharded:.3f} s (single render {t_single:.3f} s) after a warm-up at "
+              f"its shape, under sync-debug 'error' (no synchronising operation); captures "
+              f"{caps or 0}; K1 launches {launches}; worst difference from the single render "
+              f"{err:.3e} (limit {'0, bit-equal' if rng == 'parity' else '1e-6'})", flush=True)
         if launches <= 0:
             fail("the sharded path launched the megakernel no time")
+        if caps:
+            fail(f"the sharded call after its warm-up captured graphs: {caps}")
         if a.shape != (res[1], res[0], 3) or not np.isfinite(a).all() or not ok:
             fail(f"the sharded render ({rng}) differs from the single render")
 
@@ -2645,6 +2714,7 @@ def sharding_path(r):
 
 CARDS_SPP = 16  # samples of --cards' Renderer renders
 CARDS_MULTIHOST_SPP = 4  # samples of its two-process render
+CONFIG5_SPP = 1024  # BASELINE config 5: showcase 1920x1080 at 1024 spp, tiles over the cards
 
 
 CLI_SIZE = ("512", "512", "16")  # the main path's width, height and samples per pixel
@@ -2971,15 +3041,16 @@ def memory_used_mib() -> int:
     return int(out.stdout.split()[0])
 
 
-def default_command(tmp, sample_memory=True):
-    """``python -m <package> -o <tmp>/default`` in a fresh process, the
-    user's command with no other argument, with ``nvidia-smi`` sampling
-    the card's memory beside it unless ``sample_memory`` is false. Returns
-    (its phases in ms with its wall time, the card's memory in use in MiB
-    just before it and at its peak, the decoded image)."""
+def default_command(tmp, sample_memory=True, name="default", args=(), env=None):
+    """``python -m <package> -o <tmp>/<name>`` in a fresh process, the
+    user's command with no other argument (or with ``args``; ``env``: more
+    environment), with ``nvidia-smi`` sampling the first card's memory
+    beside it unless ``sample_memory`` is false. Returns (its phases in ms
+    with its wall time, the card's memory in use in MiB just before it and
+    at its peak, the decoded image)."""
     from complex_materials_renderer_tpu_torch.io import read_hdr
 
-    out = os.path.join(tmp, "default")
+    out = os.path.join(tmp, name)
     base = memory_used_mib()
     sampler = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
                                 "--format=csv,noheader,nounits", "-lms", "250"],
@@ -2987,8 +3058,9 @@ def default_command(tmp, sample_memory=True):
                                text=True) if sample_memory else None
     try:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", PACKAGE, "-o", out], cwd=REPO,
-                              capture_output=True, text=True, timeout=1000)
+        proc = subprocess.run([sys.executable, "-m", PACKAGE, *args, "-o", out], cwd=REPO,
+                              capture_output=True, text=True, timeout=1000,
+                              env={**os.environ, **(env or {})})
         wall = time.perf_counter() - t0
     finally:
         samples = ""
@@ -2996,7 +3068,7 @@ def default_command(tmp, sample_memory=True):
             sampler.terminate()
             samples = sampler.communicate(timeout=60)[0]
     if proc.returncode != 0:
-        fail(f"python -m {PACKAGE} -o {out} exited {proc.returncode}:\n"
+        fail(f"python -m {PACKAGE} {' '.join(args)} -o {out} exited {proc.returncode}:\n"
              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     used = [int(x) for x in samples.split() if x.isdigit()]
     phases = {**cli_phases(proc.stdout), "wall": wall * 1e3}
@@ -3388,9 +3460,297 @@ def acceptance_scenes(smi):
     return out
 
 
+class card_timeline:
+    """Times, on the cards, every shard call that ``sharding.dispatch_cells``
+    queues while the block runs: a CUDA event before and after each call
+    on its card's current stream, grouped by band (a ``dispatch_cells``
+    call), and the host time each band takes to queue."""
+
+    def __enter__(self):
+        import torch
+
+        from complex_materials_renderer_tpu_torch.parallel import sharding
+
+        self.sharding, self.bands, self.queue_s = sharding, [], []
+        self.real_fn, self.real_dispatch = sharding._beauty_fn, sharding.dispatch_cells
+
+        def beauty_fn(engine):
+            beauty = self.real_fn(engine)
+
+            def timed(*a, **k):
+                card = torch.cuda.current_device()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = beauty(*a, **k)
+                end.record()
+                self.bands[-1].append((card, start, end))
+                return out
+
+            return timed
+
+        def dispatch(*a, **k):
+            self.bands.append([])
+            t0 = time.perf_counter()
+            out = self.real_dispatch(*a, **k)
+            self.queue_s.append(time.perf_counter() - t0)
+            return out
+
+        sharding._beauty_fn, sharding.dispatch_cells = beauty_fn, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.sharding._beauty_fn, self.sharding.dispatch_cells = self.real_fn, self.real_dispatch
+        return False
+
+    def report(self, label: str) -> dict:
+        """Print and return, per card, its busy ms in each band and in all,
+        and its wait for the band's slowest card (the band's busiest card's
+        ms less its own), with the host's queueing ms a band."""
+        sync_all()
+        busy = []
+        for band in self.bands:
+            per: dict = {}
+            for card, start, end in band:
+                per[card] = per.get(card, 0.0) + start.elapsed_time(end)
+            busy.append(per)
+        cards = sorted({c for per in busy for c in per})
+        total = {c: sum(per.get(c, 0.0) for per in busy) for c in cards}
+        wait = {c: sum(max(per.values()) - per.get(c, 0.0) for per in busy) for c in cards}
+        slowest = sum(max(per.values()) for per in busy)
+        print(f"   {label}: {len(busy)} bands; per card, busy ms in all "
+              + ", ".join(f"cuda:{c} {total[c]:.1f}" for c in cards)
+              + "; waiting for the band's slowest card "
+              + ", ".join(f"cuda:{c} {wait[c]:.1f}" for c in cards)
+              + f"; the slowest cards' ms summed over the bands {slowest:.1f} against a mean "
+              f"card's {np.mean(list(total.values())):.1f} (busy share "
+              f"{np.mean(list(total.values())) / slowest:.4f}); host ms to queue a band "
+              f"{1e3 * min(self.queue_s):.2f}-{1e3 * max(self.queue_s):.2f}", flush=True)
+        for i, per in enumerate(busy):
+            print(f"     band {i}: " + ", ".join(f"cuda:{c} {per[c]:.1f} ms" for c in sorted(per)),
+                  flush=True)
+        return {"bands": [{str(c): per[c] for c in sorted(per)} for per in busy],
+                "busy_ms": {str(c): total[c] for c in cards},
+                "wait_ms": {str(c): wait[c] for c in cards}, "slowest_ms": slowest,
+                "queue_ms": [1e3 * q for q in self.queue_s]}
+
+
+def cards_renders(scene, opt, n, problems, timeline=False):
+    """``--shard auto`` over the ``n`` cards against ``--shard none`` on
+    cuda:0, the same options: each Renderer warmed up by a render at the
+    timed shapes, then timed; the sharded render must capture nothing and
+    equal the single one bit for bit (with ``timeline``, its shard calls
+    timed on the cards)."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    single_r = Renderer(scene, dataclasses.replace(opt, shard="none"))
+    sharded_r = Renderer(scene, dataclasses.replace(opt, shard="auto"))
+    if len(sharded_r._shard_devices()) != n:
+        fail(f"--shard auto spreads over {len(sharded_r._shard_devices())} devices, not the "
+             f"{n} cards")
+    label = f"showcase {opt.width}x{opt.height}@{opt.num_samples} {opt.rng}"
+    paths = opt.width * opt.height * opt.num_samples
+    n_cap = len(mr.captures)
+    with uncounted():
+        (_, t_warm_single), (_, t_warm) = (timed_render(single_r.render),
+                                           timed_render(sharded_r.render))  # warm-ups
+        warm_caps = captures_by_card(n_cap)
+        single, t_single = timed_render(single_r.render)
+    reset_launch_counts()
+    n_cap = len(mr.captures)
+    with card_timeline() as tl:
+        sharded, t_sharded = timed_render(sharded_r.render)
+    caps = captures_by_card(n_cap)
+    launches = launch_counts()["K1"]
+    err = float(np.abs(sharded - single).max())
+    print(f"   Renderer {label}: --shard auto over {n} cards {t_sharded:.4f} s = "
+          f"{paths / t_sharded / 1e6:.4f} Mpaths/s; --shard none on cuda:0 {t_single:.4f} s = "
+          f"{paths / t_single / 1e6:.4f} Mpaths/s ({t_single / t_sharded:.4f}x); warm-ups "
+          f"{t_warm:.3f} s and {t_warm_single:.3f} s (captures {warm_caps}); captures in the "
+          f"timed sharded render {caps or 0}; K1 launches (sharded) {launches}; worst "
+          f"difference {err:.3e} (limit 0, bit-equal)", flush=True)
+    out = {"sharded_s": t_sharded, "single_s": t_single,
+           "sharded_mpaths_s": paths / t_sharded / 1e6, "single_mpaths_s": paths / t_single / 1e6,
+           "captures": caps, "k1_launches": launches, "max_abs_err": err}
+    if timeline:
+        out["timeline"] = tl.report(f"{label}, the timed sharded render")
+    if launches <= 0:
+        problems.append(f"the sharded Renderer ({label}) launched the megakernel no time")
+    if caps:
+        problems.append(f"the sharded Renderer ({label}) captured graphs after its warm-up: "
+                        f"{caps}")
+    if sharded.shape != single.shape or not np.isfinite(sharded).all() or err:
+        problems.append(f"--shard auto over {n} cards ({label}) differs from --shard none")
+    return out
+
+
+def cards_band_no_sync(scene, opt, n, problems):
+    """One band over every card (the sharded Renderer's call at showcase
+    512x512, one band: ``render_beauty_sharded``, its dispatch and combine)
+    replayed under sync-debug 'error' after a warm-up: no capture, no
+    synchronising operation, the image the warm-up's."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.parallel.sharding import (
+        make_render_mesh,
+        render_beauty_sharded,
+    )
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    r = Renderer(scene, opt)
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    mesh = make_render_mesh()
+
+    def band():
+        return render_beauty_sharded(*objs, (opt.width, opt.height), opt.num_samples,
+                                     max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                                     nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
+                                     mesh=mesh, full_resolution=(opt.width, opt.height),
+                                     engine="mega", direct=opt.direct)
+
+    with uncounted():
+        want = band().cpu()
+        n_cap = len(mr.captures)
+        try:
+            img, dt = no_sync_call(band)
+        except RuntimeError as e:
+            problems.append(f"the band over every card synchronised: {e}")
+            return
+    caps = captures_by_card(n_cap)
+    same = bool(torch.equal(img.cpu(), want))
+    print(f"   one band over the {n} cards (showcase {opt.width}x{opt.height}@"
+          f"{opt.num_samples} {opt.rng}, render_beauty_sharded, mesh {mesh.shape}) under "
+          f"torch.cuda.set_sync_debug_mode('error'): no synchronising operation from the first "
+          f"card's first launch to the combined image ({dt:.4f} s); captures {caps or 0}; the "
+          f"image the warm-up's {same}", flush=True)
+    if caps or not same:
+        problems.append("the band over every card captured graphs or differs from its warm-up")
+
+
+def sharded_blocks_check(opt, rgbe, blocks, n):
+    """Row blocks of a sharded render (band start, tile) computed again on
+    cuda:0 as the shard computes them (``render_beauty_mega``, every sample
+    in one call, the band loop's weight): RGBE byte-equal to the .hdr's
+    rows. Returns the list of blocks that differ."""
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    r = Renderer(*showcase_options(opt.width, opt.height, opt.num_samples))
+    rows = -(-band_rows(opt.width, opt.height, n) // n)
+    bad = []
+    for row0, t in blocks:
+        first = row0 + t * rows
+        t0 = time.perf_counter()
+        img = mr.render_beauty_mega(
+            r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, rows), opt.num_samples,
+            max_depth=opt.max_depth, rr_depth=opt.rr_depth, nee_max_media=opt.nee_max_media,
+            rng_mode="parity", row_offset=first, full_resolution=(opt.width, opt.height),
+            direct=opt.direct)
+        acc = img.cpu().numpy() * (opt.num_samples / opt.num_samples)
+        same = bool(np.array_equal(float_to_rgbe(acc), rgbe[first:first + rows]))
+        print(f"   rows {first}-{first + rows - 1} (band at row {row0}, card {t}'s tile) "
+              f"computed again on cuda:0 at {opt.num_samples} spp in {time.perf_counter() - t0:.3f}"
+              f" s: RGBE equal to the sharded .hdr's rows {same}", flush=True)
+        if not same:
+            bad.append((row0, t))
+    return bad
+
+
+def band_rows(width, height, n):
+    """The sharded band loop's band height over ``n`` cards (renderer.py's
+    ``_render_sharded``)."""
+    from complex_materials_renderer_tpu_torch import renderer
+
+    return min(max(1, (renderer.LANES_PER_PASS * n) // width), height)
+
+
+def cards_commands(n, problems):
+    """The default command in fresh processes: on one card
+    (``CUDA_VISIBLE_DEVICES=0``), on two (where there are more) and on the
+    ``n`` cards (``--shard auto``, its default), their render rates; one
+    row block of each card's tiles of the sharded .hdr computed again on
+    cuda:0, RGBE byte-equal; each image within one RGBE step of the
+    one-card image (their sums differ in order: the one-card loop chunks
+    the samples, the band loop takes them in one call). Then
+    BASELINE config 5 (showcase 1920x1080 at CONFIG5_SPP, parity, tiles
+    over the cards: ``-s 1024``) on the ``n`` cards, two row blocks of each
+    card's tiles checked so."""
+    import tempfile
+
+    from complex_materials_renderer_tpu_torch.io.hdr import float_to_rgbe
+
+    w, h, spp = DEFAULT_SIZE
+    scene, opt = showcase_options(w, h, spp)
+    band = band_rows(w, h, n)
+    bands = list(range(0, h, band))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        half = [("2 cards", {"CUDA_VISIBLE_DEVICES": "0,1"})] if n > 2 else []
+        for name, env in [("one card", {"CUDA_VISIBLE_DEVICES": "0"})] + half + [
+                (f"{n} cards", {})]:
+            phases, (base, peak), img = default_command(tmp, name=name.replace(" ", "_"),
+                                                        env=env)
+            render_s = phases["render"] / 1e3
+            runs[name] = (render_s, img)
+            print(f"   python -m {PACKAGE} -o <name> on {name} (showcase {w}x{h}@{spp}, parity, "
+                  f"depth {opt.max_depth}): render {render_s:.3f} s = "
+                  f"{w * h * spp / render_s / 1e6:.4f} Mpaths/s; wall "
+                  f"{phases['wall'] / 1e3:.3f} s; cuda:0 memory {base} -> {peak} MiB", flush=True)
+            out[name] = {"render_s": render_s, "mpaths_s": w * h * spp / render_s / 1e6,
+                         "cli_ms": phases}
+        t1, one = runs["one card"]
+        # One step of an RGBE pixel is 1/m of its largest channel, m its
+        # mantissa (128-255): at most 2^-7.
+        one_step = 2 * RGBE_REL
+        for name, (t, img) in runs.items():
+            if name == "one card":
+                continue
+            step = np.abs(one - img).max(axis=-1) / np.maximum(
+                np.maximum(one.max(axis=-1), img.max(axis=-1)), 1e-30)
+            same = float(np.mean(float_to_rgbe(one) == float_to_rgbe(img)))
+            print(f"   {name} {t1 / t:.4f}x one card's rate; against the one-card image: "
+                  f"largest difference {float(np.abs(one - img).max()):.3e}, at most "
+                  f"{float(step.max()):.3e} of a pixel's largest channel (one RGBE step: at "
+                  f"most {one_step:.3e}); RGBE bytes equal on {same:.6f} of them", flush=True)
+            out[name]["speedup"] = t1 / t
+            if float(step.max()) > one_step:
+                problems.append(f"the default command on {name} differs from one card's by "
+                                "more than one RGBE step")
+        rgbe = float_to_rgbe(runs[f"{n} cards"][1])
+        if sharded_blocks_check(opt, rgbe, [(bands[3], t) for t in range(n)], n):
+            problems.append("a row block of the sharded default command differs from its "
+                            "recomputation on cuda:0")
+
+        spp5 = CONFIG5_SPP
+        phases, (base, peak), img = default_command(tmp, name="config5", args=("-s", str(spp5)))
+        render_s = phases["render"] / 1e3
+        paths = w * h * spp5
+        print(f"   BASELINE config 5, python -m {PACKAGE} -s {spp5} -o <name> on {n} cards "
+              f"(showcase {w}x{h}@{spp5}, parity, tiles over the cards, {paths} paths): render "
+              f"{render_s:.3f} s = {paths / render_s / 1e6:.4f} Mpaths/s "
+              f"({paths / render_s / 1e6 / out['one card']['mpaths_s']:.4f}x the one-card "
+              f"default command's rate); wall {phases['wall'] / 1e3:.3f} s; cuda:0 memory "
+              f"{base} -> {peak} MiB; image mean {float(img.mean()):.6f}", flush=True)
+        out["config5"] = {"render_s": render_s, "mpaths_s": paths / render_s / 1e6,
+                          "cli_ms": phases}
+        blocks = [(bands[b], t) for b in (0, len(bands) // 2) for t in range(n)]
+        opt5 = dataclasses.replace(opt, num_samples=spp5)
+        if sharded_blocks_check(opt5, float_to_rgbe(img), blocks, n):
+            problems.append("a row block of BASELINE config 5 differs from its recomputation "
+                            "on cuda:0")
+    return out
+
+
 def cards_path():
-    """--cards: the sharded Renderer over every card against one card, and
-    a two-process NCCL render_multihost (see the module's docstring)."""
+    """--cards: the sharded Renderer over every card against one card, a
+    band under sync-debug 'error', the default command and BASELINE config
+    5 in fresh processes, and a two-process NCCL render_multihost (see the
+    module's docstring). Every check runs; the failures are reported at
+    the end."""
     import tempfile
 
     import torch
@@ -3399,41 +3759,37 @@ def cards_path():
         make_render_mesh,
         render_beauty_sharded,
     )
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
     n = torch.cuda.device_count()
     if n < 2 or n % 2:
         fail(f"--cards needs an even number of cards, at least 2; {n} visible")
+    print(f"   host CPU {cpu_model()}, {os.cpu_count()} cores", flush=True)
+    problems: list = []
+    summary = {"cards": nvidia_smi_line(every=True), "cpu": cpu_model()}
     scene, opt = showcase_options(512, 512, CARDS_SPP)
-    paths = opt.width * opt.height * CARDS_SPP
     for rng in ("parity", "counter"):
-        o = dataclasses.replace(opt, rng=rng)
-        single_r = Renderer(scene, dataclasses.replace(o, shard="none"))
-        sharded_r = Renderer(scene, dataclasses.replace(o, shard="auto"))
-        devices = sharded_r._shard_devices()
-        if len(devices) != n:
-            fail(f"--shard auto spreads over {len(devices)} devices, not the {n} cards")
-        with uncounted():
-            for r in (single_r, sharded_r):
-                Renderer(scene, dataclasses.replace(r.options, width=64, height=64,
-                                                    num_samples=2)).render()  # warm-up
-            single, t_single = timed_render(single_r.render)
-        reset_launch_counts()
-        sharded, t_sharded = timed_render(sharded_r.render)
-        launches = launch_counts()["K1"]
-        err = float(np.abs(sharded - single).max())
-        ok = err == 0.0 if rng == "parity" else err <= 1e-6
-        print(f"   Renderer showcase 512x512@{CARDS_SPP} {rng}: --shard auto over {n} cards "
-              f"{t_sharded:.4f} s = {paths / t_sharded / 1e6:.4f} Mpaths/s; --shard none on "
-              f"cuda:0 {t_single:.4f} s = {paths / t_single / 1e6:.4f} Mpaths/s; K1 launches "
-              f"(sharded) {launches}; worst difference {err:.3e} (limit "
-              f"{'0, bit-equal' if rng == 'parity' else '1e-6'})", flush=True)
-        if launches <= 0:
-            fail("the sharded Renderer launched the megakernel no time")
-        if sharded.shape != single.shape or not np.isfinite(sharded).all() or not ok:
-            fail(f"--shard auto over {n} cards ({rng}) differs from --shard none")
+        summary[f"512 {rng}"] = cards_renders(scene, dataclasses.replace(opt, rng=rng), n,
+                                              problems)
+    cards_band_no_sync(scene, opt, n, problems)
 
-    cards_default_size(n)
+    w, h, spp = DEFAULT_SIZE
+    scene_d, opt_d = showcase_options(w, h, CARDS_SPP, rng="counter")
+    summary["1080 counter"] = cards_renders(scene_d, opt_d, n, problems, timeline=True)
+    # The default command's bands in this process, each card's calls timed.
+    scene_p, opt_p = showcase_options(w, h, spp)
+    r = Renderer(scene_p, dataclasses.replace(opt_p, shard="auto"))
+    n_cap = len(mr.captures)
+    with uncounted(), card_timeline() as tl:
+        _, dt = timed_render(r.render)
+    caps = captures_by_card(n_cap)
+    print(f"   Renderer showcase {w}x{h}@{spp} parity (the default command's bands) in this "
+          f"process over {n} cards: {dt:.3f} s = {w * h * spp / dt / 1e6:.4f} Mpaths/s, its "
+          f"first render (captures {caps})", flush=True)
+    summary["default bands"] = tl.report(f"showcase {w}x{h}@{spp} parity")
+    summary["default bands"]["render_s"] = dt
+    summary.update(cards_commands(n, problems))
 
     r = Renderer(scene, dataclasses.replace(opt, num_samples=CARDS_MULTIHOST_SPP, rng="counter"))
     objs = (r.camera, r.scene_arrays, r.accel, r.lights)
@@ -3442,7 +3798,7 @@ def cards_path():
     res = (opt.width, opt.height)
     mesh = make_render_mesh([torch.device("cuda", i) for i in range(n)], 2)
     with uncounted():
-        render_beauty_sharded(*objs, (64, 64), CARDS_MULTIHOST_SPP, mesh=mesh, **kw)  # warm-up
+        render_beauty_sharded(*objs, res, CARDS_MULTIHOST_SPP, mesh=mesh, **kw)  # warm-up
         ref, t_ref = timed_render(lambda: render_beauty_sharded(
             *objs, res, CARDS_MULTIHOST_SPP, mesh=mesh, **kw))
     ref = ref.cpu().numpy()
@@ -3466,37 +3822,18 @@ def cards_path():
             for line in log.strip().splitlines()[-12:]:
                 print(f"   [rank {i}] {line}", flush=True)
             if p.returncode != 0:
-                fail(f"the render_multihost process of rank {i} exited {p.returncode}")
-        imgs = [np.load(o) for o in outs]
+                problems.append(f"the render_multihost process of rank {i} exited "
+                                f"{p.returncode}")
+        imgs = [np.load(o) for o in outs if os.path.exists(o)]
     equal = [bool(np.array_equal(img, ref)) for img in imgs]
     print(f"   two-process NCCL render_multihost, {n // 2} cards a process, 2 x {n // 2}: "
           f"each rank's image equal to render_beauty_sharded over the same cards {equal}",
           flush=True)
-    if not all(equal):
-        fail("the two-process render_multihost differs from render_beauty_sharded")
-
-
-def cards_default_size(n):
-    """--cards: showcase at the default 1920x1080, CARDS_SPP samples,
-    counter RNG (BASELINE config 5's layout at fewer samples): ``--shard
-    auto`` over the ``n`` cards against ``--shard none`` on one, bit for
-    bit, both timed."""
-    from complex_materials_renderer_tpu_torch.renderer import Renderer
-
-    w, h, _ = DEFAULT_SIZE
-    scene, opt = showcase_options(w, h, CARDS_SPP, rng="counter")
-    paths = w * h * CARDS_SPP
-    single, t_single = timed_render(Renderer(scene, dataclasses.replace(opt, shard="none")).render)
-    reset_launch_counts()
-    sharded, t_sharded = timed_render(Renderer(scene, dataclasses.replace(opt, shard="auto")).render)
-    launches = launch_counts()["K1"]
-    err = float(np.abs(sharded - single).max())
-    print(f"   Renderer showcase {w}x{h}@{CARDS_SPP} counter: --shard auto over {n} cards "
-          f"{t_sharded:.4f} s = {paths / t_sharded / 1e6:.4f} Mpaths/s; --shard none on cuda:0 "
-          f"{t_single:.4f} s = {paths / t_single / 1e6:.4f} Mpaths/s; K1 launches (sharded) "
-          f"{launches}; worst difference {err:.3e} (limit 0, bit-equal)", flush=True)
-    if launches <= 0 or sharded.shape != (h, w, 3) or not np.isfinite(sharded).all() or err:
-        fail(f"--shard auto over {n} cards at {w}x{h} differs from --shard none")
+    if len(equal) != 2 or not all(equal):
+        problems.append("the two-process render_multihost differs from render_beauty_sharded")
+    print(json.dumps({"cards": summary}), flush=True)
+    if problems:
+        fail("; ".join(problems))
 
 
 def cards_worker(rank: int, store: str, out: str) -> int:
@@ -3506,6 +3843,7 @@ def cards_worker(rank: int, store: str, out: str) -> int:
     import torch.distributed as dist
 
     from complex_materials_renderer_tpu_torch.parallel import multihost
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
     half = torch.cuda.device_count() // 2
@@ -3519,17 +3857,44 @@ def cards_worker(rank: int, store: str, out: str) -> int:
     multihost.init_distributed(store, 2, rank)
     try:
         backend = multihost.group_backend("cuda")
-        multihost.render_multihost(*objs, (64, 64), CARDS_MULTIHOST_SPP, **kw)  # warm-up
+        res = (opt.width, opt.height)
+        multihost.render_multihost(*objs, res, CARDS_MULTIHOST_SPP, **kw)  # warm-up, same shape
         reset_launch_counts()
+        n_cap = len(mr.captures)
         img, dt = timed_render(lambda: multihost.render_multihost(
-            *objs, (opt.width, opt.height), CARDS_MULTIHOST_SPP, **kw))
+            *objs, res, CARDS_MULTIHOST_SPP, **kw))
+        caps = captures_by_card(n_cap)
         launches = launch_counts()["K1"]
     finally:
         dist.destroy_process_group()
     np.save(out, img)
     print(f"devices {[str(d) for d in devices]}, backend for cuda tensors {backend}: "
-          f"{dt:.4f} s; K1 launches {launches}", flush=True)
-    return 0 if backend == "nccl" and launches > 0 else 1
+          f"{dt:.4f} s after a warm-up at its shape; captures {caps or 0}; K1 launches "
+          f"{launches}", flush=True)
+    return 0 if backend == "nccl" and launches > 0 and not caps else 1
+
+
+def engines_times(reps=3):
+    """--engines: showcase 512x512 through the default engine and the
+    wavefront engine at 16 spp and the binned and pair engines at
+    ENGINE_SPP, each through one Renderer: a warm-up render (which
+    captures its graphs), then ``reps`` timed renders. It uses only what
+    the port has had since every engine ran as a CUDA graph, so that two
+    trees compare in one call (see the module's docstring)."""
+    from complex_materials_renderer_tpu_torch.renderer import Renderer
+
+    scene, opt = showcase_options(512, 512, 16)
+    for engine, spp in (("mega", 16), ("wavefront", 16), ("binned", ENGINE_SPP),
+                        ("pair", ENGINE_SPP)):
+        r = Renderer(scene, dataclasses.replace(opt, engine=engine, num_samples=spp))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, warm = timed_render(r.render)
+            times = [timed_render(r.render)[1] for _ in range(reps)]
+        paths = opt.width * opt.height * spp
+        print(f"   {engine} showcase {opt.width}x{opt.height}@{spp} parity: warm-up {warm:.3f} s; "
+              f"timed " + ", ".join(f"{t:.4f}" for t in times) + f" s = "
+              + ", ".join(f"{paths / t / 1e6:.4f}" for t in times) + " Mpaths/s", flush=True)
 
 
 def pass_width_table(main_opts, smi):
@@ -4268,6 +4633,8 @@ def main() -> int:
     ap.add_argument("--default-ab", action="store_true",
                     help="only build, run the default command without and with the memory "
                     "sampler in turns, then in this process with every pass timed")
+    ap.add_argument("--engines", action="store_true",
+                    help="only build and time every engine's showcase render")
     ap.add_argument("--cards-worker", nargs=3, metavar=("RANK", "STORE", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4302,10 +4669,16 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         host_lib = pool.submit(native.load)  # beside the nvcc processes
-        build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
-                       rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4],
-                       ablations=[(4, mk.cuda_instance(mk.ablation_mask(d))[0])
-                                  for d in mk.ABLATION_SETS])
+        if args.cards:  # the default engine at the default --nee-bound: what --cards renders
+            build.prebuild([4], verbose=True)
+        elif args.engines:
+            build.prebuild([4], verbose=True, list_lens=BINNED_LISTS,
+                           rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4])
+        else:
+            build.prebuild([1, 4, 8, 10], verbose=True, list_lens=BINNED_LISTS,
+                           rounds=[(L, 4) for L in BINNED_LISTS], sweeps=[4],
+                           ablations=[(4, mk.cuda_instance(mk.ablation_mask(d))[0])
+                                      for d in mk.ABLATION_SETS])
         host_lib.result()
     print(f"   built {len(build.build_log)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
@@ -4330,7 +4703,15 @@ def main() -> int:
         phase("several cards: the sharded Renderer, a two-process NCCL render_multihost")
         print("   " + "\n   ".join(nvidia_smi_line(every=True)), flush=True)
         cards_path()
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
         print("chip_smoke: --cards stops here", flush=True)
+        return 4  # nonzero: no result line is printed
+
+    if args.engines:
+        phase("every engine's showcase render")
+        engines_times()
+        print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)
+        print("chip_smoke: --engines stops here", flush=True)
         return 4  # nonzero: no result line is printed
 
     if args.default_ab:
@@ -4491,7 +4872,7 @@ def main() -> int:
     from complex_materials_renderer_tpu_torch.render import megarender as mr
 
     graph["captures"] = len(mr.captures)
-    graph["capture_s"] = sum(s for _, s in mr.captures)
+    graph["capture_s"] = sum(c.seconds for c in mr.captures)
     print(f"   graphs captured in this process: {graph['captures']} in {graph['capture_s']:.3f} s",
           flush=True)
     print(f"chip_smoke: command time {time.perf_counter() - T_START:.1f} s", flush=True)

@@ -97,8 +97,8 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t\testimator) | analytic (closed-form expectation: same image in the
 \t\tlimit, less noise in media, same RNG stream)
 \t--shard\tauto (default: with several visible cards, rows tile-sharded over
-\t\tall of them, rendered card by card: the same image at about one
-\t\tcard's speed; one card renders alone) | none. Sharded renders take
+\t\tall of them, every card's call of a band queued before its one host
+\t\tread: the same image; one card renders alone) | none. Sharded renders take
 \t\tpair through the wavefront loop and ignore --tir, as the JAX package
 \t\tdoes; --spp-mode adaptive refuses auto with several cards
 \t--nee-bound\tMax media crossings along shadow rays (default: 4)

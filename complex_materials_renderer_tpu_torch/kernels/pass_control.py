@@ -337,7 +337,7 @@ class HostLoop:
         """The host read of one field of the control block."""
         return int(ctrl[field])
 
-    def loop(self, handle, ctrl, body):
+    def loop(self, handle, ctrl, body, times=1):
         while self.read(ctrl):
             body(handle)
 
@@ -385,7 +385,8 @@ class GraphCapture:
         kernel_counts(device)  # made before the capture, which only records
         self.body_pool = torch.cuda.MemPool()
         self.depth = 0
-        self.advances = 0
+        self.advances = 0  # pass-loop advances a replay runs
+        self.repeat = 1  # runs a replay makes of what is being captured
 
     def control(self, alive, ctrl, flags, handle=None, handles=None, **kw):
         pass_control(alive, ctrl, self.counts, flags | DEVICE_COUNT, handle=handle,
@@ -397,8 +398,14 @@ class GraphCapture:
     def conds(self, n: int):
         return [self.cond() for _ in range(n)]
 
-    def loop(self, handle, ctrl, body):
-        self._conditional(handle, True, body)
+    def loop(self, handle, ctrl, body, times=1):
+        """A WHILE node; ``times``: the runs of its body that a replay
+        makes, where the loop is counted (for the advances count)."""
+        outer, self.repeat = self.repeat, self.repeat * times
+        try:
+            self._conditional(handle, True, body)
+        finally:
+            self.repeat = outer
 
     def guard(self, handle, ctrl, body):
         self._conditional(handle, False, body)

@@ -6,7 +6,8 @@ global shards p * n_local ... (p + 1) * n_local - 1 of a ('sample',
 'tile') mesh laid out as in ``make_render_mesh``. That layout stands for
 the JAX package's ``make_global_render_mesh`` (its mesh over every
 device of the job), which has no function of its own here. Tracing is
-communication-free; each process renders its own shards, and one
+communication-free; each process queues its own shards' calls
+(``dispatch_cells``, one program over its cards), and one
 ``all_gather`` of equal-height padded bands (every process's shard
 images, after a small one that checks that every process holds as many
 shards) assembles the frame on every process. The mean over 'sample' is
@@ -38,11 +39,11 @@ import torch.distributed as dist
 
 from .sharding import (
     RenderMesh,
-    mesh_device,
     combine_cells,
+    dispatch_cells,
     make_render_mesh,
+    mesh_device,
     render_beauty_sharded,
-    render_cells,
     replicate,
     visible_devices,
 )
@@ -136,7 +137,7 @@ def render_multihost(camera, scene, accel, lights, resolution, num_samples: int,
         own.append((s, t))
     mesh = RenderMesh(tuple(tuple(row) for row in grid))
     tables = replicate((camera, scene, accel, lights), local)
-    images = render_cells(own, tables, resolution, num_samples, mesh, **kw)
+    images = dispatch_cells(own, tables, resolution, num_samples, mesh, **kw)
     mine = torch.stack([images[c].to(comm) for c in own]).contiguous()
     parts = [torch.empty_like(mine) for _ in range(world)]
     dist.all_gather(parts, mine)

@@ -1,9 +1,9 @@
 """Tile and sample sharding of the beauty pass.
 
 Counterpart of complex_materials_renderer_tpu/parallel/sharding.py, where
-``shard_map`` runs one shard per device of a ('sample', 'tile') mesh.
-Here a mesh is a small grid of ``torch.device``s and each shard is one
-call of the engine's own beauty pass:
+``shard_map`` runs one program over the devices of a ('sample', 'tile')
+mesh. Here a mesh is a small grid of ``torch.device``s and each shard is
+one call of the engine's own beauty pass:
 
 - the frame's rows are split over 'tile': shard t renders
   ``ceil(H / n_tile)`` rows from ``row_offset + t * rows_per_tile`` (the
@@ -13,16 +13,24 @@ call of the engine's own beauty pass:
   ``num_samples / n_sample`` samples from ``sample_offset + s *
   samples_per_dev``, which needs a stateless RNG (counter or ld); the
   partial images of a tile are averaged over 'sample', the ``pmean``;
-- the scene tables, accel, camera and lights are copied once to each
-  distinct device of the mesh.
+- the scene tables, accel, camera and lights are copied to each distinct
+  device of the mesh once: ``to_device`` keeps each copy while its source
+  lives and hands out the same copy at every call, so each card's
+  ``PassCache`` and CUDA graphs (render/megarender.py) serve every later
+  call over the same tables.
 
-A device may appear in the mesh more than once: each appearance is a
-shard of its own (the tests build 8 shards on the one CPU this way).
-The shards run one after the other, device by device, each under its
-device's guard. Shards of distinct cards in threads of their own
-rendered slower than in turn while the pass loop was host-bound
-(PERF.md); each shard's call is a CUDA graph now (ROADMAP P9, P5), not
-measured in threads since.
+A render is one program over the cards, as the ``shard_map`` is, in two
+steps. ``dispatch_cells`` queues every shard's call from this one thread,
+card by card, each under its card's guard on that card's current stream;
+on the card a call is a graph replay with its input copies and output
+clones and reads nothing back, so each card works while the next is given
+its calls. ``combine_cells`` then takes the mean over 'sample' and stacks
+the tiles on the mesh's first device, the images moving from card to
+card by peer copies. The caller's one host read, of the combined image,
+is the JAX package's ``block_until_ready``. A device may appear in the
+mesh more than once: each appearance is a shard of its own, queued in
+mesh order on its device's one stream, where it shares the device's
+counters and graphs (the tests build 8 shards on the one CPU this way).
 Seeds derive from the global (pixel, sample), so a tile split renders
 the single-device image bit for bit, and a sample split differs from it
 only by the order of the mean's sums.
@@ -39,9 +47,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from functools import partial
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 @dataclasses.dataclass(frozen=True)
 class RenderMesh:
@@ -102,24 +112,87 @@ def make_render_mesh(devices=None, sample_parallel: int = 1) -> RenderMesh:
                             for s in range(sample_parallel)))
 
 
+def _tensors(obj):
+    """Every tensor in ``obj``, through dataclasses and named tuples."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        for x in obj:
+            yield from _tensors(x)
+
+
+def _ref(x):
+    """A weak reference to ``x`` where it takes one, else ``x`` itself
+    behind the same call."""
+    try:
+        return weakref.ref(x)
+    except TypeError:
+        return lambda: x
+
+
+# {watched object: {(id(source), device): (the source's fields, copy)}}:
+# the copies ``to_device`` made. The watched object is the source, or,
+# where it takes no weak reference (a named tuple), its first tensor; the
+# entries go with it.
+_COPIES = WeakIdKeyDictionary()
+
+
+def _release(entries: dict) -> None:
+    """The copies' source is gone: their kept ``PassCache``s go too."""
+    from ..render import megarender
+
+    megarender.release([copy for _, copy in entries.values()])
+
+
+def _moved(obj, device):
+    """A new ``obj`` with its tensors copied to ``device``."""
+    def move(x):
+        return x.to(device, copy=True) if isinstance(x, torch.Tensor) else to_device(x, device)
+
+    if isinstance(obj, torch.Tensor):
+        return move(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: move(getattr(obj, f.name)) for f in dataclasses.fields(obj) if f.init
+        })
+    return type(obj)(*(move(x) for x in obj))
+
+
 def to_device(obj, device):
     """``obj`` with every tensor in it (through dataclasses and named
-    tuples) on ``device``; everything else is kept as it is."""
-    if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: to_device(getattr(obj, f.name), device)
-            for f in dataclasses.fields(obj) if f.init
-        })
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(to_device(x, device) for x in obj))
-    return obj
+    tuples) on ``device``; everything else is kept as it is. An ``obj``
+    already there is returned itself; otherwise its copy, made at the first
+    call and the same object at every later one until ``obj`` is dropped
+    (so that ``megarender.pass_cache`` finds the copy's graphs again)."""
+    device = torch.device(device)
+    if all(x.device == device for x in _tensors(obj)):
+        return obj
+    try:
+        weakref.ref(obj)
+        watched, fields = obj, None
+    except TypeError:
+        watched, fields = next(_tensors(obj)), tuple(_ref(x) for x in obj)
+    entries = _COPIES.get(watched)
+    if entries is None:
+        entries = _COPIES[watched] = {}
+        weakref.finalize(watched, _release, entries).atexit = False
+    key = (id(obj), device)
+    hit = entries.get(key)
+    if hit is not None and (fields is None or (
+            type(hit[1]) is type(obj)
+            and all(f() is x for f, x in zip(hit[0], obj)))):
+        return hit[1]
+    copy = _moved(obj, device)
+    entries[key] = (fields, copy)
+    return copy
 
 
 def replicate(objs, devices) -> dict:
     """{device: ``objs`` with their tensors on it} for each distinct
-    device of ``devices``."""
+    device of ``devices`` (``to_device``: the same objects at every call)."""
     return {d: [to_device(x, d) for x in objs] for d in dict.fromkeys(devices)}
 
 
@@ -141,16 +214,21 @@ def _beauty_fn(engine: str):
     return render_beauty
 
 
-def render_cells(cells, tables: dict, resolution, num_samples: int, mesh: RenderMesh,
-                 max_depth: int = 32, rr_depth: int = 16, nee_max_media: int = 4,
-                 rng_mode: str = "parity", row_offset: int = 0, full_resolution=None,
-                 sample_offset: int = 0, engine: str = "wavefront",
-                 direct: str = "scatter") -> dict:
-    """Render the shards ``cells`` ((s, t) pairs) of ``mesh`` from
+def _device_guard(device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def dispatch_cells(cells, tables: dict, resolution, num_samples: int, mesh: RenderMesh,
+                   max_depth: int = 32, rr_depth: int = 16, nee_max_media: int = 4,
+                   rng_mode: str = "parity", row_offset: int = 0, full_resolution=None,
+                   sample_offset: int = 0, engine: str = "wavefront",
+                   direct: str = "scatter") -> dict:
+    """Queue the shards ``cells`` ((s, t) pairs) of ``mesh`` from
     ``tables`` ({device: (camera, scene, accel, lights)}, see
     ``replicate``); returns {(s, t): (rows_per_tile, W, 3) float32 image
-    on the shard's device}, rendered device by device in the calling
-    thread."""
+    on the shard's device}. Every call is queued from this thread, device
+    by device, the shards of one device in mesh order on its current
+    stream; nothing is read back (``combine_cells`` collects)."""
     width, height = resolution
     full_resolution = tuple(full_resolution) if full_resolution else (width, height)
     n_tile = mesh.shape["tile"]
@@ -171,8 +249,7 @@ def render_cells(cells, tables: dict, resolution, num_samples: int, mesh: Render
         by_device.setdefault(mesh.devices[s][t], []).append((s, t))
     images: dict = {}
     for device, own in by_device.items():
-        guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-        with guard:
+        with _device_guard(device):
             for s, t in own:
                 images[(s, t)] = beauty(
                     *tables[device], (width, rows_per_tile), samples_per_dev,
@@ -188,7 +265,8 @@ def combine_cells(images: dict, n_sample: int, n_tile: int, height: int,
                   device) -> torch.Tensor:
     """The (height, W, 3) image on ``device`` from every shard's image:
     the mean over 'sample' of each tile, the tiles stacked, the pad rows
-    cropped."""
+    cropped. Images on other cards come over by peer copies, queued behind
+    their shards' calls; nothing is read back."""
     tiles = []
     for t in range(n_tile):
         parts = torch.stack([images[(s, t)].to(device) for s in range(n_sample)])
@@ -206,12 +284,13 @@ def render_beauty_sharded(camera, scene, accel, lights, resolution, num_samples:
     ``sample_offset`` place this call as a band and sample chunk of a
     larger render, as in the single-device passes. ``engine``: mega and
     binned run the megarender pass loop on each shard, any other the
-    wavefront loop. Returns a tensor on the mesh's first device."""
+    wavefront loop. Returns a tensor on the mesh's first device, queued
+    there: reading it is the call's one host read."""
     if mesh is None:
         mesh = make_render_mesh()
     cells = mesh_cells(mesh)
     tables = replicate((camera, scene, accel, lights), [mesh.devices[s][t] for s, t in cells])
-    images = render_cells(
+    images = dispatch_cells(
         cells, tables, resolution, num_samples, mesh,
         max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
         rng_mode=rng_mode, row_offset=row_offset, full_resolution=full_resolution,

@@ -44,6 +44,7 @@ import time
 import weakref
 from collections import OrderedDict
 from functools import lru_cache, partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -242,7 +243,7 @@ class PassPlan:
 
         ex = pc.executor(state.org.device, ex)
         if ex.capturing:
-            ex.advances += 1
+            ex.advances += ex.repeat
         else:
             pass_advances += 1
         dev = state.org.device
@@ -350,12 +351,21 @@ class PassCache:
 
 _CACHES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 _RECENT: OrderedDict = OrderedDict()
-CACHED_TABLES = 8  # table sets whose PassCache is kept (a sharded render holds one a card)
+CACHED_TABLES = 8  # table sets whose PassCache is kept, besides one a visible card
+
+
+@lru_cache(maxsize=1)
+def kept_tables() -> int:
+    """How many of the most recently used table sets keep their
+    ``PassCache``: CACHED_TABLES and one more a visible card, so that a
+    sharded render (a copy of the tables a card, parallel/sharding.py)
+    loses no card's graphs while it runs."""
+    return CACHED_TABLES + (torch.cuda.device_count() if torch.cuda.is_available() else 0)
 
 
 def pass_cache(scene, grid, lights) -> PassCache:
     """The ``PassCache`` of these tables (by identity): kept while a caller
-    holds it (``Renderer`` does) or while it is one of the CACHED_TABLES
+    holds it (``Renderer`` does) or while it is one of the ``kept_tables()``
     most recently used."""
     key = (id(scene), id(grid), id(lights))
     cache = _CACHES.get(key)
@@ -363,21 +373,52 @@ def pass_cache(scene, grid, lights) -> PassCache:
         cache = _CACHES[key] = PassCache(scene, grid, lights)
     _RECENT[key] = cache
     _RECENT.move_to_end(key)
-    while len(_RECENT) > CACHED_TABLES:
+    while len(_RECENT) > kept_tables():
         _RECENT.popitem(last=False)
     return cache
 
 
-# (call key, seconds) of every graph captured in this process.
+def release(tables) -> None:
+    """Let go of the kept ``PassCache`` of every table set that holds one of
+    ``tables`` (what a caller holds stays)."""
+    ids = {id(t) for t in tables}
+    for key in [k for k in _RECENT if ids.intersection(k)]:
+        del _RECENT[key]
+
+
+class Capture(NamedTuple):
+    key: tuple  # the call shape
+    device: torch.device
+    seconds: float
+
+
+# Every graph captured in this process.
 captures: list = []
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    """The stream that graphs of ``device`` are captured on, made once a
+    device (``torch.cuda.graph``'s default one lies on whichever card was
+    current when it was made)."""
+    device = torch.device(device)
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _CAPTURE_STREAMS[device]
 
 
 class CallGraph:
     """One call shape of a tile renderer captured as a CUDA graph: the
     call's inputs are copied into static buffers, the graph replayed and its
-    outputs copied out. The capture runs ``program(ex, *inputs)`` once under
-    ``torch.cuda.graph`` with a ``GraphCapture`` executor; a failed capture
-    raises."""
+    outputs copied out, all on the current stream of the graph's card. The
+    capture runs ``program(ex, *inputs)`` once on the card's
+    ``_capture_stream`` with a ``GraphCapture`` executor; a failed capture
+    raises. It waits for nothing: unlike ``torch.cuda.graph`` it neither
+    synchronises the card nor empties the allocator's cache (which frees
+    memory on every card and so waits for each), so a capture on one card
+    leaves the others working."""
 
     def __init__(self, key, program, inputs, device):
         # The program holds what its kernels read by address (the engines'
@@ -387,10 +428,13 @@ class CallGraph:
         self.ex = GraphCapture(device)
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.device(device), torch.cuda.graph(self.graph,
-                                                         capture_error_mode="relaxed"):
-            self.outputs = program(self.ex, *self.inputs)
-        captures.append((key, time.perf_counter() - t0))
+        with torch.cuda.device(device), torch.cuda.stream(_capture_stream(device)):
+            self.graph.capture_begin(capture_error_mode="relaxed")
+            try:
+                self.outputs = program(self.ex, *self.inputs)
+            finally:
+                self.graph.capture_end()
+        captures.append(Capture(key, torch.device(device), time.perf_counter() - t0))
 
     def __call__(self, inputs):
         global pass_advances
@@ -541,21 +585,35 @@ def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resoluti
     of one lane a pixel in parity mode: each sample's camera ray is drawn
     from the pixel's stream, which the pass carries to the next sample.
     The lanes are padded to whole blocks with dead lanes. ``ex``: the pass
-    plan's executor."""
+    plan's executor. The sample loop is a counted WHILE loop (the JAX
+    ``lax.scan``, megarender.py:557), so a graph captures its body once
+    however many samples a call takes."""
     dev = pixel_xy.device
+    ex = pc.executor(dev, ex)
     r = pixel_xy.shape[0]
     rp = -(-r // BLOCK) * BLOCK
+    # The loop's carry, updated in place: the summed radiance and the words.
     acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    words = rng_t.clone()
     # Pad lanes point at the bank's spill row r.
     lane0 = torch.cat([
         torch.arange(r, dtype=torch.int64, device=dev),
         torch.full((rp - r,), r, dtype=torch.int64, device=dev),
     ])
-    for _ in range(num_samples):
-        state = _pad_lanes(_camera_state(camera, pixel_xy, rng_t, full_resolution), rp)
-        rad_t, rng_t = advance(state, lane0, r, ex=ex)
-        acc = acc + rad_t
-    return acc, rng_t
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    ctrl = pc.new_ctrl(dev)
+
+    def one_sample(h):
+        state = _pad_lanes(_camera_state(camera, pixel_xy, words, full_resolution), rp)
+        rad_t, rng_next = advance(state, lane0, r, ex=ex)
+        acc.add_(rad_t)
+        words.copy_(rng_next)
+        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=num_samples, handle=h)
+
+    h = ex.cond()
+    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=num_samples, handle=h)
+    ex.loop(h, ctrl, one_sample, times=num_samples)
+    return acc, words
 
 
 def first_pass_state(camera: Camera, resolution, num_samples: int, rng_mode: str = "parity",

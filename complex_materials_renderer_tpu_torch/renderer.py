@@ -18,8 +18,9 @@ card in the TPU's role: the cluster backend and the megakernel on
 ``--spp-mode adaptive`` spreads the same total budget over the pixels by
 their measured noise (``render_adaptive``, the mega-family engines and a
 stateless RNG only). ``--shard auto`` with more than one visible card
-renders bands tile-sharded over all of them, card by card in this
-process (parallel/sharding.py).
+renders bands tile-sharded over all of them as one program over the
+cards (parallel/sharding.py): every card's call of a band is queued
+before the band's one host read, and each card replays its own graphs.
 """
 
 from __future__ import annotations
@@ -329,18 +330,31 @@ class Renderer:
             knobs["schedule_mode"] = "all"
         return partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
 
+    def _keep_shard_passes(self, devices) -> dict:
+        """This renderer's tables on each of ``devices`` (``replicate``: the
+        same copies at every call) with their pass loop caches held, as
+        ``_keep_passes`` holds one card's, so that every band and later
+        render replays each card's graphs."""
+        from .parallel.sharding import replicate
+        from .render.megarender import pass_cache
+
+        tables = replicate((self.camera, self.scene_arrays, self.accel, self.lights), devices)
+        self._shard_passes = {d: pass_cache(*objs[1:]) for d, objs in tables.items()}
+        return tables
+
     def _render_sharded(self, devices) -> np.ndarray:
         """The beauty pass in bands tile-sharded over ``devices``
         (renderer.py:240-288): each band is at most LANES_PER_PASS lanes a
         tile shard; the counter and ld modes also chunk the samples by
         PATHS_PER_PASS, parity keeps every sample of a band in one call so
-        that each pixel's stream stays sequential."""
+        that each pixel's stream stays sequential. A band's calls are all
+        queued (``dispatch_cells``) before its one host read, of the
+        combined image."""
         from .parallel.sharding import (
             combine_cells,
+            dispatch_cells,
             make_render_mesh,
             mesh_cells,
-            render_cells,
-            replicate,
         )
 
         opt = self.options
@@ -357,15 +371,14 @@ class Renderer:
             chunk = opt.num_samples
         acc = np.zeros((opt.height, opt.width, 3), np.float32)
         cells = mesh_cells(mesh)
-        # One copy of the tables on each card for the whole render.
-        tables = replicate((self.camera, self.scene_arrays, self.accel, self.lights), devices)
+        tables = self._keep_shard_passes([mesh.devices[s][t] for s, t in cells])
         with self.timer.phase("render"):
             for row0 in range(0, opt.height, band):
                 band_h = min(band, opt.height - row0)
                 done = 0
                 while done < opt.num_samples:
                     n = min(chunk, opt.num_samples - done)
-                    images = render_cells(
+                    images = dispatch_cells(
                         cells, tables, (opt.width, band_h), n, mesh,
                         max_depth=opt.max_depth, rr_depth=opt.rr_depth,
                         nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
@@ -373,7 +386,7 @@ class Renderer:
                         engine=engine, direct=opt.direct,
                     )
                     img = combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
-                                        band_h, devices[0])
+                                        band_h, mesh.devices[0][0])
                     acc[row0:row0 + band_h] += img.cpu().numpy() * (n / opt.num_samples)
                     done += n
         return acc

@@ -26,7 +26,10 @@ atol 1e-4 elsewhere; AOVs: the same sky pixels, values within atol 1e-5
 ``render_samples_mega`` at the uniform (pixel, sample) pairs equals
 ``render_beauty_mega`` bit for bit on every mega-family engine, and four
 logical shards on the one card render the single image bit for bit in
-parity (atol 1e-6 for a sample split in counter). The mega pass captured
+parity (atol 1e-6 for a sample split in counter); a sharded band over
+every visible card (or four logical shards on the one card) replays with
+no synchronising operation and no capture, and the sharded Renderer's
+second render captures nothing. The mega pass captured
 as a CUDA graph (render/megarender.py, the default executor on the card)
 equals the eager executor (the same steps driven from the host) bit for
 bit, with as many K1 launches (counted on the card); K1 with the pass
@@ -682,6 +685,70 @@ def test_sharded_cuda_tile_split_matches_single(cuda, engine):
     img = render_beauty_sharded(*objs, (48, 32), 4, rng_mode="counter", engine=engine, **kw,
                                 mesh=make_render_mesh([cuda] * 4, sample_parallel=2))
     np.testing.assert_allclose(img.cpu().numpy(), ref.cpu().numpy(), atol=1e-6)
+
+
+# --- The sharded render as one program over the cards -------------------------
+
+
+def _band_devices(cuda):
+    """Every visible card, or four logical shards on the one card there is."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [cuda] * 4
+
+
+def test_sharded_band_makes_no_sync_and_no_capture(cuda):
+    """A sharded band over every visible card (four logical shards on the
+    one card where there is one), called again after a first call: no
+    synchronising operation under sync-debug 'error' from the first card's
+    first launch to the combined image, no graph captured on any card, the
+    first call's image."""
+    from complex_materials_renderer_tpu_torch.parallel.sharding import (
+        make_render_mesh,
+        render_beauty_sharded,
+    )
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    r = _gembox("cuda")
+    objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+    mesh = make_render_mesh(_band_devices(cuda))
+
+    def band():
+        return render_beauty_sharded(*objs, (48, 32), 2, mesh=mesh, engine="mega", max_depth=8,
+                                     rr_depth=4)
+
+    want = band().cpu()
+    n_captures = len(mr.captures)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = band()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(mr.captures) == n_captures
+    assert torch.equal(img.cpu(), want)
+
+
+@pytest.mark.parametrize("rng", ["parity", "counter"])
+def test_sharded_renderer_replays_and_matches_single(cuda, monkeypatch, rng):
+    """The Renderer's sharded band loop over every visible card (four
+    logical shards on the one card where there is one) equals ``--shard
+    none`` bit for bit in parity (atol 1e-6 in counter), and its second
+    render captures no graph on any card and gives the same image."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    single = _gembox("cuda", rng=rng).render()
+    monkeypatch.setattr(Renderer, "_shard_devices", lambda self: _band_devices(cuda))
+    r = _gembox("cuda", rng=rng, shard="auto")
+    first = r.render()
+    n_captures = len(mr.captures)
+    second = r.render()
+    assert len(mr.captures) == n_captures
+    np.testing.assert_array_equal(first, second)
+    if rng == "parity":
+        np.testing.assert_array_equal(first, single)
+    else:
+        np.testing.assert_allclose(first, single, atol=1e-6)
 
 
 # --- The mega pass as one device program -------------------------------------

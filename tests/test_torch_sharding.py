@@ -142,11 +142,51 @@ def _spy_replicate(monkeypatch) -> list:
     return copies
 
 
-def test_distinct_devices_render_in_turn(setup, grid, monkeypatch):
-    """Two distinct devices ("cpu" and "cpu:0") each get one copy of the
-    tables, and each shard renders from its own device's copy, device by
-    device in the calling thread; the image is the single one bit for
-    bit."""
+TWO_DEVICES = ["cpu", "cpu:0"]  # two devices to the mesh: tables copied to the second
+
+
+def _fresh_tables():
+    """(camera, scene, grid, lights) of the helpers scene, made for one test
+    alone, so that no other test holds them or their copies."""
+    tris, mats, media = make_test_scene()
+    scene = make_scene_arrays(tris, mats, MediaTable(*media), 1.0, 1, device="cpu")
+    grid = device_cluster_grid(build_clusters(tris, mats, cluster_size=8), "cpu")
+    return port_camera(), scene, grid, port_lights()
+
+
+def test_every_shard_dispatched_before_collect(setup, grid, monkeypatch):
+    """dispatch then collect: every shard's call is made before
+    ``combine_cells`` takes the first image, and the image is the single
+    render's bit for bit."""
+    scene, _, cam, lights = setup
+    events = []
+    real_mega = render_beauty_mega
+    real_combine = sharding.combine_cells
+
+    def mega(*a, **k):
+        events.append(("call", k["row_offset"]))
+        return real_mega(*a, **k)
+
+    def combine(*a, **k):
+        events.append(("combine", None))
+        return real_combine(*a, **k)
+
+    monkeypatch.setattr("complex_materials_renderer_tpu_torch.render.megarender."
+                        "render_beauty_mega", mega)
+    monkeypatch.setattr(sharding, "combine_cells", combine)
+    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 1, engine="mega",
+                                mesh=make_render_mesh(TWO_DEVICES * 4), **MEGA_KW)
+    ref = real_mega(cam, scene, grid, lights, (16, 16), 1, **MEGA_KW)
+    np.testing.assert_array_equal(ref.numpy(), img.numpy())
+    assert [e for e, _ in events] == ["call"] * 8 + ["combine"]
+
+
+@pytest.mark.parametrize("sample_parallel,rng", [(1, "parity"), (2, "counter")])
+def test_shards_of_one_device_keep_mesh_order(setup, grid, monkeypatch, sample_parallel, rng):
+    """The shards of each device are queued together, in mesh order
+    (sample-major), each from its own device's tables: the source's on
+    "cpu", which holds them, a copy on "cpu:0"; the image is the single
+    render's (a sample split within atol 1e-6)."""
     import threading
 
     scene, _, cam, lights = setup
@@ -154,23 +194,141 @@ def test_distinct_devices_render_in_turn(setup, grid, monkeypatch):
     real_mega = render_beauty_mega
 
     def mega(*a, **k):
-        calls.append((k["row_offset"], a[2], threading.current_thread()))
+        calls.append((k["sample_offset"], k["row_offset"], a[2], threading.current_thread()))
         return real_mega(*a, **k)
 
     monkeypatch.setattr("complex_materials_renderer_tpu_torch.render.megarender."
                         "render_beauty_mega", mega)
     copies = _spy_replicate(monkeypatch)
-    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 1, engine="mega",
-                                mesh=make_render_mesh(["cpu", "cpu:0"] * 4), **MEGA_KW)
-    ref = real_mega(cam, scene, grid, lights, (16, 16), 1, **MEGA_KW)
-    np.testing.assert_array_equal(ref.numpy(), img.numpy())
-    assert len(copies) == 1 and sorted(map(str, copies[0])) == ["cpu", "cpu:0"]
+    mesh = make_render_mesh(TWO_DEVICES * 4, sample_parallel=sample_parallel)
+    img = render_beauty_sharded(cam, scene, grid, lights, (16, 16), 2, engine="mega",
+                                rng_mode=rng, mesh=mesh, **MEGA_KW)
+    ref = real_mega(cam, scene, grid, lights, (16, 16), 2, rng_mode=rng, **MEGA_KW)
+    np.testing.assert_allclose(ref.numpy(), img.numpy(), atol=0 if rng == "parity" else 1e-6)
+    assert len(copies) == 1 and sorted(map(str, copies[0])) == TWO_DEVICES
     tables = {str(d): objs[2] for d, objs in copies[0].items()}
-    # Tile t (2 rows from 2t) lies on "cpu" for even t, "cpu:0" for odd.
-    assert [row for row, _, _ in calls] == [0, 4, 8, 12, 2, 6, 10, 14]
-    for row, g, thread in calls:
-        assert g is tables["cpu" if row % 4 == 0 else "cpu:0"]
+    assert tables["cpu"] is grid
+    assert tables["cpu:0"] is not grid
+    assert tables["cpu:0"].run_rows.data_ptr() != grid.run_rows.data_ptr()
+    n_tile = mesh.shape["tile"]
+    rows = 16 // n_tile
+    cells = [(s, t) for s in range(sample_parallel) for t in range(n_tile)]
+    # Shard (s, t) lies on "cpu" when its flat index is even.
+    want = [c for c in cells if (c[0] * n_tile + c[1]) % 2 == 0] + \
+           [c for c in cells if (c[0] * n_tile + c[1]) % 2 == 1]
+    assert [(so, ro) for so, ro, _, _ in calls] == [(s * (2 // sample_parallel), t * rows)
+                                                    for s, t in want]
+    for (s, t), (_, _, g, thread) in zip(want, calls):
+        assert g is tables["cpu" if (s * n_tile + t) % 2 == 0 else "cpu:0"]
         assert thread is threading.current_thread()
+
+
+def _count_copies(monkeypatch) -> list:
+    """Record every object that ``to_device`` copies."""
+    made = []
+    real = sharding._moved
+
+    def moved(obj, device):
+        made.append((type(obj).__name__, str(device)))
+        return real(obj, device)
+
+    monkeypatch.setattr(sharding, "_moved", moved)
+    return made
+
+
+def _count_pass_caches(monkeypatch) -> list:
+    """Record every ``PassCache`` made."""
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    made = []
+
+    class Counted(mr.PassCache):
+        def __init__(self, *a):
+            made.append(a)
+            super().__init__(*a)
+
+    monkeypatch.setattr(mr, "PassCache", Counted)
+    return made
+
+
+@pytest.mark.parametrize("entry", ["render_beauty_sharded", "Renderer.render", "render_multihost"])
+def test_second_call_reuses_device_tables(monkeypatch, tmp_path, entry):
+    """A second sharded call over the same tables copies nothing and makes
+    no ``PassCache``: ``replicate`` gives the same per-device objects and
+    ``pass_cache`` the same caches (on the card, the same CUDA graphs):
+    through ``render_beauty_sharded``, a ``Renderer``'s sharded band loop
+    and ``render_multihost`` in a one-process gloo world."""
+    import torch.distributed as dist
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    copies = _count_copies(monkeypatch)
+    caches = _count_pass_caches(monkeypatch)
+    if entry == "Renderer.render":
+        base, opt = _helpers_scene(rng="counter", num_samples=2)
+        monkeypatch.setattr(Renderer, "_shard_devices", lambda self: TWO_DEVICES * 2)
+        r = Renderer(base, dataclasses.replace(opt, shard="auto"))
+        objs = (r.camera, r.scene_arrays, r.accel, r.lights)
+        call = r.render
+    else:
+        objs = _fresh_tables()
+        kw = dict(rng_mode="counter", engine="mega", **MEGA_KW)
+        if entry == "render_beauty_sharded":
+            mesh = make_render_mesh(TWO_DEVICES * 2)
+
+            def call():
+                return render_beauty_sharded(*objs, (16, 16), 2, mesh=mesh, **kw).numpy()
+        else:
+            multihost.init_distributed("file://" + str(tmp_path / "store"), 1, 0)
+
+            def call():
+                return multihost.render_multihost(*objs, (16, 16), 2, devices=TWO_DEVICES, **kw)
+    try:
+        first = call()
+        tables = sharding.replicate(objs, [torch.device(d) for d in TWO_DEVICES])
+        passes = {d: mr.pass_cache(*t[1:]) for d, t in tables.items()}
+        assert copies and len(caches) == 2  # the copies on "cpu:0"; a cache a device
+        del copies[:], caches[:]
+        second = call()
+        again = sharding.replicate(objs, [torch.device(d) for d in TWO_DEVICES])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert copies == [] and caches == []
+    assert all(a is b for d in tables for a, b in zip(tables[d], again[d]))
+    assert tables[torch.device("cpu")] == list(objs)  # the device that holds them: themselves
+    assert all(mr.pass_cache(*again[d][1:]) is passes[d] for d in passes)
+    if entry == "Renderer.render":
+        assert all(r._shard_passes[d] is passes[d] for d in passes)
+    np.testing.assert_array_equal(first, second)
+
+
+def test_device_copies_released_with_their_source():
+    """The per-device copies live as long as their source: once the source
+    tables are dropped (and the pass loop no longer keeps their cache),
+    the copies and the cache of the copies go, though that cache was
+    used more recently."""
+    import gc
+    import weakref
+
+    from complex_materials_renderer_tpu_torch.render import megarender as mr
+
+    objs = _fresh_tables()
+    mesh = make_render_mesh(TWO_DEVICES)
+    render_beauty_sharded(*objs, (16, 16), 1, engine="mega", mesh=mesh, **MEGA_KW)
+    copy = sharding.replicate(objs, [torch.device("cpu", 0)])[torch.device("cpu", 0)]
+    assert all(a is not b for a, b in zip(copy, objs))
+    gone = [weakref.ref(copy[1]), weakref.ref(copy[2]), weakref.ref(mr.pass_cache(*copy[1:]))]
+    source = weakref.ref(objs[1])
+    del copy, objs
+    # The other table sets push the source's cache (the oldest) out of the
+    # ones kept; the copies' cache, touched last above, would stay.
+    others = [_fresh_tables() for _ in range(mr.kept_tables() - 1)]
+    for o in others:
+        mr.pass_cache(*o[1:])
+    gc.collect()
+    assert source() is None
+    assert [ref() for ref in gone] == [None, None, None]
 
 
 def test_sample_sharded_mega_counter(setup, grid):
