@@ -407,9 +407,19 @@ def device_counts() -> list:
 
     tot = [0, 0]
     for d in pc.counted_devices():
-        a, b = pc.device_counts(d).tolist()
+        a, b = pc.device_counts(d)[:2].tolist()
         tot = [tot[0] + a, tot[1] + b]
     return tot
+
+
+def sample_steps() -> int:
+    """The pass-loop advances (sample steps) that ran, counted on the
+    cards: the visits of the pass plan's "pass head" site, summed over the
+    cards (every executor counts its sites)."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    return sum(pc.site_counts(pc.device_counts(d)).get("pass head", [0])[pc.SITE_VISITS]
+               for d in pc.counted_devices())
 
 
 def card_kernel_counts() -> dict:
@@ -1189,10 +1199,13 @@ def state_head(st, k):
 
 def time_control(n=65536):
     """The control kernel against its plain version on the card at the
-    main path's width (the spill loop's flags), then timed: CUDA events
-    over CONTROL_REPS launches each, beside as many empty launches of its
-    grid and ``torch.count_nonzero`` of the lanes (the library call nearest
-    it). Returns (ms, plain ms, bound ms, library ms, max error)."""
+    main path's width (the spill loop's flags), each launch counting at a
+    site (SITE_COUNT, as every launch of the main path does) in a whole
+    counter block, compared in every field but the card's clock (the last
+    stamp and the sites' ns), then timed so: CUDA events over CONTROL_REPS
+    launches each, beside as many empty launches of its grid and
+    ``torch.count_nonzero`` of the lanes (the library call nearest it).
+    Returns (ms, plain ms, bound ms, library ms, max error)."""
     import ctypes
 
     import torch
@@ -1202,42 +1215,52 @@ def time_control(n=65536):
 
     g = torch.Generator(device="cuda").manual_seed(7)
     alive = torch.rand(n, device="cuda", generator=g) < 0.3
-    flags = pc.AFTER_K1 | pc.COND | pc.DEVICE_COUNT
+    site = pc.MAX_SITES - 1
+    flags = pc.AFTER_K1 | pc.COND | pc.DEVICE_COUNT | pc.SITE_COUNT
+    clock = torch.zeros(pc.CNT_LEN, dtype=torch.bool, device="cuda")
+    clock[pc.CNT_LAST] = True
+    clock[pc.CNT_SITES + pc.SITE_NS::pc.SITE_FIELDS] = True
     err = 0
     with uncounted():
         for f, kw in ((pc.INIT | pc.COND | pc.DEVICE_COUNT, dict(dim0=2, threshold=1024)),
                       (flags | pc.SET_LIVE, dict(advance=8, threshold=16384)),
+                      (pc.AFTER_K1 | pc.NOT_K1 | pc.DEVICE_COUNT, dict(advance=8)),
                       (pc.SET_FULL, {})):
-            ctrl_k = torch.tensor([3, 10, 1, 0, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
-            cnt_k = torch.zeros(2, dtype=torch.int64, device="cuda")
+            ctrl_k = torch.tensor([3, 10, 1, 777, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+            cnt_k = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device="cuda")
             ctrl_p, cnt_p = ctrl_k.clone(), cnt_k.clone()
-            pc.pass_control(alive, ctrl_k, cnt_k, f, **kw)
-            pc.pass_control_plain(alive, ctrl_p, cnt_p, f, **kw)
+            for _ in range(2):  # the second launch after a stamp of the first
+                pc.pass_control(alive, ctrl_k, cnt_k, f | pc.SITE_COUNT, site=site, **kw)
+                pc.pass_control_plain(alive, ctrl_p, cnt_p, f | pc.SITE_COUNT, site=site, **kw)
             torch.cuda.synchronize()
-            err = max(err, int((ctrl_k - ctrl_p).abs().max()), int((cnt_k - cnt_p).abs().max()))
+            diff = (cnt_k - cnt_p).masked_fill(clock, 0)
+            err = max(err, int((ctrl_k - ctrl_p).abs().max()), int(diff.abs().max()))
         if err:
             fail(f"the control kernel differs from its plain version by {err}")
         ctrl = pc.new_ctrl("cuda")
-        cnt = torch.zeros(2, dtype=torch.int64, device="cuda")
+        cnt = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device="cuda")
         lib = build.pass_control()
         stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
 
         def many(fn):
             return cuda_time(lambda i: [fn() for _ in range(CONTROL_REPS)], 5) / CONTROL_REPS
 
-        ms = many(lambda: pc.pass_control(alive, ctrl, cnt, flags, advance=8, threshold=1024))
+        def launch():
+            pc.pass_control(alive, ctrl, cnt, flags, advance=8, threshold=1024, site=site)
+
+        ms = many(launch)
         empty = many(lambda: lib.cmr_pass_control_empty(stream()))
-        ms2 = many(lambda: pc.pass_control(alive, ctrl, cnt, flags, advance=8, threshold=1024))
+        ms2 = many(launch)
         plain = cuda_time(lambda i: pc.pass_control_plain(alive, ctrl, cnt, flags, advance=8,
-                                                          threshold=1024), 20)
+                                                          threshold=1024, site=site), 20)
         library = many(lambda: torch.count_nonzero(alive))
-    nbytes = n + 4 * pc.CTRL_LEN * 2 + 16 * 2
+    nbytes = n + 4 * pc.CTRL_LEN * 2 + 16 * 2 + 8 * 2 * (pc.SITE_FIELDS + 1)
     bound = nbytes / PEAK_BYTES * 1e3
-    print(f"   control kernel ({n} lanes, flags AFTER_K1 | COND): {ms:.5f}, {ms2:.5f} ms a "
-          f"launch in a run of {CONTROL_REPS}; an empty launch of its grid {empty:.5f} ms; "
-          f"plain {plain:.4f} ms; torch.count_nonzero {library:.5f} ms; bound {nbytes} bytes "
-          f"= {bound:.6f} ms (bytes; its time is its launch latency); against its plain "
-          f"version: max difference {err}", flush=True)
+    print(f"   control kernel ({n} lanes, flags AFTER_K1 | COND | SITE_COUNT): {ms:.5f}, "
+          f"{ms2:.5f} ms a launch in a run of {CONTROL_REPS}; an empty launch of its grid "
+          f"{empty:.5f} ms; plain {plain:.4f} ms; torch.count_nonzero {library:.5f} ms; bound "
+          f"{nbytes} bytes = {bound:.6f} ms (bytes; its time is its launch latency); against "
+          f"its plain version (SITE_COUNT, all but the clock): max difference {err}", flush=True)
     return min(ms, ms2), plain, bound, library, float(err)
 
 
@@ -3012,8 +3035,8 @@ BENCH_SIZE = (256, 256, 8)  # bench.py's size of them: counter RNG, a warm and a
 class counted_calls:
     """Counts the calls of ``module.name`` (each with its keyword
     arguments) while the block runs: the passes of the single-device
-    loop (``render_beauty_mega``). The sample steps are
-    ``megarender.pass_advances``."""
+    loop (``render_beauty_mega``). The sample steps are counted on the
+    cards (``sample_steps``)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -3240,10 +3263,10 @@ def counted_render(scene, opt):
 
     r = Renderer(scene, dataclasses.replace(opt, num_samples=DEFAULT_COUNTED_SPP))
     reset_launch_counts()
-    steps = mr.pass_advances
+    steps = sample_steps()
     with counted_calls(mr, "render_beauty_mega") as passes:
         img, dt = timed_render(r.render)
-    return img, dt, passes.calls, launch_counts()["K1"], mr.pass_advances - steps
+    return img, dt, passes.calls, launch_counts()["K1"], sample_steps() - steps
 
 
 def checkpoint_check(scene, opt, blocks, tmp):
@@ -3432,7 +3455,6 @@ def acceptance_scenes(smi):
     goldens at 64x64@2 under the flip gate, then each (and showcase) at
     bench.py's size, counter RNG, one warm and one timed render with K1's
     launches and sample steps counted from 0."""
-    from complex_materials_renderer_tpu_torch.render import megarender as mr
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
     for name in ACCEPTANCE:
@@ -3445,10 +3467,10 @@ def acceptance_scenes(smi):
         with uncounted():
             r.render()  # warm-up
         reset_launch_counts()
-        steps = mr.pass_advances
+        steps = sample_steps()
         img, dt = timed_render(r.render)
         launches = launch_counts()["K1"]
-        n = mr.pass_advances - steps
+        n = sample_steps() - steps
         print(f"   {name} {w}x{h}@{spp} counter ({r.accel.num_clusters} clusters): {dt:.4f} s = "
               f"{w * h * spp / dt / 1e6:.4f} Mpaths/s; K1 launches {launches} over {n} sample "
               f"steps ({launches / max(n, 1):.2f} a step); image mean {float(np.mean(img)):.6f} "

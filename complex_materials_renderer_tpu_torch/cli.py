@@ -2,7 +2,9 @@
 
 Counterpart of complex_materials_renderer_tpu/cli.py: parse args -> load
 scene -> build the cluster grid -> render -> write <out>.hdr -> report
-timings. Run as ``python -m complex_materials_renderer_tpu_torch
+timings (the host phases, each render's band spans and the card's
+segments: K1 by width, sorts, the rest, K1's lane occupancy;
+utils/timing.py). Run as ``python -m complex_materials_renderer_tpu_torch
 scene.obj [flags]``; ``--device cpu`` runs the plain PyTorch versions of
 the kernels on the CPU, the default ``cuda`` the CUDA kernels.
 """

@@ -62,7 +62,7 @@ class RenderOptions:
     partition: str = "auto"  # auto | off | media — opaque/media cluster segregation
     quads: str = "auto"  # auto (merge coplanar tri pairs into quad slots) | off
     checkpoint: str = ""  # optional .npz accumulate-buffer checkpoint path
-    profile: str = ""  # optional dir for a torch.profiler trace of the render
+    profile: str = ""  # optional dir for a torch.profiler trace (misses graph conditional bodies)
     device: str = "cuda"  # cuda (the H100 kernels) | cpu (plain PyTorch)
 
     def clamp(self) -> "RenderOptions":
@@ -116,7 +116,10 @@ HELP_TEXT = """Complex Materials Renderer (PyTorch/CUDA) help:
 \t--checkpoint\tAccumulate-buffer checkpoint path (resumes if present;
 \t\trejects a checkpoint written with different settings, including -s,
 \t\tsince the buffer is pre-scaled by samples/num_samples)
-\t--profile\tDirectory for a torch.profiler trace of the render
+\t--profile\tDirectory for a torch.profiler trace of the render's host side
+\t\tand launches; on the card it misses the kernels inside the CUDA
+\t\tgraphs' conditional bodies, most of the work (the timing report's
+\t\tdevice segments cover them)
 \t--device\tcuda (default: the CUDA kernels) | cpu (plain PyTorch)
 Any bare argument is treated as the .obj scene path."""
 

@@ -31,10 +31,30 @@
 //                (with EXTENT: the last true byte's index + 1): rung i for
 //                edges[i] <= value < edges[i + 1], -1 for none, into the
 //                control block and each rung's condition into its IF node;
-//   DEVICE_COUNT counts[1] += 1 (the launches of this kernel that ran).
+//   DEVICE_COUNT counts[1] += 1 (the launches of this kernel that ran);
+//   SITE_COUNT   the counts of ``site`` in the counter block
+//                (pass_control.cuh CNT_*, SITE_*): one more visit; if the
+//                K1 launch just before ran, one more K1 launch, the live
+//                lanes it was launched on (the CTRL_NALIVE that the launch
+//                before left) and the lanes it covered (live_blocks x
+//                1024); and the nanoseconds since the card's last stamp
+//                (%globaltimer at this kernel's entry), which becomes the
+//                last stamp. Warp 1 reads what it needs at the kernel's
+//                entry, while the warps count, and adds after the count,
+//                beside thread 0's scalar updates.
 // It always counts the true bytes of ``alive[0, n)`` (CTRL_NALIVE): the
 // alive lanes, or any bool tensor a plan hands in (a round's listed heads,
 // a generation's listed pairs, the lanes a march step still runs).
+//
+// The stamp kernel (``pass_stamp``, one thread) opens and closes a call of a
+// captured program (render/megarender.py ``CallGraph``: START before the
+// inputs' copies and the replay, END after the outputs' clones): START makes its
+// %globaltimer the last stamp and the start of the ring's next call; END
+// charges the time since the last stamp to SITE_CALL_END, writes the
+// call's end, adds its interval to CNT_CALL_NS and clears the last stamp
+// (a host gap before the next call is charged to no site); CALIBRATE
+// writes it to CNT_CALIBRATE, which the host reads against its own clock
+// (utils/timing.py).
 
 // What bounds it: launch latency. It reads n bytes (65,536 on the main
 // path: 20 ns at 3.35 TB/s) and a few words; one block of 1024 threads sums
@@ -81,6 +101,10 @@ constexpr int PC_RUNGS = 2048;
 constexpr int PC_EXTENT = 4096;
 constexpr int PC_NOT_K1 = 8192;
 constexpr int PC_SET_RUNG_HANDLES = 16384;
+constexpr int PC_SITE_COUNT = 32768;
+constexpr int STAMP_START = 0;
+constexpr int STAMP_END = 1;
+constexpr int STAMP_CALIBRATE = 2;
 constexpr int PC_THREADS = 1024;
 constexpr int PC_MAX_RUNGS = 8;
 
@@ -91,15 +115,36 @@ struct Rungs {
   cudaGraphConditionalHandle handles[PC_MAX_RUNGS];
 };
 
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
 // The index + 1 of the highest nonzero byte of a little-endian word.
 __device__ __forceinline__ int top_byte(unsigned int w) { return ((31 - __clz(w)) >> 3) + 1; }
 
 __global__ void __launch_bounds__(PC_THREADS)
     pass_control(const unsigned char* __restrict__ alive, int n, int* ctrl, long long* counts,
-                 int flags, int dim0, int advance, int threshold, int cap,
+                 int flags, int dim0, int advance, int threshold, int cap, int site,
                  cudaGraphConditionalHandle handle, Rungs rungs) {
   __shared__ int warp_sums[PC_THREADS / 32];
   __shared__ int warp_ext[PC_THREADS / 32];
+  // SITE_COUNT: warp 1 reads the clock, the control block and the last
+  // stamp at entry, and adds the site's counts (a field a lane) after the
+  // __syncthreads below, beside thread 0's scalar updates. Only the control
+  // kernel writes the control block, and thread 0 writes it after that
+  // barrier, so these are the values the K1 launch before read.
+  const bool sites = (flags & PC_SITE_COUNT) && (threadIdx.x >> 5) == 1;
+  long long now = 0, last = 0;
+  int run = 0, live = 0, nalive = 0;
+  if (sites) {
+    if ((threadIdx.x & 31) == 0) now = global_ns();
+    run = ctrl[CTRL_RUN];
+    live = ctrl[CTRL_LIVE];
+    nalive = ctrl[CTRL_NALIVE];
+    last = counts[CNT_LAST];
+  }
   const bool extent = (flags & PC_EXTENT) != 0;  // uniform over the block
   int c = 0;
   int e = 0;  // the extent: index + 1 of the last true byte this thread saw
@@ -132,6 +177,21 @@ __global__ void __launch_bounds__(PC_THREADS)
     if ((threadIdx.x & 31) == 0) warp_ext[threadIdx.x >> 5] = e;
   }
   __syncthreads();
+  if (sites) {
+    now = __shfl_sync(0xffffffffu, now, 0);
+    const int f = threadIdx.x & 31;
+    if (f < SITE_FIELDS) {
+      const bool k1 = (flags & PC_AFTER_K1) && !(flags & PC_NOT_K1) && run != 0 && live > 0;
+      long long add = 1;
+      if (f == SITE_K1) add = k1 ? 1 : 0;
+      if (f == SITE_LIVE) add = k1 ? nalive : 0;
+      if (f == SITE_LANES) add = k1 ? (long long)live * CTRL_BLOCK_LANES : 0;
+      if (f == SITE_NS) add = last != 0 ? now - last : 0;
+      counts[CNT_SITES + site * SITE_FIELDS + f] += add;
+      if (f == SITE_NS) counts[CNT_LAST] = now;
+    }
+    return;
+  }
   if (threadIdx.x >= 32) return;
   c = warp_sums[threadIdx.x];
   if (extent) e = __reduce_max_sync(0xffffffffu, warp_ext[threadIdx.x]);
@@ -184,6 +244,26 @@ __global__ void __launch_bounds__(PC_THREADS)
 // held against.
 __global__ void __launch_bounds__(PC_THREADS) pass_control_empty() {}
 
+// A call's START or END stamp, or a CALIBRATE stamp (one thread).
+__global__ void pass_stamp(long long* counts, int which) {
+  const long long now = global_ns();
+  long long* call = counts + CNT_HEAD + 2 * (int)(counts[CNT_CALLS] % CNT_RING);
+  if (which == STAMP_START) {
+    counts[CNT_LAST] = now;
+    call[0] = now;
+  } else if (which == STAMP_END) {
+    long long* s = counts + CNT_SITES + SITE_CALL_END * SITE_FIELDS;
+    s[SITE_VISITS] += 1;
+    if (counts[CNT_LAST] != 0) s[SITE_NS] += now - counts[CNT_LAST];
+    counts[CNT_LAST] = 0;
+    call[1] = now;
+    counts[CNT_CALL_NS] += now - call[0];
+    counts[CNT_CALLS] += 1;
+  } else {
+    counts[CNT_CALIBRATE] = now;
+  }
+}
+
 }  // namespace cmr
 
 // The error for a stream whose capture is not active: invalidated (an
@@ -196,16 +276,17 @@ static int not_capturing(cudaStreamCaptureStatus status) {
 extern "C" {
 
 // Launch on ``stream``; returns cudaGetLastError() right after the launch.
-// ``alive``: n bytes; ``ctrl``: CTRL_LEN int32; ``counts``: 2 int64;
+// ``alive``: n bytes; ``ctrl``: CTRL_LEN int32; ``counts``: CNT_LEN int64;
 // ``edges``: n_rungs + 1 ints and ``rung_handles``: n_rungs handles (or
 // null), host arrays copied into the launch's parameters, for RUNGS; both
-// may be null when n_rungs is 0.
+// may be null when n_rungs is 0; ``site`` below MAX_SITES.
 int cmr_pass_control_launch(const unsigned char* alive, int n, int* ctrl, long long* counts,
-                            int flags, int dim0, int advance, int threshold, int cap,
+                            int flags, int dim0, int advance, int threshold, int cap, int site,
                             unsigned long long handle, int n_rungs, const int* edges,
                             const unsigned long long* rung_handles, void* stream) {
   cmr::Rungs rungs = {};
   if (n_rungs < 0 || n_rungs > cmr::PC_MAX_RUNGS) return (int)cudaErrorInvalidValue;
+  if (site < 0 || site >= cmr::MAX_SITES) return (int)cudaErrorInvalidValue;
   rungs.n = n_rungs;
   for (int i = 0; i < n_rungs; ++i) {
     rungs.edges[i] = edges[i];
@@ -213,8 +294,15 @@ int cmr_pass_control_launch(const unsigned char* alive, int n, int* ctrl, long l
   }
   if (n_rungs > 0) rungs.edges[n_rungs] = edges[n_rungs];
   cmr::pass_control<<<1, cmr::PC_THREADS, 0, (cudaStream_t)stream>>>(
-      alive, n, ctrl, counts, flags, dim0, advance, threshold, cap,
+      alive, n, ctrl, counts, flags, dim0, advance, threshold, cap, site,
       (cudaGraphConditionalHandle)handle, rungs);
+  return (int)cudaGetLastError();
+}
+
+// A stamp (``which``: 0 START, 1 END, 2 CALIBRATE) into the counter block.
+int cmr_pass_stamp_launch(long long* counts, int which, void* stream) {
+  if (which < cmr::STAMP_START || which > cmr::STAMP_CALIBRATE) return (int)cudaErrorInvalidValue;
+  cmr::pass_stamp<<<1, 1, 0, (cudaStream_t)stream>>>(counts, which);
   return (int)cudaGetLastError();
 }
 

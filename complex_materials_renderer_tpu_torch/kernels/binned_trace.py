@@ -506,8 +506,8 @@ def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
             regroup_into(keys, rays, state, tlo, tlim, lane)
             iters = torch.zeros((blocks,), dtype=torch.int32, device=dev)
             handles = ex.conds(len(rungs))
-            ex.control(keys[0] != EMPTY, round_ctrl, pc.SET_LIVE | pc.RUNGS, edges=edges,
-                       handles=handles)
+            ex.control(keys[0] != EMPTY, round_ctrl, pc.SET_LIVE | pc.RUNGS,
+                       site="binned regroup", edges=edges, handles=handles)
 
             def served(ks, st, it):
                 if ks is not keys:  # the plain round returns new tensors
@@ -527,20 +527,22 @@ def trace_binned(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
             stats[1] += 1
             stats[2] += iters.sum()
             stats[3] += round_ctrl[pc.CTRL_NALIVE]
-            ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, handle=h_round)
+            ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, site="K5 binned round",
+                       handle=h_round)
 
         h_round = ex.cond()
-        ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, handle=h_round)
+        ex.control(keys[0] != EMPTY, round_ctrl, pc.COND, site="K4 binned listing",
+                   handle=h_round)
         ex.loop(h_round, round_ctrl, one_round)
         bnd2 = payload_bound(payload, state_fields(state, payload, K_NEE), K_NEE)
         unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
         tlo.copy_(torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY)))
-        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=max_gens,
-                   handle=h_gen)
+        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP,
+                   site="binned generation end", cap=max_gens, handle=h_gen)
 
     h_gen = ex.cond()
-    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=max_gens,
-               handle=h_gen)
+    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP,
+               site="binned trace head", cap=max_gens, handle=h_gen)
     ex.loop(h_gen, gen_ctrl, generation)
 
     restored = torch.empty_like(state)

@@ -19,8 +19,9 @@ build takes seconds, not minutes):
   clusters of 2, 4, 8 and 16 CTAs);
 - ``pair_sweep.cu`` (K6), one per ``--nee-bound``, each holding every
   payload at every group size G;
-- ``pass_control.cu``, the mega pass's control kernel and the CUDA graph
-  conditional nodes of its loops (render/megarender.py ``PassPlan``).
+- ``pass_control.cu``, the mega pass's control kernel, its call stamps
+  and the CUDA graph conditional nodes of its loops (render/megarender.py
+  ``PassPlan``).
 
 Lists and K-lists live in registers, so their lengths are compile-time;
 a library is built for any value asked for, at its first use. Libraries
@@ -70,7 +71,7 @@ _KINDS = {
     "pair_sweep": ("pair_sweep.cu", ("CMR_NEE_MAX_MEDIA",), "cmr_pair_sweep_launch",
                    [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp] * 2),
     "pass_control": ("pass_control.cu", (), "cmr_pass_control_launch",
-                     [_vp, _ci, _vp, _vp] + [_ci] * 5 + [ctypes.c_ulonglong, _ci] + [_vp] * 3),
+                     [_vp, _ci, _vp, _vp] + [_ci] * 6 + [ctypes.c_ulonglong, _ci] + [_vp] * 3),
 }
 
 _lock = threading.Lock()
@@ -146,8 +147,9 @@ def _load(key, path: str):
         lib.cmr_graph_cond_begin.argtypes = [_vp, ctypes.c_ulonglong, _ci, _vp]
         lib.cmr_graph_cond_end.argtypes = [_vp]
         lib.cmr_graph_body_stream.argtypes = [_ci, ctypes.POINTER(_vp)]
+        lib.cmr_pass_stamp_launch.argtypes = [_vp, _ci, _vp]
         for name in ("cmr_pass_control_empty", "cmr_graph_cond_handle", "cmr_graph_cond_begin",
-                     "cmr_graph_cond_end", "cmr_graph_body_stream"):
+                     "cmr_graph_cond_end", "cmr_graph_body_stream", "cmr_pass_stamp_launch"):
             getattr(lib, name).restype = _ci
     if hasattr(lib, "cmr_binned_round_max_clusters"):
         lib.cmr_binned_round_max_clusters.argtypes = [_ci, _ci, ctypes.POINTER(_ci)]

@@ -304,8 +304,8 @@ def trace_pairs(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
         pair_ctrl = pc.new_ctrl(dev)
         handles = ex.conds(len(rungs))
         # The generation's pair count, on the card: K6's rung and its cover.
-        ex.control((keys != EMPTY).reshape(-1), pair_ctrl, pc.RUNGS, edges=edges,
-                   handles=handles)
+        ex.control((keys != EMPTY).reshape(-1), pair_ctrl, pc.RUNGS, site="K4 pair listing",
+                   edges=edges, handles=handles)
         seed = state[K_NEE] if spayload == "nee" else state[0]
         pair_rays, cid, orig = expand_pairs(keys, rays, seed, chunk_blocks)
         out = seed_state_bits(pair_rays, spayload, K_NEE)
@@ -327,12 +327,12 @@ def trace_pairs(grid: DeviceClusterGrid, media9: torch.Tensor, o: torch.Tensor,
         bnd2 = payload_bound(spayload, state, K_NEE)
         unresolved = (tlim != EMPTY) & (entry_of(tlim) < bnd2)
         tlo.copy_(torch.where(unresolved, tlim, torch.full_like(tlim, EMPTY)))
-        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=max_gens,
-                   handle=h_gen)
+        ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP,
+                   site="K6 pair sweep", cap=max_gens, handle=h_gen)
 
     h_gen = ex.cond()
-    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=max_gens,
-               handle=h_gen)
+    ex.control(tlo != EMPTY, gen_ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP,
+               site="pair trace head", cap=max_gens, handle=h_gen)
     ex.loop(h_gen, gen_ctrl, generation)
 
     if payload == "full":

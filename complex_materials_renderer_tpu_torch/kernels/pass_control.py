@@ -18,11 +18,26 @@ a CUDA graph whose loops are conditional nodes: ``cond_handle``,
 ``cond_begin`` and ``cond_end`` add them during a torch capture, and the
 control kernel sets their condition. The control kernel has no TPU
 counterpart; its bound is its launch latency (it reads one byte a lane).
+
+Every control launch names the plan step that ends there, a *site*
+(``Site``: a label such as "K1 at width w, cap c, phase i", "sort before
+phase i" or "pass head", what the step ran, and a K1 site's launch width),
+from a table filled as the plans are captured (``site_index``). The executors'
+launches count, always, in a block of counters on each card
+(``device_counts``, the layout ``CNT_*`` and ``SITE_*`` of
+``csrc/pass_control.cuh``): the K1 launches that ran and the control
+launches (indices 0 and 1), and for each site its visits, the K1 launches
+that ran just before it, their live lanes and the lanes they covered, and
+on the card the nanoseconds of the segments that end there (%globaltimer
+at each control launch's entry, less the last stamp). A captured call
+starts and ends with a stamp (``stamp``), which keeps its interval in a
+ring of the block. The CPU executor counts everything but the time.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,6 +63,36 @@ RUNGS = 2048  # the ladder rung that holds the count (or the extent) and its IF 
 EXTENT = 4096  # record the last true byte's index + 1; with RUNGS, the rungs' value
 NOT_K1 = 8192  # with AFTER_K1: the kernel before was not K1 (no K1 count)
 _SET_RUNG_HANDLES = 16384  # set by ``pass_control`` when it is given rung handles
+SITE_COUNT = 32768  # count the launch at its site
+
+# The counter block of a device (int64; csrc/pass_control.cuh CNT_*, SITE_*).
+CNT_K1, CNT_CONTROL, CNT_LAST, CNT_CALLS, CNT_CALL_NS, CNT_CALIBRATE = 0, 1, 2, 3, 4, 5
+CNT_HEAD = 8
+CNT_RING = 128  # call intervals kept, (start, end) ns from CNT_HEAD
+CNT_SITES = CNT_HEAD + 2 * CNT_RING
+SITE_VISITS, SITE_K1, SITE_LIVE, SITE_LANES, SITE_NS = range(5)
+SITE_FIELDS = 5
+MAX_SITES = 512
+CNT_LEN = CNT_SITES + MAX_SITES * SITE_FIELDS
+STAMP_START, STAMP_END, STAMP_CALIBRATE = 0, 1, 2
+
+
+class Site(NamedTuple):
+    """A plan step that ends at a control launch: its ``label``, what its
+    segment ran (``kind``: 'k1', 'sort' or 'other') and, for a K1 site,
+    the width K1 is launched at."""
+
+    label: str
+    kind: str = "other"
+    width: Optional[int] = None
+
+
+# The site table, in the order the plans named them. Site 0 takes the
+# launches that name none; site 1 the tail of a captured call, from its last
+# control launch to its end stamp (``stamp``).
+SITE_OTHER, SITE_CALL_END = 0, 1
+_SITES: list = [Site("other"), Site("call end")]
+_SITE_INDEX: dict = {site.label: i for i, site in enumerate(_SITES)}
 
 _COUNTS: dict = {}
 _KERNEL_COUNTS: dict = {}
@@ -67,14 +112,73 @@ def _device_key(device) -> str:
     return str(device)
 
 
+def site_index(site) -> int:
+    """The index of ``site`` (a ``Site``, a label of an 'other' site, or an
+    index already), added to the table at its first use; raises when the
+    table is full (nothing is dropped) or when the label stands for
+    another site already."""
+    if isinstance(site, int):
+        return site
+    if isinstance(site, str):
+        site = Site(site)
+    i = _SITE_INDEX.get(site.label)
+    if i is None:
+        if len(_SITES) >= MAX_SITES:
+            raise RuntimeError(f"the pass control's site table is full ({MAX_SITES} sites); "
+                               f"cannot add {site.label!r}")
+        i = _SITE_INDEX[site.label] = len(_SITES)
+        _SITES.append(site)
+    elif _SITES[i] != site:
+        raise ValueError(f"site {site.label!r} is {_SITES[i]}, not {site}")
+    return i
+
+
+def sites() -> list:
+    """Each ``Site`` so far, by index."""
+    return list(_SITES)
+
+
+def site_labels() -> list:
+    """The label of each site so far, by index."""
+    return [site.label for site in _SITES]
+
+
 def device_counts(device) -> torch.Tensor:
-    """The (2,) int64 counts on ``device`` of the K1 launches that ran and
-    of the control launches, made by the launches flagged DEVICE_COUNT
-    (graph replays and the CPU executor; render/megarender.py)."""
+    """The (CNT_LEN,) int64 counter block on ``device``: [0] the K1 launches
+    that ran and [1] the control launches, made by the launches flagged
+    DEVICE_COUNT (graph replays and the CPU executor; render/megarender.py);
+    then the call ring and the sites' counts (``site_counts``), made by the
+    launches flagged SITE_COUNT (every executor's) and by ``stamp``."""
     key = _device_key(device)
     if key not in _COUNTS:
-        _COUNTS[key] = torch.zeros(2, dtype=torch.int64, device=key)
+        _COUNTS[key] = torch.zeros(CNT_LEN, dtype=torch.int64, device=key)
     return _COUNTS[key]
+
+
+def site_counts(block) -> dict:
+    """{label: [visits, K1 launches that ran, their live lanes, the lanes
+    they covered, ns]} of the sites in ``block``, a counter block or a
+    prefix of one, on the host (a list, or a tensor read here)."""
+    block = block.tolist() if isinstance(block, torch.Tensor) else list(block)
+    out = {}
+    for i, label in enumerate(site_labels()):
+        base = CNT_SITES + i * SITE_FIELDS
+        fields = block[base:base + SITE_FIELDS]
+        if len(fields) == SITE_FIELDS and any(fields):
+            out[label] = fields
+    return out
+
+
+def call_intervals(block, since: int = 0) -> list:
+    """The (start, end) ns of the calls stamped in ``block`` (on the host)
+    from call number ``since`` on, as far as the ring still holds them."""
+    block = block.tolist() if isinstance(block, torch.Tensor) else list(block)
+    calls = block[CNT_CALLS]
+    out = []
+    for i in range(max(since, calls - CNT_RING), calls):
+        j = CNT_HEAD + 2 * (i % CNT_RING)
+        out.append((block[j], block[j + 1]))
+    return out
 
 
 def kernel_counts(device) -> torch.Tensor:
@@ -132,12 +236,22 @@ def rung_edges(rungs) -> list:
 
 def pass_control_plain(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor,
                        flags: int, dim0: int = 0, advance: int = 0, threshold: int = 0,
-                       cap: int = 0, edges=()) -> None:
+                       cap: int = 0, edges=(), site: int = SITE_OTHER) -> None:
     """The control kernel in plain PyTorch, on any device: updates ``ctrl``
     (and ``counts``) in place from the true bytes of ``alive``, with tensor
-    operations only (no value goes to the host)."""
+    operations only (no value goes to the host). A site's nanoseconds stay
+    0: there is no card's clock to read."""
     n = alive.shape[0]
     n_alive = alive.sum(dtype=torch.int32)
+    if flags & SITE_COUNT:
+        k1 = (ctrl[CTRL_RUN] != 0) & (ctrl[CTRL_LIVE] > 0) if flags & AFTER_K1 \
+            and not flags & NOT_K1 else torch.zeros((), dtype=torch.bool, device=ctrl.device)
+        k1 = k1.to(torch.int64)
+        base = CNT_SITES + site * SITE_FIELDS
+        counts[base + SITE_VISITS] += 1
+        counts[base + SITE_K1] += k1
+        counts[base + SITE_LIVE] += k1 * ctrl[CTRL_NALIVE].to(torch.int64)
+        counts[base + SITE_LANES] += k1 * ctrl[CTRL_LIVE].to(torch.int64) * BLOCK
     if flags & AFTER_K1:
         ran = (ctrl[CTRL_RUN] != 0) & (ctrl[CTRL_LIVE] > 0)
         ctrl[CTRL_DIM0] = ctrl[CTRL_DIM0] + ran.to(torch.int32) * advance
@@ -182,29 +296,36 @@ def pass_control_plain(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Te
 
 def pass_control(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor, flags: int,
                  dim0: int = 0, advance: int = 0, threshold: int = 0, cap: int = 0,
-                 edges=(), handle=None, handles=None) -> None:
+                 edges=(), handle=None, handles=None, site: int = SITE_OTHER) -> None:
     """Update the control block ``ctrl`` after a sort or a launch (the
     ``flags`` above) from the true bytes of the one-dimensional bool tensor
     ``alive``. ``handle``: a graph conditional handle (``cond_handle``) that
     a COND launch also sets; ``edges`` and ``handles``: a RUNGS launch's
     ladder (``rung_edges``) and a handle per rung, each set to whether its
-    rung holds the value. CUDA tensors launch the kernel of
-    ``csrc/pass_control.cu`` on the current stream (counted in
-    ``pass_control.launches`` unless the stream is being captured), CPU
-    tensors run ``pass_control_plain``."""
+    rung holds the value. ``counts``: a counter block (``device_counts``'
+    layout), where a SITE_COUNT launch also counts at ``site``. CUDA
+    tensors launch the kernel of ``csrc/pass_control.cu`` on the current
+    stream (counted in ``pass_control.launches`` unless the stream is being
+    captured), CPU tensors run ``pass_control_plain``."""
     if flags & RUNGS and not 2 <= len(edges) <= MAX_RUNGS + 1:
         raise ValueError(f"a ladder takes 1 to {MAX_RUNGS} rungs, got edges {list(edges)}")
+    if not 0 <= site < MAX_SITES:
+        raise ValueError(f"site {site} is not below {MAX_SITES}")
+    if tuple(counts.shape) != (CNT_LEN,):
+        raise ValueError(f"counts must be a counter block of shape ({CNT_LEN},), "
+                         f"got {tuple(counts.shape)}")
     if alive.device.type == "cpu":
         if handle is not None or any(h is not None for h in handles or ()):
             raise ValueError("a graph conditional handle needs CUDA tensors")
-        pass_control_plain(alive, ctrl, counts, flags, dim0, advance, threshold, cap, edges)
+        pass_control_plain(alive, ctrl, counts, flags, dim0, advance, threshold, cap, edges,
+                           site)
         return
     from . import build
 
     dev = alive.device
     for name, t, dt, shape in (("alive", alive, torch.bool, alive.shape),
                                ("ctrl", ctrl, torch.int32, (CTRL_LEN,)),
-                               ("counts", counts, torch.int64, (2,))):
+                               ("counts", counts, torch.int64, (CNT_LEN,))):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != tuple(shape) \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor of shape "
@@ -226,7 +347,7 @@ def pass_control(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor, 
         stream = torch.cuda.current_stream(dev)
         err = fn(ctypes.c_void_p(alive.data_ptr()), alive.shape[0],
                  ctypes.c_void_p(ctrl.data_ptr()), ctypes.c_void_p(counts.data_ptr()),
-                 flags, int(dim0), int(advance), int(threshold), int(cap),
+                 flags, int(dim0), int(advance), int(threshold), int(cap), int(site),
                  0 if handle is None else handle, n_rungs, c_edges, c_handles,
                  ctypes.c_void_p(stream.cuda_stream))
         if not torch.cuda.is_current_stream_capturing():
@@ -236,6 +357,19 @@ def pass_control(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Tensor, 
 
 
 pass_control.launches = 0  # CUDA launches made by pass_control outside a capture
+
+
+def stamp(device, which: int) -> None:
+    """Launch a STAMP_START, STAMP_END or STAMP_CALIBRATE stamp into the
+    counter block of the card ``device``, on its current stream."""
+    from . import build
+
+    counts = device_counts(device)
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device)
+        _check(build.pass_control().cmr_pass_stamp_launch(
+            ctypes.c_void_p(counts.data_ptr()), which, ctypes.c_void_p(stream.cuda_stream)),
+            "a stamp launch")
 
 
 def _check(err: int, what: str) -> None:
@@ -317,9 +451,12 @@ class HostLoop:
         self.counts = device_counts(device)
         self.device_ctrl = device_ctrl
 
-    def control(self, alive, ctrl, flags, handle=None, handles=None, **kw):
+    def control(self, alive, ctrl, flags, site=SITE_OTHER, handle=None, handles=None, **kw):
+        """A control launch that ends the step ``site`` (a ``Site``, a label
+        or an index: ``site_index``)."""
         pass_control(alive, ctrl, self.counts,
-                     flags | (DEVICE_COUNT if self.device_ctrl else 0), **kw)
+                     flags | SITE_COUNT | (DEVICE_COUNT if self.device_ctrl else 0),
+                     site=site_index(site), **kw)
 
     def cond(self):
         return None
@@ -337,7 +474,7 @@ class HostLoop:
         """The host read of one field of the control block."""
         return int(ctrl[field])
 
-    def loop(self, handle, ctrl, body, times=1):
+    def loop(self, handle, ctrl, body):
         while self.read(ctrl):
             body(handle)
 
@@ -385,12 +522,10 @@ class GraphCapture:
         kernel_counts(device)  # made before the capture, which only records
         self.body_pool = torch.cuda.MemPool()
         self.depth = 0
-        self.advances = 0  # pass-loop advances a replay runs
-        self.repeat = 1  # runs a replay makes of what is being captured
 
-    def control(self, alive, ctrl, flags, handle=None, handles=None, **kw):
-        pass_control(alive, ctrl, self.counts, flags | DEVICE_COUNT, handle=handle,
-                     handles=handles, **kw)
+    def control(self, alive, ctrl, flags, site=SITE_OTHER, handle=None, handles=None, **kw):
+        pass_control(alive, ctrl, self.counts, flags | DEVICE_COUNT | SITE_COUNT, handle=handle,
+                     handles=handles, site=site_index(site), **kw)
 
     def cond(self):
         return cond_handle(torch.cuda.current_stream(self.device))
@@ -398,14 +533,8 @@ class GraphCapture:
     def conds(self, n: int):
         return [self.cond() for _ in range(n)]
 
-    def loop(self, handle, ctrl, body, times=1):
-        """A WHILE node; ``times``: the runs of its body that a replay
-        makes, where the loop is counted (for the advances count)."""
-        outer, self.repeat = self.repeat, self.repeat * times
-        try:
-            self._conditional(handle, True, body)
-        finally:
-            self.repeat = outer
+    def loop(self, handle, ctrl, body):
+        self._conditional(handle, True, body)
 
     def guard(self, handle, ctrl, body):
         self._conditional(handle, False, body)

@@ -145,10 +145,10 @@ def _trace_closest_bvh(o, d, bvh: DeviceBVH, t_min, t_max, active=None, ex=None)
             best_v.copy_(torch.where(upd, v, best_v))
         nxt = torch.where(box_hit & ~is_leaf, left, miss)
         cur.copy_(torch.where(live, nxt, torch.full_like(nxt, -1)))
-        ex.control(cur >= 0, ctrl, pc.COND, handle=h)
+        ex.control(cur >= 0, ctrl, pc.COND, site="BVH walk step", handle=h)
 
     h = ex.cond()
-    ex.control(cur >= 0, ctrl, pc.COND, handle=h)
+    ex.control(cur >= 0, ctrl, pc.COND, site="BVH walk head", handle=h)
     ex.loop(h, ctrl, walk_step)
     got = best_slot >= 0
     prim = torch.where(got, bvh.tri_index[torch.clamp(best_slot, min=0)],

@@ -124,7 +124,7 @@ def guarded(ex, cond: torch.Tensor, out: torch.Tensor, fn) -> torch.Tensor:
         out.copy_(fn())
 
     h = ex.cond()
-    ex.control(cond, ctrl, pc.COND, handle=h)
+    ex.control(cond, ctrl, pc.COND, site="binned guard", handle=h)
     ex.guard(h, ctrl, body)
     return out
 
@@ -221,10 +221,12 @@ def bounce_kern(make_tracer, bounce, ld: bool, prepare):
         def body(h):
             for x, y in zip(st, bounce(ex, st, tracer)):
                 x.copy_(y)
-            ex.control(st.alive, loop_ctrl, flags | pc.ITER_STEP, cap=max_iters, handle=h)
+            ex.control(st.alive, loop_ctrl, flags | pc.ITER_STEP, site="binned bounce step",
+                       cap=max_iters, handle=h)
 
         h = ex.cond()
-        ex.control(st.alive, loop_ctrl, flags | pc.ITER_RESET, cap=max_iters, handle=h)
+        ex.control(st.alive, loop_ctrl, flags | pc.ITER_RESET, site="binned bounce head",
+                   cap=max_iters, handle=h)
         ex.loop(h, loop_ctrl, body)
         write_back(state, st, ld)
         return state

@@ -117,7 +117,7 @@ def sample_direct_light(position, scene: SceneArrays, accel, lights: Lights, act
     for _ in range(max_media):
         run = active & (remaining > 0.0)
         h = ex.cond()
-        ex.control(run, ctrl, pc.COND, handle=h)
+        ex.control(run, ctrl, pc.COND, site="NEE march guard", handle=h)
         ex.guard(h, ctrl, partial(march_step, run))
     trans = torch.where((remaining > 0.0)[:, None], torch.zeros_like(trans), trans)
     return light_value * trans
@@ -160,7 +160,7 @@ def default_tracer(scene: SceneArrays, accel, lights: Lights, nee_max_media: int
             seg.copy_(torch.where(h.hit, h.t, torch.full_like(h.t, T_MAX)))
 
         h = run.cond()
-        run.control(transmitted, ctrl, pc.COND, handle=h)
+        run.control(transmitted, ctrl, pc.COND, site="distance trace guard", handle=h)
         run.guard(h, ctrl, dist_trace)
         return seg
 
@@ -357,10 +357,12 @@ def _while_alive(ex, state: _State, step, cap: int = 0, threshold: int = 0) -> N
 
     def body(h):
         _step_into(state, step)
-        ex.control(state.alive, ctrl, flags | pc.ITER_STEP, handle=h, **kw)
+        ex.control(state.alive, ctrl, flags | pc.ITER_STEP, site="wavefront bounce step",
+                   handle=h, **kw)
 
     h = ex.cond()
-    ex.control(state.alive, ctrl, flags | pc.ITER_RESET, handle=h, **kw)
+    ex.control(state.alive, ctrl, flags | pc.ITER_RESET, site="wavefront loop head", handle=h,
+               **kw)
     ex.loop(h, ctrl, body)
 
 
@@ -425,10 +427,12 @@ def _wavefront_program(ex, *inputs, scene, accel, lights, width, height, num_sam
         acc.add_(rad)
         words.copy_(rng_out)
         s_idx.add_(1)
-        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=num_samples, handle=h)
+        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP,
+                   site="wavefront sample loop step", cap=num_samples, handle=h)
 
     h = ex.cond()
-    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=num_samples, handle=h)
+    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP,
+               site="wavefront sample loop head", cap=num_samples, handle=h)
     ex.loop(h, ctrl, one_sample)
     img = (acc / float(num_samples)).reshape(height, width, 3)
     return img, words

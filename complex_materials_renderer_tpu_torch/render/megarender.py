@@ -193,12 +193,6 @@ def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_med
                          _phase_schedule(step, max_depth, schedule), scene, sortkey, max_depth)
 
 
-# Sample steps (pass-loop advances) run, counted on the host: one per call
-# of an advance outside a capture, and a graph's captured advances at each
-# replay.
-pass_advances = 0
-
-
 def _partition_into(state: MegaState, lane: torch.Tensor, scene: SceneArrays, sortkey: str):
     """``_partition_live`` in place: the same permutation written back into
     ``state`` and ``lane``, so that a loop body of a graph finds them at the
@@ -221,14 +215,29 @@ class PassPlan:
     pad lanes). ``dim0`` is the ld-mode Sobol dimension base; it lives in
     the control block, which advances it by 8 * max_iters after each K1
     call that ran. The executor ``ex`` runs the steps: ``HostLoop`` (the
-    default for the state's device) or ``GraphCapture``."""
+    default for the state's device) or ``GraphCapture``.
+
+    Each control launch names the step that ends there (its site,
+    ``kernels.pass_control.Site``): "pass head" (the camera rays and the
+    state's copies), the K1 sites "K1 at width w, cap c, phase i", "K1
+    spill at phase i, width w", "K1 dynamic bounce, width w" and "K1 hybrid
+    tail, width w", the sort sites "sort before phase i" (the sort, the
+    bank scatter and the shrink) and "sort of a dynamic bounce", and
+    "dynamic guard"; the binned and pair engines' bounce kernels take
+    "bounce" where K1 takes "K1", and their sites are not K1's."""
 
     def __init__(self, kern, dynamic, sched, scene, sortkey, max_depth):
         self.kern, self.dynamic, self.sched = kern, dynamic, sched
         self.scene, self.sortkey, self.max_depth = scene, sortkey, max_depth
         # Every engine's kernel reads the control block; only K1's calls
         # count as K1 launches.
-        self.after = pc.AFTER_K1 | (0 if getattr(kern, "is_k1", False) else pc.NOT_K1)
+        is_k1 = getattr(kern, "is_k1", False)
+        self.after = pc.AFTER_K1 | (0 if is_k1 else pc.NOT_K1)
+        self.kname, self.kkind = ("K1", "k1") if is_k1 else ("bounce", "other")
+
+    def _kern_site(self, label: str, width: int) -> pc.Site:
+        """The site of the control launch after the kernel at ``width``."""
+        return pc.Site(f"{self.kname} {label}", self.kkind, width)
 
     def prepare(self, device, lanes: int) -> None:
         """Build and allocate, before a capture, what the steps launch."""
@@ -239,13 +248,7 @@ class PassPlan:
 
     def __call__(self, state: MegaState, lane: torch.Tensor, bank_rows: int, dim0: int = 0,
                  ex=None):
-        global pass_advances
-
         ex = pc.executor(state.org.device, ex)
-        if ex.capturing:
-            ex.advances += ex.repeat
-        else:
-            pass_advances += 1
         dev = state.org.device
         # The steps update the state, the lanes and the banks in place.
         state = MegaState(*(x.clone() for x in state))
@@ -253,7 +256,7 @@ class PassPlan:
         rad_bank = torch.zeros((bank_rows + 1, 3), dtype=torch.float32, device=dev)
         rng_bank = torch.zeros((bank_rows + 1,), dtype=torch.int64, device=dev)
         ctrl = pc.new_ctrl(dev)
-        ex.control(state.alive, ctrl, pc.INIT, dim0=int(dim0))
+        ex.control(state.alive, ctrl, pc.INIT, site="pass head", dim0=int(dim0))
         if self.dynamic != "off":
             self._dynamic(ex, state, lane, ctrl)
         else:
@@ -265,32 +268,37 @@ class PassPlan:
     def _sorted_bounce(self, ex, state, lane, ctrl, cap):
         """Sort, bound K1 to the live leading blocks, run ``cap`` bounces."""
         _partition_into(state, lane, self.scene, self.sortkey)
-        ex.control(state.alive, ctrl, pc.SET_LIVE)
+        ex.control(state.alive, ctrl, pc.SET_LIVE,
+                   site=pc.Site("sort of a dynamic bounce", "sort"))
         ex.k1(self.kern, state, cap, ctrl)
 
     def _dynamic(self, ex, state, lane, ctrl):
         # The lanes keep their full width; K1 runs the live leading blocks.
+        w = state.alive.shape[0]
+        bounce_site = self._kern_site(f"dynamic bounce, width {w}", w)
         if self.dynamic == "all":
             def bounce(h):
                 self._sorted_bounce(ex, state, lane, ctrl, 1)
-                ex.control(state.alive, ctrl, self.after | pc.COND, advance=DRAWS_PER_BOUNCE,
-                           handle=h)
+                ex.control(state.alive, ctrl, self.after | pc.COND, site=bounce_site,
+                           advance=DRAWS_PER_BOUNCE, handle=h)
 
             h = ex.cond()
-            ex.control(state.alive, ctrl, pc.COND, handle=h)
+            ex.control(state.alive, ctrl, pc.COND, site="dynamic guard", handle=h)
             ex.loop(h, ctrl, bounce)
             return
 
         def guarded(h):
             self._sorted_bounce(ex, state, lane, ctrl, 1)
-            ex.control(state.alive, ctrl, self.after, advance=DRAWS_PER_BOUNCE)
+            ex.control(state.alive, ctrl, self.after, site=bounce_site, advance=DRAWS_PER_BOUNCE)
 
         for _ in range(8):  # hybrid: 8 guarded sorted bounces, then the tail
             h = ex.cond()
-            ex.control(state.alive, ctrl, pc.COND, handle=h)
+            ex.control(state.alive, ctrl, pc.COND, site="dynamic guard", handle=h)
             ex.guard(h, ctrl, guarded)
         self._sorted_bounce(ex, state, lane, ctrl, self.max_depth)
-        ex.control(state.alive, ctrl, self.after, advance=DRAWS_PER_BOUNCE * self.max_depth)
+        ex.control(state.alive, ctrl, self.after,
+                   site=self._kern_site(f"hybrid tail, width {w}", w),
+                   advance=DRAWS_PER_BOUNCE * self.max_depth)
 
     def _phases(self, ex, state, lane, ctrl, rad_bank, rng_bank):
         for i, (w, cap) in enumerate(self.sched):
@@ -304,23 +312,26 @@ class PassPlan:
                 rng_bank[drop] = state.rng[w:]
                 state = MegaState(*(x[:w] for x in state))
                 lane = lane[:w]
-                ex.control(state.alive, ctrl, pc.SET_FULL)
+                ex.control(state.alive, ctrl, pc.SET_FULL,
+                           site=pc.Site(f"sort before phase {i}", "sort"))
             ex.k1(self.kern, state, cap, ctrl)
             advance = DRAWS_PER_BOUNCE * cap
+            k1_site = self._kern_site(f"at width {w}, cap {cap}, phase {i}", w)
             if i + 1 == len(self.sched):
-                ex.control(state.alive, ctrl, self.after, advance=advance)
+                ex.control(state.alive, ctrl, self.after, site=k1_site, advance=advance)
                 continue
             # Paths that die slower than the schedule assumes keep bouncing
             # at this width until they fit the next one.
             next_w = self.sched[i + 1][0]
+            spill_site = self._kern_site(f"spill at phase {i}, width {w}", w)
 
-            def spill(h, state=state, cap=cap, advance=advance, next_w=next_w):
+            def spill(h, state=state, cap=cap, advance=advance, next_w=next_w, site=spill_site):
                 ex.k1(self.kern, state, cap, ctrl)
-                ex.control(state.alive, ctrl, self.after | pc.COND, advance=advance,
+                ex.control(state.alive, ctrl, self.after | pc.COND, site=site, advance=advance,
                            threshold=next_w, handle=h)
 
             h = ex.cond()
-            ex.control(state.alive, ctrl, self.after | pc.COND, advance=advance,
+            ex.control(state.alive, ctrl, self.after | pc.COND, site=k1_site, advance=advance,
                        threshold=next_w, handle=h)
             ex.loop(h, ctrl, spill)
         return state, lane
@@ -412,19 +423,22 @@ def _capture_stream(device) -> torch.cuda.Stream:
 class CallGraph:
     """One call shape of a tile renderer captured as a CUDA graph: the
     call's inputs are copied into static buffers, the graph replayed and its
-    outputs copied out, all on the current stream of the graph's card. The
-    capture runs ``program(ex, *inputs)`` once on the card's
+    outputs copied out, all on the current stream of the graph's card,
+    between a start and an end stamp (``pass_control.stamp``: the call's
+    interval on the card's clock, and the tail after its last control
+    launch). The capture runs ``program(ex, *inputs)`` once on the card's
     ``_capture_stream`` with a ``GraphCapture`` executor; a failed capture
-    raises. It waits for nothing: unlike ``torch.cuda.graph`` it neither
-    synchronises the card nor empties the allocator's cache (which frees
-    memory on every card and so waits for each), so a capture on one card
-    leaves the others working."""
+    raises. It waits for nothing: unlike ``torch.cuda.graph`` it
+    neither synchronises the card nor empties the allocator's cache (which
+    frees memory on every card and so waits for each), so a capture on one
+    card leaves the others working."""
 
     def __init__(self, key, program, inputs, device):
         # The program holds what its kernels read by address (the engines'
         # tables and packed rows): kept while the graph is.
         self.program = program
         self.inputs = [x.clone() for x in inputs]
+        self.device = device
         self.ex = GraphCapture(device)
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
@@ -437,13 +451,13 @@ class CallGraph:
         captures.append(Capture(key, torch.device(device), time.perf_counter() - t0))
 
     def __call__(self, inputs):
-        global pass_advances
-
+        pc.stamp(self.device, pc.STAMP_START)
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
         self.graph.replay()
-        pass_advances += self.ex.advances
-        return tuple(o.clone() for o in self.outputs)
+        out = tuple(o.clone() for o in self.outputs)
+        pc.stamp(self.device, pc.STAMP_END)
+        return out
 
 
 def _execute(scene, grid, lights, prepare, key, program, inputs, executor: str, lanes: int):
@@ -608,11 +622,13 @@ def _parity_samples(advance, camera, pixel_xy, rng_t, num_samples, full_resoluti
         rad_t, rng_next = advance(state, lane0, r, ex=ex)
         acc.add_(rad_t)
         words.copy_(rng_next)
-        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=num_samples, handle=h)
+        ex.control(one, ctrl, pc.COND | pc.ITER_STEP | pc.ITER_CAP, site="sample loop step",
+                   cap=num_samples, handle=h)
 
     h = ex.cond()
-    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=num_samples, handle=h)
-    ex.loop(h, ctrl, one_sample, times=num_samples)
+    ex.control(one, ctrl, pc.COND | pc.ITER_RESET | pc.ITER_CAP, site="sample loop head",
+               cap=num_samples, handle=h)
+    ex.loop(h, ctrl, one_sample)
     return acc, words
 
 

@@ -128,7 +128,8 @@ def make_pair_kern(grid, scene: SceneArrays, lights: Lights, media9, max_depth: 
         ctrl = pc.new_ctrl(st.alive.device)
         handles = ex.conds(len(widths))
         edges = [0] + [w + 1 for w in widths]
-        ex.control(st.alive, ctrl, pc.EXTENT | pc.RUNGS, edges=edges, handles=handles)
+        ex.control(st.alive, ctrl, pc.EXTENT | pc.RUNGS, site="pair head widths", edges=edges,
+                   handles=handles)
 
         def at_width(w, _h):
             head = bounce_at(_State(*(x[:w] for x in st)), tracer)

@@ -99,6 +99,32 @@ def _auto_row_chunk(width: int) -> int:
     return max(1, LANES_PER_PASS // width)
 
 
+class _BandRead:
+    """A band's copy to the host, queued on its card's current stream right
+    behind the work that makes it, into page-locked memory, so that the card
+    goes on from the call to the copy with no round trip through the host:
+    ``wait()`` is the host's wait for the call, ``read()`` its wait for the
+    copy, which gives the band as an array. On the CPU neither waits."""
+
+    def __init__(self, t: torch.Tensor):
+        self.host, self.made, self.copied = t, None, None
+        if t.is_cuda:
+            stream = torch.cuda.current_stream(t.device)
+            self.made = stream.record_event()
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.copied = stream.record_event()
+
+    def wait(self) -> None:
+        if self.made is not None:
+            self.made.synchronize()
+
+    def read(self) -> np.ndarray:
+        if self.copied is not None:
+            self.copied.synchronize()
+        return self.host.numpy()
+
+
 def auto_cluster_width(cluster_size: int, num_tris: int) -> int:
     """Cluster width: the option, or 128 shrunk down the {16, 32, 64}
     ladder for scenes that fit in one cluster (renderer.py:120-127)."""
@@ -222,14 +248,25 @@ class Renderer:
         per-row-block RNG state are saved after every pass, and an
         interrupted render resumes from it to the same image (the file is
         removed on completion).
+
+        Each call is a root span of the port's recorder (utils/timing.py),
+        with a span for each band and sample chunk's tile call (or, over
+        several cards, dispatch and combine), wait for the card, read and
+        accumulation, and a snapshot of each device's counters at its end.
         """
+        opt = self.options
+        devices = self._shard_devices()
+        sharded = opt.shard == "auto" and len(devices) > 1
+        with self.timer.render(devices if sharded else [self.device]):
+            return self._render(checkpoint_path, devices)
+
+    def _render(self, checkpoint_path, devices) -> np.ndarray:
         opt = self.options
         checkpoint_path = checkpoint_path or (opt.checkpoint or None)
         resolution = (opt.width, opt.height)
         if opt.aov != "beauty":
-            with self.timer.phase("render"):
-                img = render_aov(self.triangles, self.camera, self.accel, resolution, opt.aov)
-                return img.cpu().numpy()
+            img = render_aov(self.triangles, self.camera, self.accel, resolution, opt.aov)
+            return img.cpu().numpy()
         if opt.spp_mode == "adaptive":
             if checkpoint_path:
                 raise ValueError(
@@ -238,7 +275,6 @@ class Renderer:
                     "drop one of the two flags"
                 )
             return self.render_adaptive()
-        devices = self._shard_devices()
         if opt.shard == "auto" and len(devices) > 1:
             return self._render_sharded(devices)
 
@@ -271,16 +307,17 @@ class Renderer:
                 for i, row0 in enumerate(state["row_ids"].tolist()):
                     rng_rows[row0] = state["rng"][i]
 
-        with self.timer.phase("render"):
-            for row0 in range(0, opt.height, rows):
-                tile_h = min(rows, opt.height - row0)
-                rng_state = (
-                    torch.from_numpy(np.asarray(rng_rows[row0], np.int64)).to(self.device)
-                    if row0 in rng_rows else None
-                )
-                done = done_rows.get(row0, 0)
-                while done < opt.num_samples:
-                    n = min(chunk, opt.num_samples - done)
+        timer = self.timer
+        for row0 in range(0, opt.height, rows):
+            tile_h = min(rows, opt.height - row0)
+            rng_state = (
+                torch.from_numpy(np.asarray(rng_rows[row0], np.int64)).to(self.device)
+                if row0 in rng_rows else None
+            )
+            done = done_rows.get(row0, 0)
+            while done < opt.num_samples:
+                n = min(chunk, opt.num_samples - done)
+                with timer.phase("tile_call"):
                     img, rng_state = beauty_fn(
                         self.camera, self.scene_arrays, self.accel, self.lights,
                         (opt.width, tile_h), n,
@@ -289,7 +326,13 @@ class Renderer:
                         row_offset=row0, full_resolution=resolution,
                         sample_offset=done, rng_state=rng_state, return_rng=True,
                     )
-                    acc[row0 : row0 + tile_h] += img.cpu().numpy() * np.float32(n / opt.num_samples)
+                with timer.phase("band_wait"):
+                    read = _BandRead(img)
+                    read.wait()
+                with timer.phase("band_read"):
+                    band = read.read()
+                with timer.phase("band_accumulate"):
+                    acc[row0 : row0 + tile_h] += band * np.float32(n / opt.num_samples)
                     done += n
                     if checkpoint_path:
                         rng_rows[row0] = rng_state.cpu().numpy().astype(np.uint32)
@@ -372,12 +415,13 @@ class Renderer:
         acc = np.zeros((opt.height, opt.width, 3), np.float32)
         cells = mesh_cells(mesh)
         tables = self._keep_shard_passes([mesh.devices[s][t] for s, t in cells])
-        with self.timer.phase("render"):
-            for row0 in range(0, opt.height, band):
-                band_h = min(band, opt.height - row0)
-                done = 0
-                while done < opt.num_samples:
-                    n = min(chunk, opt.num_samples - done)
+        timer = self.timer
+        for row0 in range(0, opt.height, band):
+            band_h = min(band, opt.height - row0)
+            done = 0
+            while done < opt.num_samples:
+                n = min(chunk, opt.num_samples - done)
+                with timer.phase("dispatch"):
                     images = dispatch_cells(
                         cells, tables, (opt.width, band_h), n, mesh,
                         max_depth=opt.max_depth, rr_depth=opt.rr_depth,
@@ -385,9 +429,16 @@ class Renderer:
                         row_offset=row0, full_resolution=resolution, sample_offset=done,
                         engine=engine, direct=opt.direct,
                     )
+                with timer.phase("combine"):
                     img = combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
                                         band_h, mesh.devices[0][0])
-                    acc[row0:row0 + band_h] += img.cpu().numpy() * (n / opt.num_samples)
+                with timer.phase("band_wait"):
+                    read = _BandRead(img)
+                    read.wait()
+                with timer.phase("band_read"):
+                    out = read.read()
+                with timer.phase("band_accumulate"):
+                    acc[row0:row0 + band_h] += out * (n / opt.num_samples)
                     done += n
         return acc
 
@@ -486,7 +537,7 @@ class Renderer:
                 c[np.argpartition(-frac, short - 1)[:short]] += 1
             return c
 
-        with self.timer.phase("render"):
+        with self.timer.render([self.device]):
             while issued < n_total:
                 # Rounds grow with the samples issued (about a third of
                 # them, at most 8 calls) once the warmup is done.

@@ -109,7 +109,7 @@ def test_engine_plan_matches_jax(jmr, engine, rng):
 
 def _ctrl_run(alive, flags, ctrl=None, **kw):
     ctrl = pc.new_ctrl("cpu") if ctrl is None else ctrl
-    counts = torch.zeros(2, dtype=torch.int64)
+    counts = torch.zeros(pc.CNT_LEN, dtype=torch.int64)
     pc.pass_control_plain(alive, ctrl, counts, flags, **kw)
     return ctrl, counts
 
@@ -125,7 +125,7 @@ def test_control_iteration_cap(cap):
     runs = 0
     while bool(ctrl[pc.CTRL_COND]):
         runs += 1
-        pc.pass_control_plain(alive, ctrl, torch.zeros(2, dtype=torch.int64),
+        pc.pass_control_plain(alive, ctrl, torch.zeros(pc.CNT_LEN, dtype=torch.int64),
                               pc.COND | pc.ITER_STEP | pc.ITER_CAP, cap=cap)
     assert runs == cap and int(ctrl[pc.CTRL_ITER]) == cap
     ctrl, _ = _ctrl_run(alive & False, pc.COND | pc.ITER_RESET | pc.ITER_CAP, cap=cap)
@@ -157,7 +157,8 @@ def test_control_rungs_of_counts_and_extent():
     edges = [1, 2, 3, 4]
     ctrl, counts = _ctrl_run(listed, pc.RUNGS | pc.COND | pc.DEVICE_COUNT, edges=edges)
     assert int(ctrl[pc.CTRL_RUNG]) == 2 and int(ctrl[pc.CTRL_NALIVE]) == 3
-    assert int(ctrl[pc.CTRL_COND]) == 1 and counts.tolist() == [0, 1]
+    assert int(ctrl[pc.CTRL_COND]) == 1 and counts[:2].tolist() == [0, 1]
+    assert not counts[2:].any()
     ctrl, _ = _ctrl_run(listed, pc.RUNGS | pc.EXTENT, edges=[0, 65, 513, 4097])
     assert int(ctrl[pc.CTRL_EXTENT]) == 2501 and int(ctrl[pc.CTRL_RUNG]) == 2
     ctrl, _ = _ctrl_run(listed & False, pc.RUNGS | pc.EXTENT, edges=[0, 65, 513, 4097])
@@ -173,7 +174,8 @@ def test_control_not_k1_keeps_the_k1_count():
     ctrl, counts = _ctrl_run(alive, pc.INIT | pc.DEVICE_COUNT, dim0=2)
     pc.pass_control_plain(alive, ctrl, counts, pc.AFTER_K1 | pc.NOT_K1 | pc.DEVICE_COUNT,
                           advance=8)
-    assert int(ctrl[pc.CTRL_DIM0]) == 10 and counts.tolist() == [0, 2]
+    assert int(ctrl[pc.CTRL_DIM0]) == 10 and counts[:2].tolist() == [0, 2]
+    assert not counts[2:].any()
 
 
 @pytest.mark.parametrize("rule,hi", [(lambda lb: tbt.round_split(lb)[0], 64),
@@ -253,7 +255,7 @@ def test_sweep_with_control_block_equals_host_int(payload, valid):
     cid = torch.from_numpy(cid)
     want = tps.sweep(grid, media9, rays, cid, payload, K, valid)
     ctrl = pc.new_ctrl("cpu")
-    pc.pass_control_plain(cid < tbt.BIGC, ctrl, torch.zeros(2, dtype=torch.int64), 0)
+    pc.pass_control_plain(cid < tbt.BIGC, ctrl, torch.zeros(pc.CNT_LEN, dtype=torch.int64), 0)
     rung = [g for a, b, g in tps.sweep_ladder(4096) if a <= max(valid, 1) <= b][0]
     out = tps.seed_state_bits(rays, payload, K)
     got = tps.sweep(grid, media9, rays, cid, payload, K, ctrl=ctrl, group=rung, out=out)

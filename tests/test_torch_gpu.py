@@ -865,21 +865,31 @@ def test_kernel_with_control_block_matches_plain(cuda, live, dim0, run):
 @pytest.mark.parametrize("n", [65536, 49920, 3072, 65541])
 def test_control_kernel_matches_plain(cuda, n):
     """The control kernel equals its plain version on the card (the alive
-    count read 16 bytes at a time, and the tail byte by byte)."""
+    count read 16 bytes at a time, and the tail byte by byte), also where
+    it counts at a site (SITE_COUNT: visits, K1 launches, live and covered
+    lanes; the card's clock, the last stamp and the sites' ns, aside)."""
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     gen = torch.Generator(device="cuda").manual_seed(n)
     alive = torch.rand(n, device=cuda, generator=gen) < 0.4
+    clock = torch.zeros(pc.CNT_LEN, dtype=torch.bool, device=cuda)
+    clock[pc.CNT_LAST] = True
+    clock[pc.CNT_SITES + pc.SITE_NS::pc.SITE_FIELDS] = True
     for flags, kw in ((pc.INIT | pc.COND | pc.DEVICE_COUNT, dict(dim0=2, threshold=1024)),
                       (pc.AFTER_K1 | pc.SET_LIVE | pc.COND | pc.DEVICE_COUNT,
                        dict(advance=8, threshold=0)),
                       (pc.SET_FULL | pc.AFTER_K1, dict(advance=256))):
-        ctrl = torch.tensor([3, 10, 1, 0, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
-        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
-        ctrl_p, counts_p = ctrl.clone(), counts.clone()
-        pc.pass_control(alive, ctrl, counts, flags, **kw)
-        pc.pass_control_plain(alive, ctrl_p, counts_p, flags, **kw)
-        assert torch.equal(ctrl, ctrl_p) and torch.equal(counts, counts_p)
+        for site in (0, 0), (pc.SITE_COUNT, 7):
+            f = flags | site[0]
+            ctrl = torch.tensor([3, 10, 1, 777, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
+            counts = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device=cuda)
+            ctrl_p, counts_p = ctrl.clone(), counts.clone()
+            for _ in range(2):
+                pc.pass_control(alive, ctrl, counts, f, site=site[1], **kw)
+                pc.pass_control_plain(alive, ctrl_p, counts_p, f, site=site[1], **kw)
+            assert torch.equal(ctrl, ctrl_p), f
+            assert torch.equal(counts.masked_fill(clock, 0), counts_p.masked_fill(clock, 0)), f
+            assert bool(counts[pc.CNT_SITES + 7 * pc.SITE_FIELDS]) == bool(site[0])
 
 
 def test_many_graphs_capture(cuda):
@@ -1051,7 +1061,7 @@ def test_control_kernel_extensions_match_plain(cuda, n):
              (pc.AFTER_K1 | pc.NOT_K1 | pc.DEVICE_COUNT, dict(advance=8)))
     for flags, kw in cases:
         ctrl = torch.tensor([3, 10, 1, 0, 0, 2, 0, 0], dtype=torch.int32, device=cuda)
-        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        counts = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device=cuda)
         ctrl_p, counts_p = ctrl.clone(), counts.clone()
         pc.pass_control(alive, ctrl, counts, flags, **kw)
         pc.pass_control_plain(alive, ctrl_p, counts_p, flags, **kw)
