@@ -76,8 +76,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    scenes/showcase.obj at 512x512 with 16 samples per pixel (parity RNG)
    through ``Renderer``, timed after one warm-up (which captures the
    pass's CUDA graphs), with K1's launch count (the K1 launches that the
-   graph replays ran, counted on the card by the control kernel) and the
-   G of the captured K1 launches by width;
+   graph replays ran, counted on the card by the control kernel), the
+   partition's launches (captured by its wrapper in the warm-up; run in
+   the timed render: its sort sites' visits on the card, four launches a
+   sort; none fails) and the G of the captured K1 launches by width;
    then the 64x64 at 32 spp render against tests/golden/showcase_gate.npz
    under the flip-budgeted gate (non-flip RMSE <= 1e-3, at most 24 pixels
    with |diff| > 1e-2);
@@ -97,7 +99,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and 8 live blocks of the 65,536-lane launch beside the 8,192-lane
    launch (the G the dynamic modes now take); holds the control kernel
    equal to its plain version and times it beside an empty launch and
-   ``torch.count_nonzero``; times the default command's pass (1920x34@16)
+   ``torch.count_nonzero``; holds the partition (the pass plan's
+   compaction sort, ``csrc/partition.cu``) bit-equal to its plain route at
+   65,536 and 16,384 lanes and times it eagerly, in a graph and as a sort
+   segment beside the plain route (``torch.argsort`` and the gathers);
+   times the default command's pass (1920x34@16)
    on both executors in turns, with its capture time; and with
    ``--profile`` profiles that pass on both (the card's busy share);
 4b. renders the main path under CMR_MEGA_DEBUG nofuse, ordered and
@@ -245,6 +251,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``{"default_workload": {...}}`` line (5f's and 5g's numbers), a
    ``{"pass_graph": {...}}`` line (4a's numbers), a
    ``{"kernels": [...]}`` line (one K1 row, one row of the control kernel,
+   one partition row a width with the main path's sort launches,
    that names its ablation instances; K4 in two rows: showcase's
    renders with the walk the rule launches there, and the tile walk on
    the many-cluster scene with the launches of its traces), the
@@ -422,6 +429,19 @@ def sample_steps() -> int:
                for d in pc.counted_devices())
 
 
+def sort_visits() -> int:
+    """The pass plans' sorts that ran, counted on the cards: the visits of
+    the sites of kind 'sort' ("sort before phase i", "sort of a dynamic
+    bounce"), whose control launch follows each sort in every executor,
+    summed over the cards."""
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+
+    kinds = {s.label: s.kind for s in pc.sites()}
+    return sum(v[pc.SITE_VISITS] for d in pc.counted_devices()
+               for label, v in pc.site_counts(pc.device_counts(d)).items()
+               if kinds.get(label) == "sort")
+
+
 def card_kernel_counts() -> dict:
     """The K3, K4, K5 and K6 launches that graph replays ran, counted on
     the cards (``pass_control.kernel_counts``), summed over the cards."""
@@ -441,6 +461,7 @@ def reset_launch_counts() -> None:
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import partition as pt
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     mk.trace_paths_mega.launches = 0
@@ -449,6 +470,7 @@ def reset_launch_counts() -> None:
     bt.run_round.launches = 0
     ps.sweep.launches = 0
     pc.pass_control.launches = 0
+    pt.partition.launches = 0
     for d in pc.counted_devices():
         pc.device_counts(d).zero_()
         pc.kernel_counts(d).zero_()
@@ -458,11 +480,14 @@ def launch_counts() -> dict:
     """The launch count of every kernel: those launched by its wrapper plus
     those that graph replays ran (counted on the card: K1's and the control
     kernel's by the control kernel, K3-K6's by an add beside each captured
-    launch)."""
+    launch); the partition's, which takes the kernel or raises on the card,
+    are its launches a sort times the sorts the cards ran (``sort_visits``:
+    eager or replayed)."""
     from complex_materials_renderer_tpu_torch.kernels import binned_trace as bt
     from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+    from complex_materials_renderer_tpu_torch.kernels import partition as pt
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     on_card = device_counts()
@@ -470,7 +495,8 @@ def launch_counts() -> dict:
     return {"K1": mk.trace_paths_mega.launches + on_card[0],
             "K3": ctr.trace_core.launches + kc["K3"], "K4": bt.listing.launches + kc["K4"],
             "K5": bt.run_round.launches + kc["K5"], "K6": ps.sweep.launches + kc["K6"],
-            "PC": pc.pass_control.launches + on_card[1]}
+            "PC": pc.pass_control.launches + on_card[1],
+            "partition": pt.LAUNCHES_PER_SORT * sort_visits()}
 
 
 class uncounted:
@@ -482,11 +508,12 @@ class uncounted:
         from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
         from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
         from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+        from complex_materials_renderer_tpu_torch.kernels import partition as pt
         from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
         self.host = (mk.trace_paths_mega.launches, pc.pass_control.launches,
                      ctr.trace_core.launches, bt.listing.launches, bt.run_round.launches,
-                     ps.sweep.launches)
+                     ps.sweep.launches, pt.partition.launches)
         self.cards = {d: (pc.device_counts(d).clone(), pc.kernel_counts(d).clone())
                       for d in pc.counted_devices()}
 
@@ -495,10 +522,12 @@ class uncounted:
         from complex_materials_renderer_tpu_torch.kernels import cluster_trace as ctr
         from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
         from complex_materials_renderer_tpu_torch.kernels import pairsweep as ps
+        from complex_materials_renderer_tpu_torch.kernels import partition as pt
         from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
         (mk.trace_paths_mega.launches, pc.pass_control.launches, ctr.trace_core.launches,
-         bt.listing.launches, bt.run_round.launches, ps.sweep.launches) = self.host
+         bt.listing.launches, bt.run_round.launches, ps.sweep.launches,
+         pt.partition.launches) = self.host
         for d in pc.counted_devices():
             if d in self.cards:
                 pc.device_counts(d).copy_(self.cards[d][0])
@@ -707,6 +736,7 @@ def main_path(r_opts):
     import torch
 
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
+    from complex_materials_renderer_tpu_torch.kernels import partition as pt
     from complex_materials_renderer_tpu_torch.renderer import Renderer
 
     scene, opt = r_opts
@@ -714,18 +744,26 @@ def main_path(r_opts):
     r = Renderer(scene, opt)
     print(f"   accel build + upload {time.perf_counter() - t0:.3f} s; clusters "
           f"{r.accel.num_clusters}, supers {r.accel.num_supers}, width {r.accel.width}", flush=True)
+    reset_launch_counts()
     t0 = time.perf_counter()
     with recorded_groups(mk) as groups:  # the warm-up captures the graphs
         r.render()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    captured_sorts = pt.partition.launches  # the sorts' launches recorded into the graphs
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = r.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = launch_counts()["K1"]
+    counts = launch_counts()
+    launches, sort_launches = counts["K1"], counts["partition"]
+    print(f"   partition: {captured_sorts} launches captured by its wrapper in the warm-up's "
+          f"graphs; the timed render ran {sort_launches} ({sort_launches // pt.LAUNCHES_PER_SORT} "
+          f"sorts counted on the card, {pt.LAUNCHES_PER_SORT} launches a sort)", flush=True)
+    if captured_sorts <= 0 or sort_launches <= 0:
+        fail("the main path sorted on the partition kernel no time")
     paths = opt.width * opt.height * opt.num_samples
     mean = float(np.mean(img))
     print(f"   K1 nodes captured by width and threads per lane: {groups.line()}", flush=True)
@@ -737,7 +775,7 @@ def main_path(r_opts):
         fail("the main path launched the megakernel no time")
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         fail("main-path image is not finite or has the wrong shape")
-    return r, launches, img, launch_counts()["PC"]
+    return r, launches, img, counts["PC"], sort_launches
 
 
 def flip_gate(img, ref):
@@ -1264,6 +1302,111 @@ def time_control(n=65536):
     return min(ms, ms2), plain, bound, library, float(err)
 
 
+PARTITION_REPS = 200  # sorts of one timed run
+PARTITION_WIDTHS = (65536, 16384)  # the frames cells' pass width and the preview's
+SORT_BYTES = 77  # a lane's state: org, dir, thr, rad, rng, aux, lane, depth, alive
+
+
+def partition_lanes(n, seed, alive_share=0.4):
+    """A wavefront of ``n`` lanes on the card (state, lane ids, world box):
+    origins around and outside a box, normal directions, ``alive_share``
+    of the lanes alive, lane ids a permutation."""
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels.megakernel import MegaState
+
+    rs = np.random.default_rng(seed)
+    lo, hi = np.array([-2, -1, -3], np.float32), np.array([3, 4, 1], np.float32)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    state = MegaState(
+        org=t(rs.uniform(lo - 1, hi + 1, (n, 3)).astype(np.float32)),
+        dir=t(rs.normal(size=(n, 3)).astype(np.float32)),
+        thr=t(rs.random((n, 3)).astype(np.float32)), rad=t(rs.random((n, 3)).astype(np.float32)),
+        rng=t(rs.integers(0, 2**32, n, dtype=np.int64)),
+        depth=t(rs.integers(0, 33, n).astype(np.int32)), alive=t(rs.random(n) < alive_share),
+        aux=t(rs.integers(0, 2**32, n, dtype=np.int64)))
+    return state, t(rs.permutation(n).astype(np.int64)), t(lo), t(hi)
+
+
+def time_partition(n):
+    """The partition (kernels/partition.py) against its plain route on the
+    card at ``n`` lanes (40% alive): the permutation, every field, the lane
+    ids and the bank rows of a phase shrink equal; then CUDA events over
+    PARTITION_REPS sorts: eagerly, in one CUDA graph, and as a sort segment
+    of the pass plan's graph (the sort and its control launch), beside the
+    plain route (``torch.argsort`` and the gathers: the library yardstick)
+    eagerly and in a graph. Returns a dict of ms a sort."""
+    from functools import partial
+
+    import torch
+
+    from complex_materials_renderer_tpu_torch.kernels import partition as pt
+    from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
+    from complex_materials_renderer_tpu_torch.kernels.megakernel import MegaState
+
+    state, lane, lo, hi = partition_lanes(n, n)
+    scratch = pt.Scratch("cuda", n)
+    outs = []
+    for fn in (partial(pt.partition, scratch=scratch), pt.partition_plain):
+        s, l_ = MegaState(*(x.clone() for x in state)), lane.clone()
+        banks = (torch.zeros((n + 1, 3), device="cuda"),
+                 torch.zeros((n + 1,), dtype=torch.int64, device="cuda"), n // 2)
+        perm = fn(s, l_, lo, hi, "dir", banks).to(torch.int64)
+        outs.append([perm, *s, l_, banks[0], banks[1]])
+    torch.cuda.synchronize()
+    err = sum(int(not torch.equal(a, b)) for a, b in zip(*outs))
+    if err:
+        fail(f"the partition differs from its plain route in {err} outputs at {n} lanes")
+    ctrl = pc.new_ctrl("cuda")
+    cnt = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device="cuda")
+
+    def kernel():
+        pt.partition(state, lane, lo, hi, "dir", scratch=scratch)
+
+    def plain():
+        pt.partition_plain(state, lane, lo, hi, "dir")
+
+    def segment(sort):
+        def fn():
+            sort()
+            pc.pass_control(state.alive, ctrl, cnt, pc.SET_LIVE)
+        return fn
+
+    def eager(fn, reps=PARTITION_REPS):
+        return cuda_time(lambda i: [fn() for _ in range(reps)], 3) / reps
+
+    def in_graph(fn, reps=PARTITION_REPS):
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        ms = cuda_time(lambda i: graph.replay(), 5) / reps
+        del graph
+        return ms
+
+    out = {"lanes": n, "max_abs_err": float(err)}
+    with uncounted():
+        out["eager_ms"] = eager(kernel)
+        out["graph_ms"] = in_graph(kernel)
+        out["segment_ms"] = in_graph(segment(kernel))
+        out["plain_ms"] = eager(plain, 20)
+        out["plain_graph_ms"] = in_graph(plain, 20)
+        out["plain_segment_ms"] = in_graph(segment(plain), 20)
+        out["graph_ms_again"] = in_graph(kernel)
+    nbytes = 2 * SORT_BYTES * n
+    out["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    print(f"   partition ({n} lanes, 40% alive; {pt.LAUNCHES_PER_SORT} launches a sort): "
+          f"{out['eager_ms']:.5f} ms a sort eagerly, {out['graph_ms']:.5f} and "
+          f"{out['graph_ms_again']:.5f} in a graph of {PARTITION_REPS}, a sort segment with its "
+          f"control launch {out['segment_ms']:.5f}; plain route (torch.argsort and gathers) "
+          f"{out['plain_ms']:.5f} eagerly, {out['plain_graph_ms']:.5f} in a graph, a segment "
+          f"{out['plain_segment_ms']:.5f}; bound {nbytes} bytes = {out['bound_ms']:.6f} ms "
+          f"(bytes); against the plain route: {err} outputs differ", flush=True)
+    return out
+
+
 def graph_phase(main_opts, rt, media9, misc, base, profile):
     """The mega pass as one device program: the graph executor (the
     default on the card) against the eager executor (the host loop) on
@@ -1327,6 +1470,7 @@ def graph_phase(main_opts, rt, media9, misc, base, profile):
 
     out["k1_ctrl_err"], out["k1_ctrl_ms"] = k1_control_vs_plain(r, media9, misc, base)
     out["control"] = time_control()
+    out["partition"] = [time_partition(n) for n in PARTITION_WIDTHS]
 
     # The default command's pass: one 16-sample call over its first row
     # block, on both executors in turns (the graph captured first).
@@ -1792,10 +1936,13 @@ def k1_step_calls(r, media9, misc, base):
         calls.append((clone_state(state), kw))
         mk.trace_paths_mega(r.accel, media9, misc, state, **base, **kw)
 
+    kern.prepare = lambda device, lanes: None  # the library is built
+    plan = _make_advance(kern, dynamic, _phase_schedule(n, opt.max_depth), r.scene_arrays, "dir",
+                         opt.max_depth)
+    plan.prepare(st.org.device, n)
     lane = torch.arange(n, device=st.org.device)
     with uncounted():
-        _make_advance(kern, dynamic, _phase_schedule(n, opt.max_depth), r.scene_arrays, "dir",
-                      opt.max_depth)(st, lane, n)
+        plan(st, lane, n)
     torch.cuda.synchronize()
     return calls
 
@@ -4813,7 +4960,7 @@ def main() -> int:
         return 4  # nonzero: no result line is printed
 
     phase("main path: showcase 512x512 @ 16 spp, megakernel")
-    r, launches, mega_img, pc_launches = main_path(main_opts)
+    r, launches, mega_img, pc_launches, sort_launches = main_path(main_opts)
     golden_gate()
 
     phase("the mega pass as one device program: the graph executor against the eager one, "
@@ -4933,7 +5080,22 @@ def main() -> int:
         "bound_ms": graph["control"][2],
         "bound_by": "bytes",
         "library_ms": graph["control"][3],
-    }, {
+    }] + [{
+        "name": f"partition (the pass plan's compaction sort, timed at {t['lanes']} lanes: the "
+                "coherence key, a stable 19-bit radix sort and one state move; no Pallas "
+                "kernel of its own: the JAX pass loop's jnp.argsort; launches: the main path's "
+                "sorts at every width)",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/partition.cu",
+        "replaces": "complex_materials_renderer_tpu/render/megarender.py:114",
+        "launches": sort_launches,
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["graph_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["plain_graph_ms"],
+    } for t in graph["partition"]] + [{
         "name": "closest-hit trace over the cluster grid (K3)",
         "route": "cuda",
         "source": f"{PACKAGE}/csrc/cluster_trace.cu",

@@ -21,7 +21,8 @@ build takes seconds, not minutes):
   payload at every group size G;
 - ``pass_control.cu``, the mega pass's control kernel, its call stamps
   and the CUDA graph conditional nodes of its loops (render/megarender.py
-  ``PassPlan``).
+  ``PassPlan``);
+- ``partition.cu``, the pass plan's compaction sort (kernels/partition.py).
 
 Lists and K-lists live in registers, so their lengths are compile-time;
 a library is built for any value asked for, at its first use. Libraries
@@ -72,6 +73,8 @@ _KINDS = {
                    [_vp, _ci] + [_vp] * 4 + [_ci] * 8 + [_vp] * 2),
     "pass_control": ("pass_control.cu", (), "cmr_pass_control_launch",
                      [_vp, _ci, _vp, _vp] + [_ci] * 6 + [ctypes.c_ulonglong, _ci] + [_vp] * 3),
+    "partition": ("partition.cu", (), "cmr_partition_launch",
+                  [_vp] * 11 + [_ci] * 2 + [_vp] * 2 + [_ci] * 2 + [_vp, _ci, _vp]),
 }
 
 _lock = threading.Lock()
@@ -151,6 +154,9 @@ def _load(key, path: str):
         for name in ("cmr_pass_control_empty", "cmr_graph_cond_handle", "cmr_graph_cond_begin",
                      "cmr_graph_cond_end", "cmr_graph_body_stream", "cmr_pass_stamp_launch"):
             getattr(lib, name).restype = _ci
+    if hasattr(lib, "cmr_partition_scratch_bytes"):
+        lib.cmr_partition_scratch_bytes.argtypes = [_ci, ctypes.POINTER(ctypes.c_longlong)]
+        lib.cmr_partition_scratch_bytes.restype = ctypes.c_longlong
     if hasattr(lib, "cmr_binned_round_max_clusters"):
         lib.cmr_binned_round_max_clusters.argtypes = [_ci, _ci, ctypes.POINTER(_ci)]
         lib.cmr_binned_round_max_clusters.restype = _ci
@@ -183,13 +189,14 @@ def build(keys, verbose: bool = False) -> None:
 
 def prebuild(nee_bounds=(), verbose: bool = False, cluster_trace: bool = True,
              list_lens=(), rounds=(), sweeps=(), ablations=()) -> None:
-    """Build at once the pass control library, the megakernel for each
-    value of ``nee_bounds`` and for each (nee bound, ablation mask) of
-    ``ablations``, (with ``cluster_trace``) the closest-hit kernel, the
-    listing for each of ``list_lens``, the round for each (list length,
-    nee bound) of ``rounds`` and the sweep for each nee bound of
-    ``sweeps``."""
-    build([("pass_control",)] + [("megakernel", n, 0) for n in sorted(set(nee_bounds))]
+    """Build at once the pass control and partition libraries, the
+    megakernel for each value of ``nee_bounds`` and for each (nee bound,
+    ablation mask) of ``ablations``, (with ``cluster_trace``) the
+    closest-hit kernel, the listing for each of ``list_lens``, the round
+    for each (list length, nee bound) of ``rounds`` and the sweep for each
+    nee bound of ``sweeps``."""
+    build([("pass_control",), ("partition",)]
+          + [("megakernel", n, 0) for n in sorted(set(nee_bounds))]
           + [("megakernel", n, m) for n, m in sorted(set(ablations))]
           + ([("cluster_trace",)] if cluster_trace else [])
           + [("binned_listing", L) for L in sorted(set(list_lens))]
@@ -274,6 +281,12 @@ def pass_control():
     kernel's launch function and the graph functions beside it."""
     lib = _library(("pass_control",))
     return lib
+
+
+def partition():
+    """The partition library (``csrc/partition.cu``): the launch function
+    and the scratch size beside it."""
+    return _library(("partition",))
 
 
 def error_string(err: int) -> str:

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import pass_control as pc
+from ..kernels.partition import coherence_key
 from ..kernels.traverse import trace_shaded
 from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
@@ -192,30 +193,6 @@ def state_from_jax_arrays(org, dir, thr, rad, rng, depth, alive, lane, device="c
         rad=t(rad, np.float32), rng=t(np.asarray(rng, np.uint32), np.int64),
         depth=t(depth, np.int32), alive=t(alive, np.bool_), lane=t(lane, np.int64),
     )
-
-
-def _spread3(v: torch.Tensor) -> torch.Tensor:
-    """Interleave 10-bit ints for Morton codes (classic bit smear)."""
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
-def coherence_key(org, direction, alive, world_lo, world_hi, sortkey: str = "dir"):
-    """The compaction sort key as u32 words in int64: (direction octant,
-    Morton cell of the origin), or cell-major for ``sortkey='pos'``; dead
-    lanes 0xFFFFFFFF, so they sort last."""
-    extent = torch.clamp(world_hi - world_lo, min=1e-6)
-    rel = (org - world_lo) / extent
-    q = torch.clamp(rel * 32.0, 0.0, 31.0).to(torch.int64)
-    cell = (_spread3(q[:, 0]) << 2) | (_spread3(q[:, 1]) << 1) | _spread3(q[:, 2])
-    octant = ((direction[:, 0] > 0).to(torch.int64) * 4
-              + (direction[:, 1] > 0).to(torch.int64) * 2
-              + (direction[:, 2] > 0).to(torch.int64))
-    key = (cell << 3) | octant if sortkey == "pos" else (octant << 15) | cell
-    return torch.where(alive, key, torch.full_like(key, 0xFFFFFFFF))
 
 
 def _compact(state: _State, scene: SceneArrays) -> _State:

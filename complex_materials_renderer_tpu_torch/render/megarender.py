@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import partition as pt
 from ..kernels import pass_control as pc
 from ..kernels.cluster_grid import DeviceClusterGrid
 from ..kernels.pass_control import GraphCapture, HostLoop
@@ -67,7 +68,6 @@ from ..ops import rng as rng_ops
 from ..ops.camera import Camera, generate_rays
 from ..ops.medium import media_tensors
 from .hitinfo import Lights, SceneArrays
-from .integrator import coherence_key
 
 TILE = 32  # pixels per tile side; 32x32 = one 1024-lane block
 # Widest wave one step of the counter/ld sample loop runs, read once at
@@ -116,17 +116,6 @@ def _phase_schedule(rp: int, max_depth: int, schedule: str = ""):
         sched = [(rp, max_depth)]
     sched[-1] = (sched[-1][0], max_depth)
     return sched
-
-
-def _partition_live(state: MegaState, lane: torch.Tensor, scene: SceneArrays,
-                    sortkey: str = "dir"):
-    """Compact and re-sort the wavefront: dead lanes last, live lanes by
-    (direction octant, Morton cell of origin), or cell-major for
-    ``sortkey='pos'``. The sort is stable, like ``jnp.argsort``."""
-    key = coherence_key(state.org, state.dir, state.alive, scene.world_lo, scene.world_hi,
-                        sortkey)
-    perm = torch.argsort(key, stable=True)
-    return MegaState(*(x[perm] for x in state)), lane[perm]
 
 
 def _resolve_dynamic(schedule_mode: str, grid) -> str:
@@ -193,22 +182,14 @@ def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_med
                          _phase_schedule(step, max_depth, schedule), scene, sortkey, max_depth)
 
 
-def _partition_into(state: MegaState, lane: torch.Tensor, scene: SceneArrays, sortkey: str):
-    """``_partition_live`` in place: the same permutation written back into
-    ``state`` and ``lane``, so that a loop body of a graph finds them at the
-    same addresses on every iteration."""
-    sorted_state, sorted_lane = _partition_live(state, lane, scene, sortkey)
-    for x, y in zip((*state, lane), (*sorted_state, sorted_lane)):
-        x.copy_(y)
-
-
 class PassPlan:
     """The wavefront advance (``_make_advance``) as a fixed sequence of
-    steps: ``_partition_live`` sorts, bank scatters, K1 calls at a width
-    and bounce cap, control launches (``kernels.pass_control``), the spill
-    loop ``while (n_alive > next_w) { K1; control }``, and in the dynamic
-    modes ``while any alive { sort; control; K1; control }`` (all) or eight
-    guarded sorted bounces and a tail (hybrid).
+    steps: sorts (``kernels.partition``, the JAX ``_partition_live``) with
+    their bank scatters, K1 calls at a width and bounce cap, control
+    launches (``kernels.pass_control``), the spill loop ``while (n_alive >
+    next_w) { K1; control }``, and in the dynamic modes ``while any alive {
+    sort; control; K1; control }`` (all) or eight guarded sorted bounces and
+    a tail (hybrid).
 
     Calling it runs ``state`` to termination and returns (radiance, rng)
     banked by lane id: ``bank_rows`` real rows (one more spill row takes the
@@ -234,6 +215,7 @@ class PassPlan:
         is_k1 = getattr(kern, "is_k1", False)
         self.after = pc.AFTER_K1 | (0 if is_k1 else pc.NOT_K1)
         self.kname, self.kkind = ("K1", "k1") if is_k1 else ("bounce", "other")
+        self.scratch = None  # the sorts' on the card (kernels.partition.Scratch)
 
     def _kern_site(self, label: str, width: int) -> pc.Site:
         """The site of the control launch after the kernel at ``width``."""
@@ -243,7 +225,8 @@ class PassPlan:
         """Build and allocate, before a capture, what the steps launch."""
         from ..kernels import build
 
-        build.pass_control()
+        build.build([("pass_control",), ("partition",)])
+        self.scratch = pt.Scratch(device, lanes)
         self.kern.prepare(device, lanes)
 
     def __call__(self, state: MegaState, lane: torch.Tensor, bank_rows: int, dim0: int = 0,
@@ -265,9 +248,16 @@ class PassPlan:
         rng_bank[lane] = state.rng
         return rad_bank[:bank_rows], rng_bank[:bank_rows]
 
+    def _sort(self, state, lane, banks=None):
+        """Sort the lanes in place (a graph finds them at the same addresses
+        on every iteration), banking the tail with ``banks``; on the card in
+        the scratch of ``prepare``."""
+        pt.partition(state, lane, self.scene.world_lo, self.scene.world_hi, self.sortkey, banks,
+                     scratch=self.scratch)
+
     def _sorted_bounce(self, ex, state, lane, ctrl, cap):
         """Sort, bound K1 to the live leading blocks, run ``cap`` bounces."""
-        _partition_into(state, lane, self.scene, self.sortkey)
+        self._sort(state, lane)
         ex.control(state.alive, ctrl, pc.SET_LIVE,
                    site=pc.Site("sort of a dynamic bounce", "sort"))
         ex.k1(self.kern, state, cap, ctrl)
@@ -306,10 +296,7 @@ class PassPlan:
                 # Shrink to this phase's width: live lanes first, bank the
                 # dropped tail (all dead: the spill loop below made sure
                 # that at most w lanes are alive).
-                _partition_into(state, lane, self.scene, self.sortkey)
-                drop = lane[w:]
-                rad_bank[drop] = state.rad[w:]
-                rng_bank[drop] = state.rng[w:]
+                self._sort(state, lane, banks=(rad_bank, rng_bank, w))
                 state = MegaState(*(x[:w] for x in state))
                 lane = lane[:w]
                 ex.control(state.alive, ctrl, pc.SET_FULL,
@@ -464,12 +451,15 @@ def _execute(scene, grid, lights, prepare, key, program, inputs, executor: str, 
     """Run a tile program: with ``executor='auto'`` as a CUDA graph on the
     card, on the CPU executor on the CPU; 'eager' asks for the eager
     executor (the card's comparison for the graph). ``prepare(device,
-    lanes)`` builds and makes, before a capture, what the program launches
-    and reads. No executor stands in for another that fails."""
+    lanes)`` builds and makes, on the card before a capture or an eager
+    call, what the program launches and reads. No executor stands in for
+    another that fails."""
     dev = grid.device
     if executor not in ("auto", "eager"):
         raise ValueError(f"executor must be auto|eager, got {executor!r}")
     if executor == "eager" or dev.type != "cuda":
+        if dev.type == "cuda":
+            prepare(dev, lanes)
         return program(HostLoop(dev, executor == "auto"), *inputs)
     cache = pass_cache(scene, grid, lights)
     call = cache.graphs.get(key)

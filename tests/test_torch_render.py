@@ -19,6 +19,7 @@ from complex_materials_renderer_tpu.render.integrator import render_beauty
 from complex_materials_renderer_tpu_torch.accel.clusters import build_clusters
 from complex_materials_renderer_tpu_torch.kernels import megakernel as tmk
 from complex_materials_renderer_tpu_torch.kernels.cluster_grid import device_cluster_grid
+from complex_materials_renderer_tpu_torch.kernels.partition import partition
 from complex_materials_renderer_tpu_torch.ops.camera import make_camera
 from complex_materials_renderer_tpu_torch.render import megarender as tmr
 from complex_materials_renderer_tpu_torch.render.hitinfo import make_lights, make_scene_arrays
@@ -196,8 +197,8 @@ def test_partition_live_matches(jmr, sortkey):
     lane = np.arange(r, dtype=np.int32)
     js, jl = jmr._partition_live(jmk.MegaState(**{k: jnp.asarray(v) for k, v in f.items()}),
                                  jnp.asarray(lane), jscene, sortkey)
-    ts, tl = tmr._partition_live(tmk.from_jax_arrays(**f), torch.from_numpy(lane.astype(np.int64)),
-                                 tscene, sortkey)
+    ts, tl = tmk.from_jax_arrays(**f), torch.from_numpy(lane.astype(np.int64))
+    partition(ts, tl, tscene.world_lo, tscene.world_hi, sortkey)  # in place
     np.testing.assert_array_equal(np.asarray(jl), tl.numpy())
     for name in ("org", "dir", "rad", "depth", "alive"):
         np.testing.assert_array_equal(np.asarray(getattr(js, name)), getattr(ts, name).numpy())
