@@ -360,12 +360,10 @@ WAVEFRONT_FLIP_FRAC = 24 / 4096  # the golden gate's flip budget, per pixel
 GROUPS = (1, 2, 4, 8, 16, 32)  # threads per ray that K1, K3 and K4's tile walk are built for
 ONE_THREAD = (0, 128, 0)  # K4's one-thread walk (variant 0) as ``listing_split`` gives it
 # The many-cluster scene (``tiled_options``): 16 x 16 copies of showcase,
-# 352,768 triangles, a low camera across them.
+# 352,768 triangles, a low camera across them (the port's
+# tools/make_scenes.py ``build_tiled``, written under build/scenes).
 TILES = 16
 FEW_TILES = ((2, 1), (2, 2), (3, 3), (4, 4))  # tilings of a few supers, where K4's rule is cut
-TILE_PITCH = (12.5, 9.5)
-TILE_SEED = 6
-TILED_CAMERA = ((-8.0, 4.0, 8.0), (100.0, -20.0, -100.0))
 # Device sleep queued ahead of each timed launch: about 10 ms at the H100's
 # clock, far longer than a wrapper's host work.
 SLEEP_CYCLES = 20_000_000
@@ -564,21 +562,21 @@ def showcase_options(width, height, spp, obj="showcase", **kw):
 
 def tiled_options(width, height, spp, tiles=(TILES, TILES), **kw):
     """(scene, options) of the many-cluster scene: showcase's triangles,
-    materials and media tiled ``tiles`` (TILES x TILES) on the ground plane at
-    TILE_PITCH (showcase's floor is 12 x 9), each tile shifted by a jitter
-    in [0, 0.5) along x and z drawn from TILE_SEED; showcase's light; a low
-    camera looking across the tiles' diagonal (TILED_CAMERA). Built through
-    ``Renderer`` like showcase: auto width, partition and super fan-out."""
-    scene, opt = showcase_options(width, height, spp, **kw)
-    rs = np.random.default_rng(TILE_SEED)
-    offs = np.asarray([(TILE_PITCH[0] * i + rs.uniform(0.0, 0.5), 0.0,
-                        -TILE_PITCH[1] * j - rs.uniform(0.0, 0.5))
-                       for i in range(tiles[0]) for j in range(tiles[1])], np.float32)
-    tris = (scene.triangles[None] + offs[:, None, None, :]).reshape(-1, 3, 3)
-    scene = scene._replace(triangles=np.ascontiguousarray(tris, np.float32),
-                           mat_ids=np.tile(scene.mat_ids, len(offs)))
-    return scene, dataclasses.replace(opt, camera_pos=TILED_CAMERA[0],
-                                      camera_look_at=TILED_CAMERA[1])
+    materials and media tiled ``tiles`` (TILES x TILES) on the ground plane,
+    each tile jittered; showcase's light; a low camera looking across the
+    tiles' diagonal. Its files are written by the port's
+    tools/make_scenes.py ``build_tiled`` under build/scenes and loaded as
+    any scene; it is built through ``Renderer`` like showcase: auto width,
+    partition and super fan-out."""
+    from complex_materials_renderer_tpu_torch.config import RenderOptions
+    from complex_materials_renderer_tpu_torch.scene import load_scene
+    from complex_materials_renderer_tpu_torch.tools.make_scenes import build_tiled
+
+    obj = build_tiled(os.path.join(REPO, "build", "scenes"), tiles)
+    base = dict(width=width, height=height, num_samples=spp, rng="parity", device="cuda")
+    base.update(kw)
+    scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
+    return scene, dataclasses.replace(scene.options, **base)
 
 
 def tiled_scene(tiles=(TILES, TILES)):
@@ -858,9 +856,10 @@ def needed_work(r, media9, misc, state, kw):
     records = []
     plain_trace = mk._subset_trace
 
-    def recording(cx, rays, payload, st, tmax):
-        out = plain_trace(cx, rays, payload, st, tmax)
-        records.append((payload, rays, tmax, ct.payload_bound(payload, out, cx.K)))
+    def recording(cx, rays, payload, st, tmax, bounds=False):
+        out = plain_trace(cx, rays, payload, st, tmax, bounds=bounds)
+        state = out[0] if bounds else out
+        records.append((payload, rays, tmax, ct.payload_bound(payload, state, cx.K)))
         return out
 
     mk._subset_trace = recording

@@ -48,6 +48,15 @@
 // memory; the NEE K-list stays in registers (K is a template parameter,
 // every loop over it unrolled). It allocates nothing.
 //
+// Each launch counts its walk, always: per lane, the super boxes its two
+// walks entered and the cluster boxes they entered ('full' and 'dnee'; the
+// ablations' own walks count nothing), in registers (every thread of a tile
+// takes the same box decisions, so each holds the lane's counts), and its
+// bounces. When a lane ends, thread 0 of its tile adds them with those of
+// the warp's other lanes that end together to the card's accumulator (the
+// counter block's CNT_WALK, pass_control.cuh), which the next control
+// launch moves to its site.
+//
 // The ablation instances (CMR_MEGA_DEBUG, megakernel.py:398-401 and the
 // sites named below of the JAX kernel) are other builds of this source,
 // ``-DCMR_MEGA_ABLATE=<mask>`` with a bit per token (kernels/megakernel.py
@@ -89,6 +98,7 @@
 // --fmad=false and no --use_fast_math keep every product, 1/x and sqrtf
 // IEEE-rounded like the plain PyTorch version it is checked against.
 
+#include <cooperative_groups/reduce.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -156,6 +166,17 @@ struct Params {
   int n_lanes, C, S, subs, run, row_w, M, SF, S_OPQ;
   int background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters;
   int* iters;  // nophys: each lane's iterations, then each 1024-lane block's most
+  // K1's walk accumulator (pass_control.cuh CNT_WALK: WALK_LEN int64), or
+  // null: the lanes add their bounces, supers entered and clusters tested
+  // there when they end.
+  unsigned long long* walk;
+};
+
+// A lane's walk counts: the super boxes its walks entered and the cluster
+// boxes they entered (whose slots the tile then tested). Every thread of
+// the tile takes the same box decisions, so each holds the lane's counts.
+struct WalkTally {
+  unsigned int supers, clusters;
 };
 
 // ---------------------------------------------------------------- RNG --
@@ -434,17 +455,19 @@ __device__ __forceinline__ float box_clamp(const float* misc, V3 o, V3 inv, floa
 // cluster tested by the tile.
 template <int G>
 __device__ FullState trace_full(const cg::thread_block_tile<G>& tile, const Params& p, V3 o, V3 d,
-                                float tmax) {
+                                float tmax, WalkTally& tally) {
   const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   const float t0 = box_clamp(p.misc, o, inv, tmax);
   FullState mine{t0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 0.0f, 0.0f, 0.0f};
   float t = t0, slot = -1.0f;
   for (int sp = 0; sp < p.S; ++sp) {
     if (!slab_hit(p.super_bounds + sp * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
+    ++tally.supers;
     const int lo = sp * p.SF;
     const int hi = min(lo + p.SF, p.C);
     for (int c = lo; c < hi; ++c) {
       if (!slab_hit(p.bounds + c * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
+      ++tally.clusters;
       group_cluster_full<G, false>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
                                    d.x, d.y, d.z, t, slot, mine);
     }
@@ -459,7 +482,7 @@ __device__ FullState trace_full(const cg::thread_block_tile<G>& tile, const Para
 template <int G, int K>
 __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const Params& p,
                                    const float* media, V3 o, V3 da, float tmax_a, V3 db,
-                                   float tmax_b) {
+                                   float tmax_b, WalkTally& tally) {
   const V3 ia{safe_inv(da.x), safe_inv(da.y), safe_inv(da.z)};
   const V3 ib{safe_inv(db.x), safe_inv(db.y), safe_inv(db.z)};
   DneeState<K> st;
@@ -480,6 +503,7 @@ __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const P
       visit = slab_hit(sb, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
     }
     if (!visit) continue;
+    ++tally.supers;
     const int lo = sp * p.SF;
     const int hi = min(lo + p.SF, p.C);
     for (int c = lo; c < hi; ++c) {
@@ -490,6 +514,7 @@ __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const P
         vc = slab_hit(cb, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
       }
       if (!vc) continue;
+      ++tally.clusters;
       group_cluster_dnee<G, K>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
                                da.x, da.y, da.z, db.x, db.y, db.z, media, p.M, st);
     }
@@ -866,7 +891,8 @@ __device__ __forceinline__ void shade_color(int background, V3 pt, float nx, flo
 // The closest hit of a bounce: the 'full' walk, or an ablation's.
 template <int G>
 __device__ __forceinline__ FullState first_hit(const cg::thread_block_tile<G>& tile,
-                                               const Params& p, const Lane& L) {
+                                               const Params& p, const Lane& L,
+                                               WalkTally& tally) {
   if constexpr (NOTRACE || CULLONLY) {
     float t = 2.0f;
     if constexpr (!NOTRACE) t = 2.0f + abl_full<G>(tile, p, L.o, L.d, T_MAX).t * 1e-30f;
@@ -875,17 +901,18 @@ __device__ __forceinline__ FullState first_hit(const cg::thread_block_tile<G>& t
   } else if constexpr (ORDERED) {
     return abl_full<G>(tile, p, L.o, L.d, T_MAX);
   } else {
-    return trace_full<G>(tile, p, L.o, L.d, T_MAX);
+    return trace_full<G>(tile, p, L.o, L.d, T_MAX, tally);
   }
 }
 
 // One bounce iteration of a live lane (megakernel.py bounce :992-1370,
-// the default fused walk), on every thread of the lane's tile.
+// the default fused walk), on every thread of the lane's tile; the walks'
+// box visits counted in ``tally``.
 template <int G, int K>
 __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, const float* media,
-                       const float* misc, Lane& L, Rng& rng) {
+                       const float* misc, Lane& L, Rng& rng, WalkTally& tally) {
   const Params& P = p;  // NOLINT: short name for the launch parameters
-  const FullState h = first_hit<G>(tile, P, L);
+  const FullState h = first_hit<G>(tile, P, L, tally);
   const bool got_hit = h.slot >= 0.0f;  // the lane is alive
   if constexpr (NOPHYS) {  // mirror the ray at the hit
     if (got_hit) L.o = V3{h.px, h.py, h.pz};
@@ -943,7 +970,8 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
     if constexpr (CULLONLY) {
       dn = cull_dnee<K>(P, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
     } else {
-      dn = trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
+      dn = trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff,
+                            tally);
     }
     seg_len = dn.a.slot >= 0.0f ? dn.a.t : T_MAX;
   } else if constexpr (NODIST) {
@@ -1108,9 +1136,11 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   // A lane's k-th iteration is the block loop's k-th (the draws of dead
   // lanes are masked and ld dims advance in lockstep), so the per-lane
   // loop equals the TPU kernel's per-block while_loop.
-  for (int it = 0; it < p.max_iters && L.alive; ++it) {
+  WalkTally tally{0u, 0u};
+  int it = 0;
+  for (; it < p.max_iters && L.alive; ++it) {
     rng.it = it;
-    bounce<G, K>(tile, p, s_media, s_misc, L, rng);
+    bounce<G, K>(tile, p, s_media, s_misc, L, rng, tally);
   }
 
   if (tile.thread_rank() != 0) return;
@@ -1132,6 +1162,21 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   if constexpr (NOPHYS) {  // depth grows by one an iteration
     p.iters[lane] = L.depth - depth0;
     atomicMax(p.iters + p.n_lanes + lane / BLOCK_LANES, L.depth - depth0);
+  }
+  if (p.walk != nullptr) {
+    // The lanes of a warp that end here together add their counts once.
+    // No CTA barrier and no shared-memory add in the walks: on an H100 the
+    // barrier cost launches run to the end up to 8%, and the adds up to 31%
+    // on a grid of 172 supers (PERF.md).
+    const cg::coalesced_group ends = cg::coalesced_threads();
+    const unsigned int bounces = cg::reduce(ends, (unsigned int)it, cg::plus<unsigned int>());
+    const unsigned int supers = cg::reduce(ends, tally.supers, cg::plus<unsigned int>());
+    const unsigned int clusters = cg::reduce(ends, tally.clusters, cg::plus<unsigned int>());
+    if (ends.thread_rank() == 0) {
+      atomicAdd(p.walk + WALK_BOUNCES, (unsigned long long)bounces);
+      atomicAdd(p.walk + WALK_SUPERS, (unsigned long long)supers);
+      atomicAdd(p.walk + WALK_CLUSTERS, (unsigned long long)clusters);
+    }
   }
 }
 
@@ -1188,7 +1233,9 @@ extern "C" {
 // 32); returns cudaGetLastError() right after the
 // launch. ``ctrl``: the pass control block (CTRL_LEN int32 on the card) or
 // null. ``iters`` (nophys only, else null): n_lanes + one int a 1024-lane
-// block, which the launch zeroes first.
+// block, which the launch zeroes first. ``walk``: WALK_LEN int64 on the
+// card that the launch adds its walk counts to (the counter block's
+// CNT_WALK), or null.
 int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const float* run_rows,
                           const float* media9, const float* misc, const int* sob, int dim_base,
                           const int* ctrl, float* org, float* dir, float* thr, float* rad, long long* rng,
@@ -1196,12 +1243,12 @@ int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const 
                           int C, int S, int subs, int run, int row_w, int M, int SF, int s_opq,
                           int background, int max_depth, int rr_depth, int tir_kill,
                           int analytic_direct, int ld, int max_iters, int group, int* iters,
-                          void* stream) {
+                          long long* walk, void* stream) {
   const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base, ctrl,
                       org, dir, thr, rad, rng, depth, alive, aux,
                       n_lanes, C, S, subs, run, row_w, M, SF, s_opq,
                       background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters,
-                      iters};
+                      iters, reinterpret_cast<unsigned long long*>(walk)};
   const cudaStream_t s = (cudaStream_t)stream;
   if (cmr::NOPHYS && iters == nullptr) return (int)cudaErrorInvalidValue;
   switch (group) {

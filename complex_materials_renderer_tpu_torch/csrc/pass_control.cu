@@ -37,11 +37,14 @@
 //                K1 launch just before ran, one more K1 launch, the live
 //                lanes it was launched on (the CTRL_NALIVE that the launch
 //                before left) and the lanes it covered (live_blocks x
-//                1024); and the nanoseconds since the card's last stamp
-//                (%globaltimer at this kernel's entry), which becomes the
-//                last stamp. Warp 1 reads what it needs at the kernel's
-//                entry, while the warps count, and adds after the count,
-//                beside thread 0's scalar updates.
+//                1024); the walk counts that K1 launches left in the
+//                block's accumulator (CNT_WALK: bounces, supers entered,
+//                clusters tested), which it clears; and the nanoseconds
+//                since the card's last stamp (%globaltimer at this
+//                kernel's entry), which becomes the last stamp. Warp 1
+//                reads what it needs at the kernel's entry, while the
+//                warps count, and adds after the count, beside thread 0's
+//                scalar updates.
 // It always counts the true bytes of ``alive[0, n)`` (CTRL_NALIVE): the
 // alive lanes, or any bool tensor a plan hands in (a round's listed heads,
 // a generation's listed pairs, the lanes a march step still runs).
@@ -136,14 +139,19 @@ __global__ void __launch_bounds__(PC_THREADS)
   // kernel writes the control block, and thread 0 writes it after that
   // barrier, so these are the values the K1 launch before read.
   const bool sites = (flags & PC_SITE_COUNT) && (threadIdx.x >> 5) == 1;
-  long long now = 0, last = 0;
+  long long now = 0, last = 0, walk = 0;
   int run = 0, live = 0, nalive = 0;
+  // Lane f of warp 1 adds site field f; the walk fields' lanes move one
+  // accumulator each.
+  const int walk_field = (threadIdx.x & 31) - SITE_BOUNCES;
+  const bool walks = sites && walk_field >= 0 && walk_field < WALK_LEN;
   if (sites) {
     if ((threadIdx.x & 31) == 0) now = global_ns();
     run = ctrl[CTRL_RUN];
     live = ctrl[CTRL_LIVE];
     nalive = ctrl[CTRL_NALIVE];
     last = counts[CNT_LAST];
+    if (walks) walk = counts[CNT_WALK + walk_field];
   }
   const bool extent = (flags & PC_EXTENT) != 0;  // uniform over the block
   int c = 0;
@@ -186,9 +194,11 @@ __global__ void __launch_bounds__(PC_THREADS)
       if (f == SITE_K1) add = k1 ? 1 : 0;
       if (f == SITE_LIVE) add = k1 ? nalive : 0;
       if (f == SITE_LANES) add = k1 ? (long long)live * CTRL_BLOCK_LANES : 0;
+      if (walks) add = walk;
       if (f == SITE_NS) add = last != 0 ? now - last : 0;
       counts[CNT_SITES + site * SITE_FIELDS + f] += add;
       if (f == SITE_NS) counts[CNT_LAST] = now;
+      if (walks) counts[CNT_WALK + walk_field] = 0;
     }
     return;
   }

@@ -25,6 +25,15 @@ shadow march (megakernel ``nee_resolve``) treats such keys exactly like
 empty slots, so both give the same light. The binned and pair engines,
 which hold their kernels to this version key for key, ask for the walk's
 keys (``in_order``).
+
+With ``width`` (the slots of a cluster), ``trace_slots`` also gives, for
+each lane and cluster, the bound that the linear walk over the clusters in
+order holds when it reaches the cluster's box: what K1's walk tests the
+box against. A box that the walk culls holds no hit below
+its bound, so the walk's bound before cluster c is that of a walk that
+visits every cluster before c: for 'full' and 'dist' the least hit of those
+clusters (and the initial bound), for 'nee' min(t_opq, K-th key) over
+their slots in order.
 """
 
 from __future__ import annotations
@@ -208,8 +217,17 @@ def _mt(sl: SlotTable, O, D, additive_eps: bool = False):
     return uu, vv, tt, inside
 
 
-def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool = False):
-    """Merge the closest hit over ``sl`` into a (t, slot[, ...]) state."""
+def _exclusive_cummin(x, first):
+    """Per row, the minimum of ``first`` and the columns before each column."""
+    run = torch.cummin(x, dim=1).values
+    return torch.minimum(torch.cat([torch.full_like(x[:, :1], float("inf")), run[:, :-1]], dim=1),
+                         first[:, None])
+
+
+def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool = False,
+             width: int = 0):
+    """Merge the closest hit over ``sl`` into a (t, slot[, ...]) state; with
+    ``width``, (state, the (lanes, clusters) bound before each cluster)."""
     uu, vv, tt, inside = _mt(sl, O, D, additive_eps)
     t_best = state[0]
     ok = inside & (tt > t_min) & (tt < t_best[:, None])
@@ -217,6 +235,13 @@ def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool =
     tmin, j = masked.min(dim=1)
     improved = ok.any(dim=1)
     t_new = torch.where(improved, tmin, t_best)
+    out = _merge_closest(sl, uu, vv, state, t_new, j, improved, full)
+    if not width:
+        return out
+    return out, _exclusive_cummin(masked.view(masked.shape[0], -1, width).amin(dim=2), t_best)
+
+
+def _merge_closest(sl: SlotTable, uu, vv, state, t_new, j, improved, full: bool):
     if len(state) == 1:
         return (t_new,)
     slot = torch.where(improved, (j + sl.slot0).to(torch.float32), state[1])
@@ -241,7 +266,8 @@ def _closest(sl: SlotTable, O, D, state, t_min, full: bool, additive_eps: bool =
     return (t_new, slot) + rest
 
 
-def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids, mask=None, in_order=False):
+def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids, mask=None, in_order=False,
+         width: int = 0):
     """Merge the NEE boundary sweep over ``sl`` into (K keys..., t_opq).
 
     A media hit is kept when it lies below the final t_opq; with
@@ -249,7 +275,10 @@ def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids, mask=None, in_order=
     before its slot (the lane's t_opq and the opaque hits of the slots
     before it), so the keys equal the walk's, including keys beyond an
     opaque hit found later. ``mask`` (per lane) lets only its lanes accept
-    hits (cluster_test.py:307-308 of the JAX package)."""
+    hits (cluster_test.py:307-308 of the JAX package). With ``width``,
+    (state, the (lanes, clusters) bound before each cluster): min(t_opq,
+    K-th key) of the walk over the slots of the clusters before it, in
+    order."""
     _, _, tt, inside = _mt(sl, O, D)
     midx = media_index(sl.mat, med_ids)
     med = midx >= 0.0
@@ -261,14 +290,42 @@ def _nee(sl: SlotTable, O, D, state, t_min, K_NEE, med_ids, mask=None, in_order=
     opq_run = torch.minimum(torch.cummin(torch.where(valid_geom & ~med, tt, inf), dim=1).values,
                             t_in)
     t_opq = opq_run[:, -1]
-    t_before = torch.cat([t_in, opq_run[:, :-1]], dim=1) if in_order else t_opq[:, None]
+    walk_before = torch.cat([t_in, opq_run[:, :-1]], dim=1)
+    t_before = walk_before if in_order else t_opq[:, None]
     valid = valid_geom & med & (tt < t_before)
     mat_i = torch.clamp(midx, min=0.0).to(torch.int32)
     key = (tt.view(torch.int32) & ~NEE_MAT_MASK) | mat_i
     cand = torch.where(valid, key, torch.full_like(key, KEY_EMPTY))
     allk = torch.cat([torch.stack(state[:K_NEE], dim=1), cand], dim=1)
     keys = torch.topk(allk, K_NEE, dim=1, largest=False, sorted=True).values
-    return tuple(keys[:, i].contiguous() for i in range(K_NEE)) + (t_opq,)
+    out = tuple(keys[:, i].contiguous() for i in range(K_NEE)) + (t_opq,)
+    if not width:
+        return out
+    n = tt.shape[0]
+    opq = torch.where(valid_geom & ~med, tt, inf).view(n, -1, width).amin(dim=2)
+    walk_keys = torch.where(valid_geom & med & (tt < walk_before), key,
+                            torch.full_like(key, KEY_EMPTY)).view(n, -1, width)
+    if width < K_NEE:
+        walk_keys = torch.nn.functional.pad(walk_keys, (0, K_NEE - width), value=KEY_EMPTY)
+    per_cluster = torch.topk(walk_keys, K_NEE, dim=2, largest=False, sorted=True).values
+    kth = nee_unpack_t(_prefix_kth(per_cluster), _INF)
+    return out, torch.minimum(kth, _exclusive_cummin(opq, state[K_NEE]))
+
+
+def _prefix_kth(per_cluster):
+    """(lanes, clusters) K-th smallest key of the clusters before each
+    (KEY_EMPTY for fewer than K) from each cluster's K smallest keys
+    (lanes, clusters, K), by an inclusive scan of doubling strides whose
+    step keeps the K smallest of two lists."""
+    n, c, k = per_cluster.shape
+    run, stride = per_cluster, 1
+    while stride < c:
+        empty = torch.full((n, stride, k), KEY_EMPTY, dtype=run.dtype, device=run.device)
+        before = torch.cat([empty, run[:, :-stride]], dim=1)
+        run = torch.sort(torch.cat([run, before], dim=2), dim=2).values[:, :, :k]
+        stride *= 2
+    empty = torch.full((n, 1), KEY_EMPTY, dtype=run.dtype, device=run.device)
+    return torch.cat([empty, run[:, :-1, k - 1]], dim=1)
 
 
 def _lane_chunk(n_slots: int, device) -> int:
@@ -278,34 +335,43 @@ def _lane_chunk(n_slots: int, device) -> int:
 
 def trace_slots(sl: SlotTable, rays, payload: str, state, t_min,
                K_NEE: int = 0, med_ids=(), additive_eps: bool = False, mask=None,
-               in_order: bool = False):
+               in_order: bool = False, width: int = 0):
     """Test every slot of ``sl`` against every lane and merge the hits
     into ``state`` (see payload_state0). ``rays`` is (OX, OY, OZ, DX, DY,
     DZ), or for 'dnee' (OX, OY, OZ, DX, DY, DZ, DXB, DYB, DZB).
     ``additive_eps`` selects K3's acceptance for 'full' (see ``_mt``);
     ``mask`` (per lane) restricts which lanes accept 'nee' hits, and
     ``in_order`` keeps the 'nee' keys of a walk over the slots in order
-    (see ``_nee``)."""
+    (see ``_nee``). With ``width`` (the slots of a cluster; 'full', 'dist'
+    or 'nee' over whole clusters), it returns (state, bounds): also the
+    (lanes, clusters) bound of the walk before each cluster (the module's
+    docstring)."""
     if payload not in PAYLOADS:
         raise ValueError(f"unknown payload {payload!r}")
+    if width and (payload not in ("full", "dist", "nee") or sl.ax.shape[0] % width):
+        raise ValueError(f"walk bounds are for 'full', 'dist' or 'nee' over whole clusters "
+                         f"of {width}")
     n = rays[0].shape[0]
     step = _lane_chunk(sl.ax.shape[0], rays[0].device)
-    outs = []
+    outs, walks = [], []
     for lo in range(0, n, step):
         r = tuple(x[lo:lo + step] for x in rays)
         st = tuple(x[lo:lo + step] for x in state)
         O, DA = r[0:3], r[3:6]
         if payload == "full":
-            outs.append(_closest(sl, O, DA, st, t_min, full=True, additive_eps=additive_eps))
+            outs.append(_closest(sl, O, DA, st, t_min, full=True, additive_eps=additive_eps,
+                                 width=width))
         elif payload in ("dist", "occl"):
-            outs.append(_closest(sl, O, DA, st, t_min, full=False))
+            outs.append(_closest(sl, O, DA, st, t_min, full=False, width=width))
         elif payload == "nee":
             outs.append(_nee(sl, O, DA, st, t_min, K_NEE, med_ids,
-                             None if mask is None else mask[lo:lo + step], in_order))
+                             None if mask is None else mask[lo:lo + step], in_order, width))
         else:
             a = _closest(sl, O, DA, st[:2], t_min, full=False)
             b = _nee(sl, O, r[6:9], st[2:], t_min, K_NEE, med_ids)
             outs.append(a + b)
-    if len(outs) == 1:
-        return outs[0]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+        if width:
+            outs[-1], walk = outs[-1]
+            walks.append(walk)
+    out = outs[0] if len(outs) == 1 else tuple(torch.cat(parts) for parts in zip(*outs))
+    return (out, torch.cat(walks)) if width else out

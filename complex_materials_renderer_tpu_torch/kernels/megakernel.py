@@ -26,6 +26,16 @@ counter modes) or lockstep Owen-scrambled Sobol (ld mode), drawn in the
 kernel. Physics and RNG order follow the JAX kernel line by line; see
 its docstrings for the reference (volpath) line map.
 
+Each launch counts its walk, always: its lanes' bounces, the super boxes
+its walks entered and the cluster boxes they entered (whose slots the
+tile then tests), in the walks of the default instance ('full' and the
+fused 'dnee'; the ablations' own walks count nothing), added to the
+card's accumulator (``pass_control.walk_counts``, or ``walk``) for the
+next control launch to move to its site. The group walk takes every box
+decision of the one-thread walk, so the plain version gives the same
+counts from the walk's bound before each box (``cluster_test``'s
+``width``).
+
 ``debug`` takes the JAX kernel's ``CMR_MEGA_DEBUG`` ablations, a
 comma-separated set of ``ABLATIONS`` tokens with the JAX semantics (see
 ``csrc/megakernel.cu`` for each). On the card each set is a CUDA instance
@@ -46,7 +56,17 @@ import torch
 from ..ops import rng as rng_ops
 from ..render import hitinfo
 from .cluster_grid import DeviceClusterGrid
-from .pass_control import CTRL_DIM0, CTRL_LEN, CTRL_LIVE, CTRL_RUN
+from .pass_control import (
+    CTRL_DIM0,
+    CTRL_LEN,
+    CTRL_LIVE,
+    CTRL_RUN,
+    WALK_BOUNCES,
+    WALK_CLUSTERS,
+    WALK_LEN,
+    WALK_SUPERS,
+    walk_counts,
+)
 from .cluster_test import (
     group_size,
     nee_list_len,
@@ -408,6 +428,10 @@ class _Plain(NamedTuple):
     analytic_direct: bool
     ld: bool
     sob: torch.Tensor | None  # (SOBOL_DIMS, 30) int64 direction numbers
+    bounds: torch.Tensor  # (C, 8) cluster boxes, the walk's lower level
+    super_bounds: torch.Tensor  # (S, 8) super boxes, its top level
+    super_factor: int
+    width: int  # slots of a cluster
 
 
 def _box_clamp(cx, O, INV, TMAX):
@@ -423,22 +447,74 @@ def _box_clamp(cx, O, INV, TMAX):
     return _MIN(TMAX, _max_s(tf, 0.0) * _f32(1.0001) + _TEN_TMIN)
 
 
-def _subset_trace(cx, rays, payload, state, tmax):
+def _subset_trace(cx, rays, payload, state, tmax, bounds=False):
     """trace_slots on the lanes whose bound admits a hit (tmax > t_min);
-    the other lanes cannot change their state."""
+    the other lanes cannot change their state. With ``bounds``, (state,
+    the walk's (lanes, clusters) bound before each cluster), ``tmax`` on
+    the other lanes."""
     act = (tmax > T_MIN).nonzero().squeeze(1)
+    kw = dict(width=cx.width) if bounds else {}
+    every = tmax[:, None].expand(-1, cx.bounds.shape[0]).clone() if bounds else None
     if act.numel() == 0:
-        return state
+        return (state, every) if bounds else state
     if act.numel() == tmax.numel():
-        return trace_slots(cx.slots, rays, payload, state, T_MIN, cx.K, cx.med_ids)
+        return trace_slots(cx.slots, rays, payload, state, T_MIN, cx.K, cx.med_ids, **kw)
     sub = trace_slots(cx.slots, tuple(r[act] for r in rays), payload,
-                      tuple(s[act] for s in state), T_MIN, cx.K, cx.med_ids)
+                      tuple(s[act] for s in state), T_MIN, cx.K, cx.med_ids, **kw)
+    if bounds:
+        sub, got = sub
+        every[act] = got
     out = []
     for s, v in zip(state, sub):
         s = s.clone()
         s[act] = v
         out.append(s)
-    return tuple(out)
+    return (tuple(out), every) if bounds else tuple(out)
+
+
+def _slab(boxes, O, INV, tmax):
+    """csrc/cluster_test.cuh ``slab_hit`` of every lane (rows) against
+    every box of ``boxes`` (columns), under the (lanes, boxes) bound
+    ``tmax``."""
+    tn = tf = None
+    for a in range(3):
+        s0 = (boxes[:, a] - O[a][:, None]) * INV[a][:, None]
+        s1 = (boxes[:, a + 3] - O[a][:, None]) * INV[a][:, None]
+        lo, hi = _MIN(s0, s1), _MAX(s0, s1)
+        tn, tf = (lo, hi) if tn is None else (_MAX(tn, lo), _MIN(tf, hi))
+    return _MAX(tn, _full(tn, T_MIN)) <= _MIN(tf, tmax)
+
+
+def _tally(cx, walk, O, sets):
+    """Add the supers entered and the clusters tested by the linear walk
+    from ``O`` to ``walk``: ``sets`` holds (INV, need, bound before each
+    cluster) of each ray set the walk serves; a box is entered when a set
+    that needs it meets it under that set's bound (trace_full and
+    trace_dnee of csrc/megakernel.cu)."""
+    C, S, SF = cx.bounds.shape[0], cx.super_bounds.shape[0], cx.super_factor
+    first = torch.arange(S, device=cx.bounds.device) * SF
+    owner = torch.arange(C, device=cx.bounds.device) // SF
+    n = O[0].shape[0]
+    step = max(1, (1 << 24) // max(1, C))
+    for lo in range(0, n, step):
+        o = tuple(x[lo:lo + step] for x in O)
+        sup = clu = None
+        for inv, need, before in sets:
+            inv = tuple(x[lo:lo + step] for x in inv)
+            m = need[lo:lo + step, None]
+            b = before[lo:lo + step]
+            s_hit = m & _slab(cx.super_bounds, o, inv, b[:, first])
+            c_hit = m & _slab(cx.bounds, o, inv, b)
+            sup, clu = (s_hit, c_hit) if sup is None else (sup | s_hit, clu | c_hit)
+        clu = clu & sup[:, owner]
+        walk[WALK_SUPERS] += sup.sum()
+        walk[WALK_CLUSTERS] += clu.sum()
+
+
+def _counts_full(cx) -> bool:
+    """Whether the closest hit is the 'full' walk of trace_full (the
+    ablations notrace, cullonly and ordered replace it)."""
+    return not cx.mask & (ABLATIONS["notrace"] | ABLATIONS["cullonly"] | ABLATIONS["ordered"])
 
 
 def _cullonly(cx) -> bool:
@@ -447,25 +523,35 @@ def _cullonly(cx) -> bool:
     return bool(cx.mask & ABLATIONS["cullonly"])
 
 
-def _trace_full(cx, O, D, TMAX, payload="full"):
+def _trace_full(cx, O, D, TMAX, payload="full", walk=None):
     """The closest hit ('full', or 'dist' for the unfused distance walk)
-    under the scene-box clamped bound."""
+    under the scene-box clamped bound; with ``walk``, the walk's box visits
+    added there."""
     INV = tuple(_safe_inv(d) for d in D)
     TMAX = _box_clamp(cx, O, INV, TMAX)
     st0 = payload_state0(payload, TMAX)
-    return st0 if _cullonly(cx) else _subset_trace(cx, O + D, payload, st0, TMAX)
+    if _cullonly(cx):
+        return st0
+    if walk is None:
+        return _subset_trace(cx, O + D, payload, st0, TMAX)
+    st, before = _subset_trace(cx, O + D, payload, st0, TMAX, bounds=True)
+    _tally(cx, walk, O, [(INV, torch.ones_like(TMAX, dtype=torch.bool), before)])
+    return st
 
 
-def _trace_dnee(cx, O, DA, TMAX_A, DB, TMAX_B):
+def _trace_dnee(cx, O, DA, TMAX_A, DB, TMAX_B, walk):
     """The fused walk's result: (t, slot) along set A (scene-box clamped)
-    + the K-list and t_opq along set B, from the shared origin O."""
+    + the K-list and t_opq along set B, from the shared origin O; the
+    walk's box visits added to ``walk``."""
     INV = tuple(_safe_inv(d) for d in DA)
     TMAX_A = _box_clamp(cx, O, INV, TMAX_A)
     st0 = payload_state0("dnee", TMAX_A, cx.K, TMAX_B=TMAX_B)
     if _cullonly(cx):
         return st0
-    a = _subset_trace(cx, O + DA, "dist", st0[:2], TMAX_A)
-    b = _subset_trace(cx, O + DB, "nee", st0[2:], TMAX_B)
+    a, before_a = _subset_trace(cx, O + DA, "dist", st0[:2], TMAX_A, bounds=True)
+    b, before_b = _subset_trace(cx, O + DB, "nee", st0[2:], TMAX_B, bounds=True)
+    _tally(cx, walk, O, [(INV, TMAX_A > T_MIN, before_a),
+                         (tuple(_safe_inv(d) for d in DB), TMAX_B > T_MIN, before_b)])
     return a + b
 
 
@@ -609,10 +695,11 @@ def _make_draw(cx, it, PH, dim_base):
     return draw
 
 
-def _bounce(cx, st, it, PH, dim_base):
+def _bounce(cx, st, it, PH, dim_base, walk):
     """One bounce iteration of live lanes (megakernel.py:992-1370: the
     default fused walk, or the ablations of ``cx.mask``), drawing ld
-    dimensions from ``dim_base`` (clipped)."""
+    dimensions from ``dim_base`` (clipped); the walks' box visits added to
+    ``walk``."""
     (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
      ra_r, ra_g, ra_b, rng, depth, alive) = st
     mask = cx.mask
@@ -631,7 +718,7 @@ def _bounce(cx, st, it, PH, dim_base):
         px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
     else:
         (t, slot, u, v, gnx, gny, gnz, mat, px, py, pz) = _trace_full(
-            cx, (ox, oy, oz), (dx, dy, dz), eff
+            cx, (ox, oy, oz), (dx, dy, dz), eff, walk=walk if _counts_full(cx) else None
         )
     hit = slot >= 0.0
     got_hit = alive & hit
@@ -696,7 +783,7 @@ def _bounce(cx, st, it, PH, dim_base):
         )
         dn = _trace_dnee(
             cx, (px, py, pz), (dax, day, daz), _W(transmitted, bound, zero),
-            (ldx, ldy, ldz), eff_b,
+            (ldx, ldy, ldz), eff_b, walk,
         )
         seg_len = _W(dn[1] >= 0.0, dn[0], _full(dn[0], T_MAX))
     elif mask & ABLATIONS["nodist"]:
@@ -911,6 +998,10 @@ def plain_context(grid: DeviceClusterGrid, media9: torch.Tensor, misc: torch.Ten
         analytic_direct=bool(analytic_direct),
         ld=bool(ld),
         sob=rng_ops.sobol_table(grid.bounds.device) if ld else None,
+        bounds=grid.bounds,
+        super_bounds=grid.super_bounds,
+        super_factor=int(grid.super_factor),
+        width=grid.width,
     )
 
 
@@ -932,15 +1023,18 @@ def trace_paths_mega_plain(
     debug: str = "",
     ctrl: torch.Tensor | None = None,
     plain: _Plain | None = None,
+    walk: torch.Tensor | None = None,
 ) -> MegaState:
     """The plain PyTorch version of ``trace_paths_mega`` (same arguments,
-    same in-place update), on any device. ``plain``: the context of
-    ``plain_context`` for these arguments, else built here. With ``ctrl``
-    the run flag, live_blocks and the ld base are read from the control
-    block by tensor operations, so the call sends no value to the host."""
+    same in-place update, the same walk counts added to ``walk``), on any
+    device. ``plain``: the context of ``plain_context`` for these
+    arguments, else built here. With ``ctrl`` the run flag, live_blocks and
+    the ld base are read from the control block by tensor operations, so
+    the call sends no value to the host."""
     max_iters, lanes, dim_base = _check_call(
         grid, state, max_depth, max_iters, ld, dim0, live_blocks, ctrl
     )
+    walk = _walk_counts(walk, state.alive.device)
     cx = plain if plain is not None else plain_context(
         grid, media9, misc, background=background, max_depth=max_depth, rr_depth=rr_depth,
         nee_max_media=nee_max_media, tir_kill=tir_kill, analytic_direct=analytic_direct,
@@ -970,6 +1064,7 @@ def trace_paths_mega_plain(
             live = (state.alive & in_live).nonzero().squeeze(1)
         if live.numel() == 0:
             break
+        walk[WALK_BOUNCES] += (state.alive & in_live).sum()
         st = (
             *(state.org[live, i] for i in range(3)),
             *(state.dir[live, i] for i in range(3)),
@@ -977,7 +1072,7 @@ def trace_paths_mega_plain(
             *(state.rad[live, i] for i in range(3)),
             state.rng[live], state.depth[live], state.alive[live],
         )
-        out = _bounce(cx, st, it, state.aux[live] if ld else None, dim_base)
+        out = _bounce(cx, st, it, state.aux[live] if ld else None, dim_base, walk)
         state.org[live] = torch.stack(out[0:3], dim=1)
         state.dir[live] = torch.stack(out[3:6], dim=1)
         state.thr[live] = torch.stack(out[6:9], dim=1)
@@ -1006,6 +1101,7 @@ def trace_paths_mega(
     debug: str = "",
     ctrl: torch.Tensor | None = None,
     plain: _Plain | None = None,
+    walk: torch.Tensor | None = None,
 ) -> MegaState:
     """Advance R paths up to ``max_iters`` bounce iterations in ONE kernel.
 
@@ -1026,6 +1122,11 @@ def trace_paths_mega(
     kernel of ``csrc/megakernel.cu`` built for ``debug``'s ablation mask
     (or raises); a CPU state runs ``trace_paths_mega_plain`` (with the
     context ``plain`` when given).
+
+    ``walk``: a (WALK_LEN,) int64 tensor on the state's device that the
+    call adds its walk counts to (bounces, supers entered, clusters
+    tested); by default the device's accumulator
+    (``pass_control.walk_counts``).
     """
     if state.org.device.type == "cpu":
         return trace_paths_mega_plain(
@@ -1034,12 +1135,13 @@ def trace_paths_mega(
             nee_max_media=nee_max_media, tir_kill=tir_kill,
             max_iters=max_iters, live_blocks=live_blocks,
             analytic_direct=analytic_direct, ld=ld, dim0=dim0, debug=debug,
-            ctrl=ctrl, plain=plain,
+            ctrl=ctrl, plain=plain, walk=walk,
         )
     max_iters, lanes, dim_base = _check_call(
         grid, state, max_depth, max_iters, ld, dim0, live_blocks, ctrl
     )
-    _launch(grid, media9, misc, state, lanes, dim_base, ctrl, background=background,
+    walk = _walk_counts(walk, state.org.device)
+    _launch(grid, media9, misc, state, lanes, dim_base, ctrl, walk, background=background,
             max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
             tir_kill=tir_kill, analytic_direct=analytic_direct, ld=ld,
             max_iters=max_iters, mask=ablation_mask(debug))
@@ -1052,6 +1154,14 @@ trace_paths_mega.launches = 0
 
 _SOBOL_I32: dict = {}
 _ITERS: dict = {}
+
+
+def _walk_counts(walk, device) -> torch.Tensor:
+    """``walk`` checked, or the device's walk accumulator."""
+    if walk is None:
+        return walk_counts(device)
+    _require(walk, "walk", torch.int64, (WALK_LEN,), torch.device(device))
+    return walk
 
 
 def nophys_iters(device, lanes: int) -> torch.Tensor:
@@ -1073,6 +1183,7 @@ def prepare(device, lanes: int, nee_max_media: int, debug: str = "") -> None:
     mask, _one_thread = cuda_instance(ablation_mask(debug))
     build.megakernel(nee_max_media, mask)
     _sobol_i32(device)
+    walk_counts(device)
     if mask & ABLATIONS["nophys"]:
         nophys_iters(device, lanes)
 
@@ -1099,11 +1210,12 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, *, background, max_depth,
+def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, walk, *, background, max_depth,
             rr_depth, nee_max_media, tir_kill, analytic_direct, ld, max_iters, mask):
     """Check every tensor and launch the CUDA kernel of ablation mask
     ``mask`` on the current stream (with the control block ``ctrl``, or
-    over ``lanes`` lanes at the ld base ``dim_base``)."""
+    over ``lanes`` lanes at the ld base ``dim_base``), adding its walk
+    counts to ``walk``."""
     from . import build
 
     if nee_max_media < 0:
@@ -1148,7 +1260,7 @@ def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, *, background, max
             media9.shape[0], grid.super_factor, grid.num_opaque_supers,
             int(background), int(max_depth), int(rr_depth), int(bool(tir_kill)),
             int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group,
-            None if iters is None else p(iters), ctypes.c_void_p(stream),
+            None if iters is None else p(iters), p(walk), ctypes.c_void_p(stream),
         )
         if not torch.cuda.is_current_stream_capturing():
             trace_paths_mega.launches += 1

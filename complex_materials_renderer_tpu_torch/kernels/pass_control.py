@@ -27,7 +27,10 @@ launches count, always, in a block of counters on each card
 (``device_counts``, the layout ``CNT_*`` and ``SITE_*`` of
 ``csrc/pass_control.cuh``): the K1 launches that ran and the control
 launches (indices 0 and 1), and for each site its visits, the K1 launches
-that ran just before it, their live lanes and the lanes they covered, and
+that ran just before it, their live lanes and the lanes they covered, the
+walk counts those launches left (their lanes' bounces, the super boxes
+entered and the clusters tested: K1 adds them to the block's accumulator
+``CNT_WALK`` and the site's control launch moves them to the site), and
 on the card the nanoseconds of the segments that end there (%globaltimer
 at each control launch's entry, less the last stamp). A captured call
 starts and ends with a stamp (``stamp``), which keeps its interval in a
@@ -65,13 +68,19 @@ NOT_K1 = 8192  # with AFTER_K1: the kernel before was not K1 (no K1 count)
 _SET_RUNG_HANDLES = 16384  # set by ``pass_control`` when it is given rung handles
 SITE_COUNT = 32768  # count the launch at its site
 
-# The counter block of a device (int64; csrc/pass_control.cuh CNT_*, SITE_*).
+# The counter block of a device (int64; csrc/pass_control.cuh CNT_*, WALK_*, SITE_*).
 CNT_K1, CNT_CONTROL, CNT_LAST, CNT_CALLS, CNT_CALL_NS, CNT_CALIBRATE = 0, 1, 2, 3, 4, 5
-CNT_HEAD = 8
+CNT_WALK = 8  # K1's walk accumulator: WALK_LEN counts that K1 launches add to
+WALK_BOUNCES, WALK_SUPERS, WALK_CLUSTERS = 0, 1, 2
+WALK_LEN = 3
+CNT_HEAD = 16
 CNT_RING = 128  # call intervals kept, (start, end) ns from CNT_HEAD
 CNT_SITES = CNT_HEAD + 2 * CNT_RING
-SITE_VISITS, SITE_K1, SITE_LIVE, SITE_LANES, SITE_NS = range(5)
-SITE_FIELDS = 5
+SITE_VISITS, SITE_K1, SITE_LIVE, SITE_LANES = 0, 1, 2, 3
+SITE_BOUNCES, SITE_SUPERS, SITE_CLUSTERS = 4, 5, 6  # the walk counts, in WALK_* order
+SITE_NS = 7
+SITE_FIELDS = 8
+SITE_KEYS = ("visits", "k1", "live", "lanes", "bounces", "supers", "clusters", "ns")  # by index
 MAX_SITES = 512
 CNT_LEN = CNT_SITES + MAX_SITES * SITE_FIELDS
 STAMP_START, STAMP_END, STAMP_CALIBRATE = 0, 1, 2
@@ -155,10 +164,17 @@ def device_counts(device) -> torch.Tensor:
     return _COUNTS[key]
 
 
+def walk_counts(device) -> torch.Tensor:
+    """The (WALK_LEN,) view of ``device``'s counter block that K1's
+    launches there add their walk counts to (``CNT_WALK``)."""
+    return device_counts(device).narrow(0, CNT_WALK, WALK_LEN)
+
+
 def site_counts(block) -> dict:
     """{label: [visits, K1 launches that ran, their live lanes, the lanes
-    they covered, ns]} of the sites in ``block``, a counter block or a
-    prefix of one, on the host (a list, or a tensor read here)."""
+    they covered, their bounces, supers entered, clusters tested, ns]} of
+    the sites in ``block``, a counter block or a prefix of one, on the host
+    (a list, or a tensor read here)."""
     block = block.tolist() if isinstance(block, torch.Tensor) else list(block)
     out = {}
     for i, label in enumerate(site_labels()):
@@ -252,6 +268,9 @@ def pass_control_plain(alive: torch.Tensor, ctrl: torch.Tensor, counts: torch.Te
         counts[base + SITE_K1] += k1
         counts[base + SITE_LIVE] += k1 * ctrl[CTRL_NALIVE].to(torch.int64)
         counts[base + SITE_LANES] += k1 * ctrl[CTRL_LIVE].to(torch.int64) * BLOCK
+        counts[base + SITE_BOUNCES:base + SITE_BOUNCES + WALK_LEN] += \
+            counts[CNT_WALK:CNT_WALK + WALK_LEN]
+        counts[CNT_WALK:CNT_WALK + WALK_LEN] = 0
     if flags & AFTER_K1:
         ran = (ctrl[CTRL_RUN] != 0) & (ctrl[CTRL_LIVE] > 0)
         ctrl[CTRL_DIM0] = ctrl[CTRL_DIM0] + ran.to(torch.int32) * advance

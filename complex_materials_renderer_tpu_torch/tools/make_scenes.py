@@ -14,6 +14,15 @@ a bare checkout (reference scenes stay optional extras):
   icospheres (ior 1.52-1.77) — the TIR-heavy anisotropic multi-media
   regime (reference gem_corner.json media).
 
+And the many-cluster scene, which only the port's copy writes:
+
+- showcase_tiled_<a>x<b>.{obj,mtl,json} (``build_tiled``): showcase's
+  triangles, materials and media tiled a x b (16 x 16: 352,768 triangles)
+  on the ground plane, each tile jittered, seen from above tile 0's corner
+  across the tiles toward the middle of the 16 x 16 grid, lit by one
+  point light above and behind the camera. The port's benchmark renders
+  the 16 x 16 tiling, and its card checks the 16 x 16 and smaller tilings.
+
 The port's own copy of complex_materials_renderer_tpu/tools/make_scenes.py
 (numpy only): it writes the same bytes.
 
@@ -29,8 +38,29 @@ import sys
 
 import numpy as np
 
+from . import make_showcase
 from .make_showcase import build as build_showcase
 from .make_showcase import icosphere, rot_y
+
+# The many-cluster scene (``build_tiled``): showcase tiled TILES on the
+# ground plane at TILE_PITCH (showcase's floor is 12 x 9), each tile shifted
+# by a jitter in [0, 0.5) along x and z drawn from TILE_SEED, seen from
+# TILED_EYE (above tile 0's corner) toward the middle of the grid
+# (``tiled_look_at``) and lit by TILED_LIGHT (position, intensity; the
+# colour is showcase's). Both stand above showcase's walls (6 high): from a
+# camera among them, a turn of the view by a degree or two hides the tiles
+# behind a wall, and showcase's own light, below the walls' tops, reaches
+# little beyond its own tile.
+TILES = (16, 16)
+TILE_PITCH = (12.5, 9.5)
+TILE_SEED = 6
+TILED_EYE = (-20.0, 40.0, 30.0)
+TILED_LIGHT = ((-40.0, 80.0, 50.0), 200000.0)
+
+
+def tiled_look_at(tiles=TILES) -> tuple:
+    """The middle of the tiles' grid on the ground plane."""
+    return (TILE_PITCH[0] * (tiles[0] - 1) / 2, 0.0, -TILE_PITCH[1] * (tiles[1] - 1) / 2)
 
 # Coefficients from the public material dictionary (mat_parser.py):
 PRESSO = {
@@ -279,6 +309,56 @@ def build_isobox(outdir: str):
         },
     }
     return _write_obj(outdir, "isobox", groups, scene_json)
+
+
+def tile_offsets(tiles=TILES) -> np.ndarray:
+    """(tiles[0] * tiles[1], 3) float32 offsets of the tiles, tile (i, j)
+    at row i * tiles[1] + j."""
+    rs = np.random.default_rng(TILE_SEED)
+    return np.asarray([(TILE_PITCH[0] * i + rs.uniform(0.0, 0.5), 0.0,
+                        -TILE_PITCH[1] * j - rs.uniform(0.0, 0.5))
+                       for i in range(tiles[0]) for j in range(tiles[1])], np.float32)
+
+
+def build_tiled(outdir: str, tiles=TILES) -> str:
+    """Write showcase_tiled_<a>x<b>.{obj,mtl,json} to ``outdir``: showcase's
+    groups once a tile, tile by tile (``tile_offsets``), each vertex the
+    float32 sum of showcase's vertex as its .obj reads (6 decimals) and the
+    tile's offset, written with 9 significant digits so that it reads back
+    bit-equal; faces by indices relative to the group's vertices. The .mtl
+    is showcase's; the .json is showcase's with the camera at TILED_EYE
+    looking at ``tiled_look_at(tiles)``, and TILED_LIGHT as the light's
+    position and intensity. Returns the .obj's path."""
+    os.makedirs(outdir, exist_ok=True)
+    name = f"showcase_tiled_{tiles[0]}x{tiles[1]}"
+    groups = [(g, np.asarray([[float(f"{x:.6f}") for x in v] for v in verts], np.float32),
+               faces) for g, verts, faces in make_showcase.groups()]
+    obj_path = os.path.join(outdir, f"{name}.obj")
+    lines = [f"# generated scene: {name}: showcase tiled {tiles[0]} x {tiles[1]}\n",
+             f"mtllib {name}.mtl\n"]
+    offsets = tile_offsets(tiles)
+    for t, off in enumerate(offsets):
+        for gname, verts, faces in groups:
+            lines.append(f"o {gname}_{t}\n")
+            lines += [f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in (verts + off).tolist()]
+            lines.append(f"usemtl {gname}\n")
+            rel = faces - len(verts)
+            lines += [f"f {a} {b} {c}\n" for a, b, c in rel.tolist()]
+    with open(obj_path, "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(outdir, f"{name}.mtl"), "w") as f:
+        for gname, _, _ in groups:
+            f.write(f"newmtl {gname}\nKd 0.8 0.8 0.8\n\n")
+    scene_json = make_showcase.scene_json()
+    scene_json["scene"]["camera"] = list(TILED_EYE)
+    scene_json["scene"]["cameraLookAt"] = list(tiled_look_at(tiles))
+    scene_json["scene"]["lightPos"] = list(TILED_LIGHT[0])
+    scene_json["scene"]["lightIntensity"] = TILED_LIGHT[1]
+    with open(os.path.join(outdir, f"{name}.json"), "w") as f:
+        json.dump(scene_json, f, indent=4)
+    n_tris = len(offsets) * sum(len(fc) for _, _, fc in groups)
+    print(f"wrote {obj_path}: {n_tris} triangles")
+    return obj_path
 
 
 def build_all(outdir: str):

@@ -85,8 +85,8 @@ def rot_y(deg):
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
 
 
-def build(outdir: str):
-    os.makedirs(outdir, exist_ok=True)
+def groups() -> list:
+    """The scene's (material name, verts, faces) groups, in file order."""
     groups = []  # (material_name, verts, faces)
 
     # Studio corner: floor and two walls.
@@ -119,29 +119,14 @@ def build(outdir: str):
     cv, cf = cube()
     cv = cv @ rot_y(30).T
     groups.append(("glass_cube", cv * 0.52 + np.array([0.05, 0.521, -1.0]), cf))
+    return groups
 
-    mtl_names = [name for name, _, _ in groups]
-    obj_path = os.path.join(outdir, "showcase.obj")
-    with open(obj_path, "w") as f:
-        f.write("# showcase scene for complex_materials_renderer_tpu\n")
-        f.write("mtllib showcase.mtl\n")
-        base = 1
-        for name, verts, faces in groups:
-            f.write(f"o {name}\n")
-            for v in verts:
-                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
-            f.write(f"usemtl {name}\n")
-            for a, b, c in faces:
-                f.write(f"f {base + a} {base + b} {base + c}\n")
-            base += len(verts)
 
-    with open(os.path.join(outdir, "showcase.mtl"), "w") as f:
-        for name in mtl_names:
-            f.write(f"newmtl {name}\nKd 0.8 0.8 0.8\n\n")
-
+def scene_json() -> dict:
+    """The scene's .json: camera, light and the three media."""
     # Media definitions use the measured coefficients from the public
     # material dictionary format (sigma per mm; scale=10 means 1 unit=1cm).
-    scene_json = {
+    return {
         "scene": {
             "camera": [0.3, 2.6, 9.5],
             "cameraLookAt": [0.0, 0.8, -0.2],
@@ -172,10 +157,34 @@ def build(outdir: str):
             "ior": 1.5,
         },
     }
-    with open(os.path.join(outdir, "showcase.json"), "w") as f:
-        json.dump(scene_json, f, indent=4)
 
-    n_tris = sum(len(fc) for _, _, fc in groups)
+
+def build(outdir: str):
+    os.makedirs(outdir, exist_ok=True)
+    groups_ = groups()
+    mtl_names = [name for name, _, _ in groups_]
+    obj_path = os.path.join(outdir, "showcase.obj")
+    with open(obj_path, "w") as f:
+        f.write("# showcase scene for complex_materials_renderer_tpu\n")
+        f.write("mtllib showcase.mtl\n")
+        base = 1
+        for name, verts, faces in groups_:
+            f.write(f"o {name}\n")
+            for v in verts:
+                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+            f.write(f"usemtl {name}\n")
+            for a, b, c in faces:
+                f.write(f"f {base + a} {base + b} {base + c}\n")
+            base += len(verts)
+
+    with open(os.path.join(outdir, "showcase.mtl"), "w") as f:
+        for name in mtl_names:
+            f.write(f"newmtl {name}\nKd 0.8 0.8 0.8\n\n")
+
+    with open(os.path.join(outdir, "showcase.json"), "w") as f:
+        json.dump(scene_json(), f, indent=4)
+
+    n_tris = sum(len(fc) for _, _, fc in groups_)
     print(f"wrote {obj_path}: {n_tris} triangles, materials {mtl_names}")
 
 

@@ -22,7 +22,8 @@ SURVEY §5). The port records instead, always and in one place
   by name, and on each device it ran on a snapshot of that device's
   counter block (kernels/pass_control.py ``device_counts``: the K1 and
   control launches, each site's visits, K1 launches, live and covered
-  lanes and device nanoseconds, the ring of call intervals). The snapshot
+  lanes, K1's walk counts (bounces, supers entered, clusters tested) and
+  device nanoseconds, the ring of call intervals). The snapshot
   is a clone queued on the device's stream at the render's end, with no
   host synchronise; it is read to the host when the record is read.
 - one ``Calibration`` a card, measured at its first render: the offset of
@@ -254,9 +255,9 @@ class Recorder:
         return best
 
     def site_delta(self, first: Optional[RenderRecord], last: RenderRecord, device) -> dict:
-        """{label: [visits, K1 launches, live lanes, covered lanes, ns]} on
-        ``device`` between the snapshots of ``first`` (None: from zero) and
-        ``last``."""
+        """{label: [visits, K1 launches, live lanes, covered lanes, bounces,
+        supers entered, clusters tested, ns]} on ``device`` between the
+        snapshots of ``first`` (None: from zero) and ``last``."""
         from ..kernels import pass_control as pc
 
         b = last.block(device) or []
@@ -266,18 +267,18 @@ class Recorder:
 
     def segments(self, first: Optional[RenderRecord], last: RenderRecord) -> dict:
         """{'k1' | 'sort' | 'other': {'visits', 'k1' (K1 launches that ran),
-        'live' (their live lanes), 'lanes' (the lanes they covered), 'ns'}}
-        summed over the cards between two snapshots."""
+        'live' (their live lanes), 'lanes' (the lanes they covered),
+        'bounces', 'supers', 'clusters' (their walk counts), 'ns'}} summed
+        over the cards between two snapshots."""
         from ..kernels import pass_control as pc
 
-        keys = ("visits", "k1", "live", "lanes", "ns")
-        out = {k: dict.fromkeys(keys, 0) for k in ("k1", "sort", "other")}
+        out = {k: dict.fromkeys(pc.SITE_KEYS, 0) for k in ("k1", "sort", "other")}
         kinds = {site.label: site.kind for site in pc.sites()}
         for d in last.devices:
             if d.startswith("cuda"):
                 for label, fields in self.site_delta(first, last, d).items():
                     acc = out[kinds[label]]
-                    for k, v in zip(keys, fields):
+                    for k, v in zip(pc.SITE_KEYS, fields):
                         acc[k] += v
         return out
 
@@ -325,8 +326,9 @@ class Recorder:
 
     def report(self, rec: RenderRecord) -> list:
         """Lines of ``rec``: its top-level spans, the cards' idle between its
-        calls by host span, and on each device its segments (K1 by width,
-        sorts, the rest) and K1's lane occupancy."""
+        calls by host span, on each device its segments (K1 by width,
+        sorts, the rest) and K1's lane occupancy, and K1's walk by site:
+        the super boxes entered and the clusters tested a bounce."""
         from ..kernels import pass_control as pc
 
         root = rec.totals.get(ROOT, 0.0)
@@ -348,9 +350,16 @@ class Recorder:
             by_kind = {"k1": 0, "sort": 0, "other": 0}
             widths: dict = {}
             live = lanes = 0
-            for label, (_, k1, lv, ln, ns) in sites.items():
+            walks = []
+            for label, fields in sites.items():
+                f = dict(zip(pc.SITE_KEYS, fields))
+                k1, lv, ln, ns = f["k1"], f["live"], f["lanes"], f["ns"]
                 site = info[label]
                 by_kind[site.kind] += ns
+                if f["bounces"]:
+                    walks.append(f"{label}: {f['supers'] / f['bounces']:.2f} supers, "
+                                 f"{f['clusters'] / f['bounces']:.2f} clusters a bounce "
+                                 f"({f['bounces']} bounces)")
                 if site.kind == "k1":
                     w = widths.setdefault(site.width, [0, 0])
                     w[0] += ns
@@ -369,6 +378,8 @@ class Recorder:
                 n = sum(v[1] for v in widths.values())
                 lines.append(f"  {d}: K1 {n} launches (no device time off the card); "
                              f"K1 lane occupancy {occ}")
+            if walks:
+                lines.append(f"  {d}: K1's walk by site: " + "; ".join(walks))
         return lines
 
 

@@ -227,22 +227,27 @@ def force_group(monkeypatch):
 @pytest.mark.parametrize("G", GROUP_SIZES)
 def test_kernel_matches_plain_at_group_size(cuda, force_group, G, nee):
     """K1 at every group size on a narrow launch (1,024 lanes, the main
-    path's tail width) run to termination: bit-equal to the plain version.
-    At --nee-bound 1 the scene's medium box has a duplicate shell, so the
-    NEE K-list fills up and drops keys."""
+    path's tail width) run to termination: bit-equal to the plain version,
+    and its walk counts equal. At --nee-bound 1 the scene's medium box has a
+    duplicate shell, so the NEE K-list fills up and drops keys."""
     scene, grid, lights = _scene(cuda, duplicate_shell=nee == 1)
     media9 = mk.pack_media(scene.media, scene.scale, device=cuda)
     misc = mk.pack_misc(lights, scene.world_lo, scene.world_hi, device=cuda)
     st = _state(1024, cuda, seed=G + nee)
     a = mk.MegaState(*(x.clone() for x in st))
     b = mk.MegaState(*(x.clone() for x in st))
+    wa = torch.zeros(3, dtype=torch.int64, device=cuda)
+    wb = torch.zeros_like(wa)
     force_group(G)
-    mk.trace_paths_mega(grid, media9, misc, a, max_depth=8, rr_depth=4, nee_max_media=nee)
+    mk.trace_paths_mega(grid, media9, misc, a, max_depth=8, rr_depth=4, nee_max_media=nee,
+                        walk=wa)
     torch.cuda.synchronize()
-    mk.trace_paths_mega_plain(grid, media9, misc, b, max_depth=8, rr_depth=4, nee_max_media=nee)
+    mk.trace_paths_mega_plain(grid, media9, misc, b, max_depth=8, rr_depth=4, nee_max_media=nee,
+                              walk=wb)
     for f in mk.MegaState._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert bool((a.depth > 1).any())
+    assert wa.tolist() == wb.tolist() and int(wa[0]) > 1024
 
 
 @pytest.mark.parametrize("quads", [False, True])
@@ -867,7 +872,8 @@ def test_control_kernel_matches_plain(cuda, n):
     """The control kernel equals its plain version on the card (the alive
     count read 16 bytes at a time, and the tail byte by byte), also where
     it counts at a site (SITE_COUNT: visits, K1 launches, live and covered
-    lanes; the card's clock, the last stamp and the sites' ns, aside)."""
+    lanes, the walk counts it moves from the accumulator; the card's clock,
+    the last stamp and the sites' ns, aside)."""
     from complex_materials_renderer_tpu_torch.kernels import pass_control as pc
 
     gen = torch.Generator(device="cuda").manual_seed(n)
@@ -883,6 +889,7 @@ def test_control_kernel_matches_plain(cuda, n):
             f = flags | site[0]
             ctrl = torch.tensor([3, 10, 1, 777, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
             counts = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device=cuda)
+            counts[pc.CNT_WALK:pc.CNT_WALK + pc.WALK_LEN] = torch.tensor([5, 70, 900])
             ctrl_p, counts_p = ctrl.clone(), counts.clone()
             for _ in range(2):
                 pc.pass_control(alive, ctrl, counts, f, site=site[1], **kw)
@@ -890,6 +897,8 @@ def test_control_kernel_matches_plain(cuda, n):
             assert torch.equal(ctrl, ctrl_p), f
             assert torch.equal(counts.masked_fill(clock, 0), counts_p.masked_fill(clock, 0)), f
             assert bool(counts[pc.CNT_SITES + 7 * pc.SITE_FIELDS]) == bool(site[0])
+            walk = counts[pc.CNT_SITES + 7 * pc.SITE_FIELDS + pc.SITE_BOUNCES:][:pc.WALK_LEN]
+            assert walk.tolist() == ([5, 70, 900] if site[0] else [0, 0, 0])
 
 
 def test_many_graphs_capture(cuda):
