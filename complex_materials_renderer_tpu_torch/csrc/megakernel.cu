@@ -48,14 +48,32 @@
 // memory; the NEE K-list stays in registers (K is a template parameter,
 // every loop over it unrolled). It allocates nothing.
 //
+// On a grid of many supers the default walks test a level of group boxes
+// above the supers (LEVELS, a template parameter that the wrapper sets from
+// the grid's super count, kernels/megakernel.py ``two_level_walk``): each
+// group box is the bounds of consecutive supers, built once when the grid
+// is uploaded, and a group that the lane misses under its bound skips all
+// of its supers. On the many-super grid the flat walk slab-tested every
+// super box in turn to enter about two. The order is still the index
+// order, a group box holds each of its supers' boxes and the slab test is
+// monotone in the box (binned_listing.cu says why), so a super of a missed
+// group would have been missed under the same bound. The tile's G threads
+// test G group, super or cluster boxes at once under the bound as it
+// stands, then take the boxes met in order, each tested again under the
+// bound as it then stands (``chunked``): every box entered, every hit and
+// every state is the flat walk's. The flat instance (LEVELS false) is the
+// walk of a grid of a few supers: on a grid of one super the two-level walk
+// ran an H100's frames 4-6% slower (PERF.md §6). The ablation instances
+// keep the flat walk always.
+//
 // Each launch counts its walk, always: per lane, the super boxes its two
-// walks entered and the cluster boxes they entered ('full' and 'dnee'; the
-// ablations' own walks count nothing), in registers (every thread of a tile
-// takes the same box decisions, so each holds the lane's counts), and its
-// bounces. When a lane ends, thread 0 of its tile adds them with those of
-// the warp's other lanes that end together to the card's accumulator (the
-// counter block's CNT_WALK, pass_control.cuh), which the next control
-// launch moves to its site.
+// walks entered, the cluster boxes they entered and the group boxes they
+// entered ('full' and 'dnee'; the ablations' own walks count nothing), in
+// registers (every thread of a tile takes the same box decisions, so each
+// holds the lane's counts), and its bounces. When a lane ends, thread 0 of
+// its tile adds them with those of the warp's other lanes that end together
+// to the card's accumulator (the counter block's CNT_WALK, pass_control.cuh),
+// which the next control launch moves to its site.
 //
 // The ablation instances (CMR_MEGA_DEBUG, megakernel.py:398-401 and the
 // sites named below of the JAX kernel) are other builds of this source,
@@ -146,6 +164,9 @@ constexpr int BLOCK_LANES = 1024;  // the JAX kernel's block: nophys's lockstep 
 struct Params {
   const float* __restrict__ bounds;        // (C, 8)
   const float* __restrict__ super_bounds;  // (S, 8)
+  // (NG, 8) group boxes over consecutive supers: lo xyz, hi xyz, the end
+  // of the group's supers (as a float), 0; read by the LEVELS walk only.
+  const float* __restrict__ group_bounds;
   const float* __restrict__ run_rows;      // (C*subs, row_w)
   const float* __restrict__ media9;        // (M, 9)
   const float* __restrict__ misc;          // (16,)
@@ -163,20 +184,21 @@ struct Params {
   int* depth;
   unsigned char* alive;
   const long long* __restrict__ aux;
-  int n_lanes, C, S, subs, run, row_w, M, SF, S_OPQ;
+  int n_lanes, C, S, NG, subs, run, row_w, M, SF, S_OPQ;
   int background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters;
   int* iters;  // nophys: each lane's iterations, then each 1024-lane block's most
   // K1's walk accumulator (pass_control.cuh CNT_WALK: WALK_LEN int64), or
-  // null: the lanes add their bounces, supers entered and clusters tested
-  // there when they end.
+  // null: the lanes add their bounces, supers entered, clusters tested and
+  // groups entered there when they end.
   unsigned long long* walk;
 };
 
-// A lane's walk counts: the super boxes its walks entered and the cluster
-// boxes they entered (whose slots the tile then tested). Every thread of
-// the tile takes the same box decisions, so each holds the lane's counts.
+// A lane's walk counts: the super boxes its walks entered, the cluster
+// boxes they entered (whose slots the tile then tested) and the group boxes
+// they entered (LEVELS only). Every thread of the tile takes the same box
+// decisions, so each holds the lane's counts.
 struct WalkTally {
-  unsigned int supers, clusters;
+  unsigned int supers, clusters, groups;
 };
 
 // ---------------------------------------------------------------- RNG --
@@ -450,36 +472,106 @@ __device__ __forceinline__ float box_clamp(const float* misc, V3 o, V3 inv, floa
   return fminf(tmax, fmaxf(tf, 0.0f) * 1.0001f + 10.0f * T_MIN);
 }
 
-// Closest hit ('full'): the linear super -> cluster walk, each box gated
-// by the slab entry against the lane's current t_best, each visited
-// cluster tested by the tile.
-template <int G>
+// The boxes [lo, hi) of ``boxes`` (8 floats a box) that ``meets`` holds
+// under the lane's bound as it stands, visited in index order, G at a time:
+// thread j of the tile tests box b0 + j under the bound at the chunk's
+// start, and the tile takes the boxes met in order, each tested again under
+// the bound as it then stands. The bound only falls during a walk and the
+// slab test is monotone in it, so a box the first test misses would be
+// missed again: every decision is the one-at-a-time walk's.
+template <int G, class Meets, class Visit>
+__device__ __forceinline__ void chunked(const cg::thread_block_tile<G>& tile, const float* boxes,
+                                        int lo, int hi, Meets meets, Visit visit) {
+  for (int b0 = lo; b0 < hi; b0 += G) {
+    const int b = b0 + (int)tile.thread_rank();
+    unsigned mask = tile.ballot(b < hi && meets(boxes + b * 8));
+    while (mask) {
+      const int k = __ffs(mask) - 1;
+      mask &= mask - 1;
+      if (meets(boxes + (b0 + k) * 8)) visit(b0 + k);
+    }
+  }
+}
+
+// The boxes [lo, hi) that ``meets`` holds, one at a time in index order.
+template <class Meets, class Visit>
+__device__ __forceinline__ void in_order(const float* boxes, int lo, int hi, Meets meets,
+                                         Visit visit) {
+  for (int b = lo; b < hi; ++b) {
+    if (meets(boxes + b * 8)) visit(b);
+  }
+}
+
+// K1's walk in index order: each super box that ``meets`` holds is
+// entered, then each of its cluster boxes that ``meets`` holds is tested
+// slot by slot (``test(c)``). With LEVELS the group boxes come first and a
+// group that ``meets`` misses skips its supers; the group, super and
+// cluster boxes are then tested G at a time (``chunked``), which shortens
+// each lane's chain of box tests (on an H100 the many-super cell's frames
+// ran 4-5% faster than with the group level alone, PERF.md §6).
+template <int G, bool LEVELS, class Meets, class Test>
+__device__ __forceinline__ void walk_boxes(const cg::thread_block_tile<G>& tile, const Params& p,
+                                           Meets meets, Test test, WalkTally& tally) {
+  const auto cluster = [&](int c) {
+    ++tally.clusters;
+    test(c);
+  };
+  const auto super = [&](int sp) {
+    ++tally.supers;
+    const int lo = sp * p.SF;
+    const int hi = min(lo + p.SF, p.C);
+    if constexpr (LEVELS && G > 1) {
+      chunked<G>(tile, p.bounds, lo, hi, meets, cluster);
+    } else {
+      in_order(p.bounds, lo, hi, meets, cluster);
+    }
+  };
+  if constexpr (LEVELS) {
+    const auto group = [&](int g) {
+      ++tally.groups;
+      const int lo = g == 0 ? 0 : (int)__ldg(p.group_bounds + (g - 1) * 8 + 6);
+      const int hi = (int)__ldg(p.group_bounds + g * 8 + 6);
+      if constexpr (G > 1) {
+        chunked<G>(tile, p.super_bounds, lo, hi, meets, super);
+      } else {
+        in_order(p.super_bounds, lo, hi, meets, super);
+      }
+    };
+    if constexpr (G > 1) {
+      chunked<G>(tile, p.group_bounds, 0, p.NG, meets, group);
+    } else {
+      in_order(p.group_bounds, 0, p.NG, meets, group);
+    }
+  } else {
+    in_order(p.super_bounds, 0, p.S, meets, super);
+  }
+}
+
+// Closest hit ('full'): the linear (group ->) super -> cluster walk, each
+// box gated by the slab entry against the lane's current t_best, each
+// visited cluster tested by the tile.
+template <int G, bool LEVELS>
 __device__ FullState trace_full(const cg::thread_block_tile<G>& tile, const Params& p, V3 o, V3 d,
                                 float tmax, WalkTally& tally) {
   const V3 inv{safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
   const float t0 = box_clamp(p.misc, o, inv, tmax);
   FullState mine{t0, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, -1.0f, 0.0f, 0.0f, 0.0f};
   float t = t0, slot = -1.0f;
-  for (int sp = 0; sp < p.S; ++sp) {
-    if (!slab_hit(p.super_bounds + sp * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
-    ++tally.supers;
-    const int lo = sp * p.SF;
-    const int hi = min(lo + p.SF, p.C);
-    for (int c = lo; c < hi; ++c) {
-      if (!slab_hit(p.bounds + c * 8, o.x, o.y, o.z, inv.x, inv.y, inv.z, t)) continue;
-      ++tally.clusters;
-      group_cluster_full<G, false>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
-                                   d.x, d.y, d.z, t, slot, mine);
-    }
-  }
+  const auto meets = [&](const float* b) {
+    return slab_hit(b, o.x, o.y, o.z, inv.x, inv.y, inv.z, t);
+  };
+  walk_boxes<G, LEVELS>(tile, p, meets, [&](int c) {
+    group_cluster_full<G, false>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z, d.x,
+                                 d.y, d.z, t, slot, mine);
+  }, tally);
   return group_payload<G>(tile, mine, t, slot);
 }
 
 // The fused 'dnee' walk: (t, slot) along set A (da, bound tmax_a, box
 // clamped) and the NEE K-list along set B (db, bound tmax_b) from one
-// origin. A box is visited when either set still needs it under its own
-// bound.
-template <int G, int K>
+// origin. A box (group, super or cluster) is visited when either set still
+// needs it under its own bound.
+template <int G, int K, bool LEVELS>
 __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const Params& p,
                                    const float* media, V3 o, V3 da, float tmax_a, V3 db,
                                    float tmax_b, WalkTally& tally) {
@@ -495,30 +587,18 @@ __device__ DneeState<K> trace_dnee(const cg::thread_block_tile<G>& tile, const P
   const bool need_a = st.a.t > T_MIN;
   const bool need_b = tmax_b > T_MIN;
   if (!need_a && !need_b) return st;
-  for (int sp = 0; sp < p.S; ++sp) {
-    const float* sb = p.super_bounds + sp * 8;
+  const auto meets = [&](const float* b) {
     bool visit = false;
-    if (need_a) visit = slab_hit(sb, o.x, o.y, o.z, ia.x, ia.y, ia.z, st.a.t);
+    if (need_a) visit = slab_hit(b, o.x, o.y, o.z, ia.x, ia.y, ia.z, st.a.t);
     if (!visit && need_b) {
-      visit = slab_hit(sb, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
+      visit = slab_hit(b, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
     }
-    if (!visit) continue;
-    ++tally.supers;
-    const int lo = sp * p.SF;
-    const int hi = min(lo + p.SF, p.C);
-    for (int c = lo; c < hi; ++c) {
-      const float* cb = p.bounds + c * 8;
-      bool vc = false;
-      if (need_a) vc = slab_hit(cb, o.x, o.y, o.z, ia.x, ia.y, ia.z, st.a.t);
-      if (!vc && need_b) {
-        vc = slab_hit(cb, o.x, o.y, o.z, ib.x, ib.y, ib.z, nee_bound<K>(st.b));
-      }
-      if (!vc) continue;
-      ++tally.clusters;
-      group_cluster_dnee<G, K>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z,
-                               da.x, da.y, da.z, db.x, db.y, db.z, media, p.M, st);
-    }
-  }
+    return visit;
+  };
+  walk_boxes<G, LEVELS>(tile, p, meets, [&](int c) {
+    group_cluster_dnee<G, K>(tile, p.run_rows, p.row_w, p.subs, p.run, c, o.x, o.y, o.z, da.x,
+                             da.y, da.z, db.x, db.y, db.z, media, p.M, st);
+  }, tally);
   return st;
 }
 
@@ -889,7 +969,7 @@ __device__ __forceinline__ void shade_color(int background, V3 pt, float nx, flo
 }
 
 // The closest hit of a bounce: the 'full' walk, or an ablation's.
-template <int G>
+template <int G, bool LEVELS>
 __device__ __forceinline__ FullState first_hit(const cg::thread_block_tile<G>& tile,
                                                const Params& p, const Lane& L,
                                                WalkTally& tally) {
@@ -901,18 +981,18 @@ __device__ __forceinline__ FullState first_hit(const cg::thread_block_tile<G>& t
   } else if constexpr (ORDERED) {
     return abl_full<G>(tile, p, L.o, L.d, T_MAX);
   } else {
-    return trace_full<G>(tile, p, L.o, L.d, T_MAX, tally);
+    return trace_full<G, LEVELS>(tile, p, L.o, L.d, T_MAX, tally);
   }
 }
 
 // One bounce iteration of a live lane (megakernel.py bounce :992-1370,
 // the default fused walk), on every thread of the lane's tile; the walks'
 // box visits counted in ``tally``.
-template <int G, int K>
+template <int G, int K, bool LEVELS>
 __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, const float* media,
                        const float* misc, Lane& L, Rng& rng, WalkTally& tally) {
   const Params& P = p;  // NOLINT: short name for the launch parameters
-  const FullState h = first_hit<G>(tile, P, L, tally);
+  const FullState h = first_hit<G, LEVELS>(tile, P, L, tally);
   const bool got_hit = h.slot >= 0.0f;  // the lane is alive
   if constexpr (NOPHYS) {  // mirror the ray at the hit
     if (got_hit) L.o = V3{h.px, h.py, h.pz};
@@ -970,8 +1050,8 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
     if constexpr (CULLONLY) {
       dn = cull_dnee<K>(P, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff);
     } else {
-      dn = trace_dnee<G, K>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir, lt.eff,
-                            tally);
+      dn = trace_dnee<G, K, LEVELS>(tile, P, media, pt, da, transmitted ? bound : 0.0f, lt.dir,
+                                    lt.eff, tally);
     }
     seg_len = dn.a.slot >= 0.0f ? dn.a.t : T_MAX;
   } else if constexpr (NODIST) {
@@ -1091,7 +1171,7 @@ __device__ void bounce(const cg::thread_block_tile<G>& tile, const Params& p, co
   L.alive = alive;
 }
 
-template <int K, int G>
+template <int K, int G, bool LEVELS>
 __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   // The launch covers the static width n_lanes. With a control block, a CTA
   // at or beyond live_blocks * 1024 lanes returns at once, and every CTA
@@ -1136,11 +1216,11 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
   // A lane's k-th iteration is the block loop's k-th (the draws of dead
   // lanes are masked and ld dims advance in lockstep), so the per-lane
   // loop equals the TPU kernel's per-block while_loop.
-  WalkTally tally{0u, 0u};
+  WalkTally tally{0u, 0u, 0u};
   int it = 0;
   for (; it < p.max_iters && L.alive; ++it) {
     rng.it = it;
-    bounce<G, K>(tile, p, s_media, s_misc, L, rng, tally);
+    bounce<G, K, LEVELS>(tile, p, s_media, s_misc, L, rng, tally);
   }
 
   if (tile.thread_rank() != 0) return;
@@ -1177,6 +1257,10 @@ __global__ void __launch_bounds__(THREADS) megakernel(Params p) {
       atomicAdd(p.walk + WALK_SUPERS, (unsigned long long)supers);
       atomicAdd(p.walk + WALK_CLUSTERS, (unsigned long long)clusters);
     }
+    if constexpr (LEVELS) {
+      const unsigned int groups = cg::reduce(ends, tally.groups, cg::plus<unsigned int>());
+      if (ends.thread_rank() == 0) atomicAdd(p.walk + WALK_GROUPS, (unsigned long long)groups);
+    }
   }
 }
 
@@ -1206,7 +1290,7 @@ __global__ void __launch_bounds__(THREADS) nophys_block_tail(Params p) {
 }
 #endif
 
-template <int G>
+template <int G, bool LEVELS>
 int launch(const Params& p, cudaStream_t stream) {
   const long long threads = (long long)p.n_lanes * G;
   const int blocks = (int)((threads + THREADS - 1) / THREADS);
@@ -1216,7 +1300,7 @@ int launch(const Params& p, cudaStream_t stream) {
   const cudaError_t zero = cudaMemsetAsync(p.iters, 0, words * sizeof(int), stream);
   if (zero != cudaSuccess) return (int)zero;
 #endif
-  megakernel<K_NEE, G><<<blocks, THREADS, 0, stream>>>(p);
+  megakernel<K_NEE, G, LEVELS><<<blocks, THREADS, 0, stream>>>(p);
 #if CMR_MEGA_ABLATE & 32
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -1225,39 +1309,53 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The instance of G and LEVELS; the ablation instances have the flat walk
+// alone.
+template <int G>
+int launch_levels(const Params& p, cudaStream_t stream) {
+  if constexpr (ABLATE == 0) {
+    if (p.group_bounds != nullptr) return launch<G, true>(p, stream);
+  }
+  return launch<G, false>(p, stream);
+}
+
 }  // namespace cmr
 
 extern "C" {
 
 // Launch on ``stream`` with ``group`` threads per lane (1, 2, 4, 8, 16 or
-// 32); returns cudaGetLastError() right after the
-// launch. ``ctrl``: the pass control block (CTRL_LEN int32 on the card) or
+// 32); returns cudaGetLastError() right after the launch.
+// ``group_bounds``: the grid's ``n_groups`` group boxes, for the two-level
+// walk, or null for the flat walk (which the ablation instances take either
+// way). ``ctrl``: the pass control block (CTRL_LEN int32 on the card) or
 // null. ``iters`` (nophys only, else null): n_lanes + one int a 1024-lane
 // block, which the launch zeroes first. ``walk``: WALK_LEN int64 on the
 // card that the launch adds its walk counts to (the counter block's
 // CNT_WALK), or null.
-int cmr_megakernel_launch(const float* bounds, const float* super_bounds, const float* run_rows,
-                          const float* media9, const float* misc, const int* sob, int dim_base,
-                          const int* ctrl, float* org, float* dir, float* thr, float* rad, long long* rng,
+int cmr_megakernel_launch(const float* bounds, const float* super_bounds,
+                          const float* group_bounds, const float* run_rows, const float* media9,
+                          const float* misc, const int* sob, int dim_base, const int* ctrl,
+                          float* org, float* dir, float* thr, float* rad, long long* rng,
                           int* depth, unsigned char* alive, const long long* aux, int n_lanes,
-                          int C, int S, int subs, int run, int row_w, int M, int SF, int s_opq,
+                          int C, int S, int n_groups, int subs, int run, int row_w, int M, int SF,
+                          int s_opq,
                           int background, int max_depth, int rr_depth, int tir_kill,
                           int analytic_direct, int ld, int max_iters, int group, int* iters,
                           long long* walk, void* stream) {
-  const cmr::Params p{bounds, super_bounds, run_rows, media9, misc, sob, dim_base, ctrl,
-                      org, dir, thr, rad, rng, depth, alive, aux,
-                      n_lanes, C, S, subs, run, row_w, M, SF, s_opq,
+  const cmr::Params p{bounds, super_bounds, group_bounds, run_rows, media9, misc, sob, dim_base,
+                      ctrl, org, dir, thr, rad, rng, depth, alive, aux,
+                      n_lanes, C, S, n_groups, subs, run, row_w, M, SF, s_opq,
                       background, max_depth, rr_depth, tir_kill, analytic_direct, ld, max_iters,
                       iters, reinterpret_cast<unsigned long long*>(walk)};
   const cudaStream_t s = (cudaStream_t)stream;
   if (cmr::NOPHYS && iters == nullptr) return (int)cudaErrorInvalidValue;
   switch (group) {
-    case 1: return cmr::launch<1>(p, s);
-    case 2: return cmr::launch<2>(p, s);
-    case 4: return cmr::launch<4>(p, s);
-    case 8: return cmr::launch<8>(p, s);
-    case 16: return cmr::launch<16>(p, s);
-    case 32: return cmr::launch<32>(p, s);
+    case 1: return cmr::launch_levels<1>(p, s);
+    case 2: return cmr::launch_levels<2>(p, s);
+    case 4: return cmr::launch_levels<4>(p, s);
+    case 8: return cmr::launch_levels<8>(p, s);
+    case 16: return cmr::launch_levels<16>(p, s);
+    case 32: return cmr::launch_levels<32>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

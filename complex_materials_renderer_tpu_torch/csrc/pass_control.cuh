@@ -31,20 +31,23 @@ constexpr int CNT_CALLS = 3;      // calls stamped (the ring's next slot, modulo
 constexpr int CNT_CALL_NS = 4;    // the calls' summed intervals (ns)
 constexpr int CNT_CALIBRATE = 5;  // the last calibration stamp (ns)
 // K1's walk accumulator: each K1 launch adds its lanes' bounces, super
-// boxes entered and cluster boxes entered (their slots tested) here, and
-// the next control launch that counts at a site moves them to that site.
+// boxes entered, cluster boxes entered (their slots tested) and group boxes
+// entered (the two-level walk's; 0 in the flat walk) here, and the next
+// control launch that counts at a site moves them to that site.
 constexpr int CNT_WALK = 8;
 constexpr int WALK_BOUNCES = 0;
 constexpr int WALK_SUPERS = 1;
 constexpr int WALK_CLUSTERS = 2;
-constexpr int WALK_LEN = 3;
+constexpr int WALK_GROUPS = 3;
+constexpr int WALK_LEN = 4;
 constexpr int CNT_HEAD = 16;
 constexpr int CNT_RING = 128;     // call intervals kept: (start, end) ns pairs
 constexpr int CNT_SITES = CNT_HEAD + 2 * CNT_RING;
 // A site's fields: the control launches at it, the K1 launches that ran
 // just before them, the live lanes and the lanes those launches covered,
 // the walk counts that those launches left (bounces, supers entered,
-// clusters tested), and the nanoseconds of the segments that end there.
+// clusters tested, groups entered), and the nanoseconds of the segments
+// that end there.
 constexpr int SITE_VISITS = 0;
 constexpr int SITE_K1 = 1;
 constexpr int SITE_LIVE = 2;
@@ -52,8 +55,9 @@ constexpr int SITE_LANES = 3;
 constexpr int SITE_BOUNCES = 4;
 constexpr int SITE_SUPERS = 5;
 constexpr int SITE_CLUSTERS = 6;
-constexpr int SITE_NS = 7;
-constexpr int SITE_FIELDS = 8;
+constexpr int SITE_GROUPS = 7;
+constexpr int SITE_NS = 8;
+constexpr int SITE_FIELDS = 9;
 constexpr int MAX_SITES = 512;
 constexpr int SITE_CALL_END = 1;  // the segment from a call's last control launch to its end
 constexpr int CNT_LEN = CNT_SITES + MAX_SITES * SITE_FIELDS;

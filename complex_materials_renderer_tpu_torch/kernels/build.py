@@ -61,7 +61,7 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # kind -> (source, names of the -D values in the key, launch function, its argtypes)
 _KINDS = {
     "megakernel": ("megakernel.cu", ("CMR_NEE_MAX_MEDIA", "CMR_MEGA_ABLATE"),
-                   "cmr_megakernel_launch", [_vp] * 6 + [_ci] + [_vp] * 9 + [_ci] * 17 + [_vp] * 3),
+                   "cmr_megakernel_launch", [_vp] * 7 + [_ci] + [_vp] * 9 + [_ci] * 18 + [_vp] * 3),
     "cluster_trace": ("cluster_trace.cu", (), "cmr_cluster_trace_launch",
                       [_vp] * 8 + [_ci] * 8 + [_vp]),
     "binned_listing": ("binned_listing.cu", ("CMR_LIST_LEN",), "cmr_binned_listing_launch",

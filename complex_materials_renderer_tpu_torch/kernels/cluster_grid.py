@@ -5,7 +5,9 @@ complex_materials_renderer_tpu/kernels/pallas_trace.py:57-167, with the
 same layout: per-component (C, width) rows, run-major ``run_rows`` of
 shape (C*subs, row_w) with 12 components strided by ``run``, (C, 8)
 ``bounds``, (S, 8) ``super_bounds``, ``qa``/``qb``, ``num_opaque_supers``
-and ``super_factor``.
+and ``super_factor``; and, the port's own, ``group_bounds``: a level of
+boxes over consecutive supers that K1's walk tests above the supers on a
+grid of many supers (``super_groups``; kernels/megakernel.py has the rule).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from ..accel.clusters import SUB_SIZE
+
+_SENTINEL = np.float32(1e30)  # an empty box: a far-away point (accel/clusters.py)
 
 _TENSOR_FIELDS = (
     "v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z",
@@ -40,6 +44,9 @@ class DeviceClusterGrid:
     e2z: torch.Tensor
     bounds: torch.Tensor  # (C, 8) cluster AABBs
     super_bounds: torch.Tensor  # (S, 8) super-cluster AABBs
+    # (n_groups, 8) group boxes over consecutive supers (``super_groups``):
+    # lo xyz, hi xyz, the end of the group's supers (a float), 0
+    group_bounds: torch.Tensor
     tri_index: torch.Tensor  # (C*width,) slot -> original triangle id
     mat: torch.Tensor  # (C, width) per-slot material id as float32
     qa: torch.Tensor  # (C, width) quad far-corner coefficients
@@ -124,12 +131,53 @@ def device_cluster_grid(grid, device=None) -> DeviceClusterGrid:
     )
 
 
+def group_fanout(num_supers: int) -> int:
+    """The supers of a group box: the power of two nearest the square
+    root of the supers (16 at 172, 32 at the 1,024-super cap), so that a
+    walk tests about as many group boxes as supers in a group."""
+    root = float(num_supers) ** 0.5
+    f = 1
+    while abs(2 * f - root) < abs(f - root):
+        f *= 2
+    return f
+
+
+def super_groups(super_bounds, num_opaque_supers: int, fanout: int) -> np.ndarray:
+    """The (n_groups, 8) float32 group boxes of ``fanout`` consecutive
+    supers of the (S, 8) ``super_bounds``: the min and max of the group's
+    live super boxes (an empty super's far-point sentinel left out, as
+    accel/clusters.py leaves out empty clusters), the sentinel where all
+    are empty; column 6 the end of the group's supers. The opaque supers
+    [0, num_opaque_supers) are grouped apart from the media supers after
+    them, so that no group straddles the cut. A group box holds each of
+    its supers' boxes and the slab test is monotone in the box, so a walk
+    that misses a group would have missed each of its supers."""
+    sb = np.asarray(super_bounds, np.float32)
+    s = sb.shape[0]
+    cut = min(max(int(num_opaque_supers), 0), s)
+    ends = [*range(fanout, cut, fanout), cut] if cut else []
+    ends += [*range(cut + fanout, s, fanout), s] if s > cut else []
+    out = np.zeros((len(ends), 8), np.float32)
+    out[:, 0:6] = _SENTINEL
+    lo = 0
+    for g, hi in enumerate(ends):
+        box = sb[lo:hi]
+        live = ~np.all(box[:, 0:6] == _SENTINEL, axis=1)
+        if live.any():
+            out[g, 0:3] = box[live, 0:3].min(axis=0)
+            out[g, 3:6] = box[live, 3:6].max(axis=0)
+        out[g, 6] = hi
+        lo = hi
+    return out
+
+
 def from_jax_arrays(arrays, device="cpu", **meta) -> DeviceClusterGrid:
     """Build the port's grid from numpy arrays: ``arrays`` maps the tensor
     field names to arrays (a dict, or the JAX package's
     ``DeviceClusterGrid`` whose fields are converted with ``np.asarray``);
     the integer metadata comes from ``meta`` or, when absent, from the
-    same-named attributes of ``arrays``."""
+    same-named attributes of ``arrays``. The group boxes are built here
+    from the super boxes, at the fan-out ``group_fanout`` gives."""
     get = arrays.__getitem__ if isinstance(arrays, dict) else (
         lambda k: getattr(arrays, k)
     )
@@ -138,4 +186,6 @@ def from_jax_arrays(arrays, device="cpu", **meta) -> DeviceClusterGrid:
         for k in _TENSOR_FIELDS
     }
     meta = {k: int(meta[k]) if k in meta else int(get(k)) for k in _META_FIELDS}
-    return DeviceClusterGrid(**tensors, **meta)
+    groups = super_groups(np.asarray(get("super_bounds")), meta["num_opaque_supers"],
+                          group_fanout(meta["num_supers"]))
+    return DeviceClusterGrid(**tensors, group_bounds=torch.from_numpy(groups).to(device), **meta)

@@ -26,15 +26,22 @@ counter modes) or lockstep Owen-scrambled Sobol (ld mode), drawn in the
 kernel. Physics and RNG order follow the JAX kernel line by line; see
 its docstrings for the reference (volpath) line map.
 
+On a grid of more than 16 supers (``two_level_walk``) the
+default instance's walks test the grid's group boxes (``group_bounds``,
+each over consecutive supers) above the supers, in index order, and skip
+the supers of a group they miss; on fewer, and in the ablation instances,
+they walk the supers alone. Both walks enter the same super and cluster
+boxes and give the same state.
+
 Each launch counts its walk, always: its lanes' bounces, the super boxes
-its walks entered and the cluster boxes they entered (whose slots the
-tile then tests), in the walks of the default instance ('full' and the
-fused 'dnee'; the ablations' own walks count nothing), added to the
-card's accumulator (``pass_control.walk_counts``, or ``walk``) for the
-next control launch to move to its site. The group walk takes every box
-decision of the one-thread walk, so the plain version gives the same
-counts from the walk's bound before each box (``cluster_test``'s
-``width``).
+its walks entered, the cluster boxes they entered (whose slots the tile
+then tests) and the group boxes they entered (0 in the flat walk), in the
+walks of the default instance ('full' and the fused 'dnee'; the
+ablations' own walks count nothing), added to the card's accumulator
+(``pass_control.walk_counts``, or ``walk``) for the next control launch
+to move to its site. The group walk takes every box decision of the
+one-thread walk, so the plain version gives the same counts from the
+walk's bound before each box (``cluster_test``'s ``width``).
 
 ``debug`` takes the JAX kernel's ``CMR_MEGA_DEBUG`` ablations, a
 comma-separated set of ``ABLATIONS`` tokens with the JAX semantics (see
@@ -63,6 +70,7 @@ from .pass_control import (
     CTRL_RUN,
     WALK_BOUNCES,
     WALK_CLUSTERS,
+    WALK_GROUPS,
     WALK_LEN,
     WALK_SUPERS,
     walk_counts,
@@ -96,6 +104,12 @@ ABLATION_SETS = ("nofuse", "ordered", "carrywalk", "cullonly", "notrace", "notra
 EXACT_ABLATIONS = ("nofuse", "ordered", "carrywalk")
 
 MAX_SUPERS = 1024  # super-cluster cap of the JAX kernel's (8, 128) entry table
+# The default K1 tests group boxes above the super boxes on a grid of more
+# than this many supers, and walks the supers alone on fewer. On an H100
+# the two-level walk cost one-super grids 4-6% of their frames and gained a
+# 172-super grid 11%; K1 alone crossed over between 12 and 18 supers
+# (PERF.md §6).
+FLAT_WALK_SUPERS = 16
 DRAWS_PER_BOUNCE = 8  # rng draw sites per bounce iteration (sites 0-7)
 
 
@@ -430,6 +444,9 @@ class _Plain(NamedTuple):
     sob: torch.Tensor | None  # (SOBOL_DIMS, 30) int64 direction numbers
     bounds: torch.Tensor  # (C, 8) cluster boxes, the walk's lower level
     super_bounds: torch.Tensor  # (S, 8) super boxes, its top level
+    # (n_groups, 8) group boxes above the supers, when the walk tests them
+    # (``two_level_walk``), else None
+    group_bounds: torch.Tensor | None
     super_factor: int
     width: int  # slots of a cluster
 
@@ -486,19 +503,28 @@ def _slab(boxes, O, INV, tmax):
 
 
 def _tally(cx, walk, O, sets):
-    """Add the supers entered and the clusters tested by the linear walk
-    from ``O`` to ``walk``: ``sets`` holds (INV, need, bound before each
-    cluster) of each ray set the walk serves; a box is entered when a set
-    that needs it meets it under that set's bound (trace_full and
-    trace_dnee of csrc/megakernel.cu)."""
+    """Add the supers entered, the clusters tested and the groups entered
+    by the linear walk from ``O`` to ``walk``: ``sets`` holds (INV, need,
+    bound before each cluster) of each ray set the walk serves; a box is
+    entered when a set that needs it meets it under that set's bound before
+    the first cluster it holds (trace_full and trace_dnee of
+    csrc/megakernel.cu), a super only in a group entered where the walk
+    tests the groups."""
     C, S, SF = cx.bounds.shape[0], cx.super_bounds.shape[0], cx.super_factor
-    first = torch.arange(S, device=cx.bounds.device) * SF
-    owner = torch.arange(C, device=cx.bounds.device) // SF
+    dev = cx.bounds.device
+    first = torch.arange(S, device=dev) * SF
+    owner = torch.arange(C, device=dev) // SF
+    groups = cx.group_bounds
+    if groups is not None:
+        ends = groups[:, 6].to(torch.int64)
+        starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+        g_first = starts * SF
+        g_owner = torch.repeat_interleave(torch.arange(ends.shape[0], device=dev), ends - starts)
     n = O[0].shape[0]
     step = max(1, (1 << 24) // max(1, C))
     for lo in range(0, n, step):
         o = tuple(x[lo:lo + step] for x in O)
-        sup = clu = None
+        sup = clu = grp = None
         for inv, need, before in sets:
             inv = tuple(x[lo:lo + step] for x in inv)
             m = need[lo:lo + step, None]
@@ -506,6 +532,12 @@ def _tally(cx, walk, O, sets):
             s_hit = m & _slab(cx.super_bounds, o, inv, b[:, first])
             c_hit = m & _slab(cx.bounds, o, inv, b)
             sup, clu = (s_hit, c_hit) if sup is None else (sup | s_hit, clu | c_hit)
+            if groups is not None:
+                g_hit = m & _slab(groups, o, inv, b[:, g_first])
+                grp = g_hit if grp is None else grp | g_hit
+        if groups is not None:
+            sup = sup & grp[:, g_owner]
+            walk[WALK_GROUPS] += grp.sum()
         clu = clu & sup[:, owner]
         walk[WALK_SUPERS] += sup.sum()
         walk[WALK_CLUSTERS] += clu.sum()
@@ -1000,9 +1032,23 @@ def plain_context(grid: DeviceClusterGrid, media9: torch.Tensor, misc: torch.Ten
         sob=rng_ops.sobol_table(grid.bounds.device) if ld else None,
         bounds=grid.bounds,
         super_bounds=grid.super_bounds,
+        group_bounds=grid.group_bounds if _levels(grid, mask) else None,
         super_factor=int(grid.super_factor),
         width=grid.width,
     )
+
+
+def two_level_walk(num_supers: int) -> bool:
+    """Whether the default K1's walk tests the group boxes above the
+    supers: on a grid of more than FLAT_WALK_SUPERS supers."""
+    return num_supers > FLAT_WALK_SUPERS
+
+
+def _levels(grid: DeviceClusterGrid, mask: int) -> bool:
+    """Whether K1's walk tests ``grid``'s group boxes: in the default
+    instance (the ablation instances keep the flat walk), by the super
+    count (``two_level_walk``)."""
+    return mask == 0 and two_level_walk(grid.num_supers)
 
 
 def trace_paths_mega_plain(
@@ -1125,7 +1171,7 @@ def trace_paths_mega(
 
     ``walk``: a (WALK_LEN,) int64 tensor on the state's device that the
     call adds its walk counts to (bounces, supers entered, clusters
-    tested); by default the device's accumulator
+    tested, groups entered); by default the device's accumulator
     (``pass_control.walk_counts``).
     """
     if state.org.device.type == "cpu":
@@ -1226,6 +1272,8 @@ def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, walk, *, backgroun
     row_w = grid.run_rows.shape[1]
     _require(grid.bounds, "bounds", torch.float32, (C, 8), dev)
     _require(grid.super_bounds, "super_bounds", torch.float32, (S, 8), dev)
+    n_groups = grid.group_bounds.shape[0]
+    _require(grid.group_bounds, "group_bounds", torch.float32, (n_groups, 8), dev)
     _require(grid.run_rows, "run_rows", torch.float32,
              (C * grid.runs_per_cluster, row_w), dev)
     _require(media9, "media9", torch.float32, (media9.shape[0], 9), dev)
@@ -1245,6 +1293,8 @@ def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, walk, *, backgroun
     lib_mask, one_thread = cuda_instance(mask)
     fn = build.megakernel(nee_max_media, lib_mask)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    # The two-level walk's group boxes, or null for the flat walk.
+    groups = p(grid.group_bounds) if _levels(grid, lib_mask) else None
     # G from the launch's static width (carrywalk: one thread, whatever the width).
     group = 1 if one_thread else group_size(lanes)
     # nophys: each lane's iterations and each 1024-lane block's most.
@@ -1252,11 +1302,11 @@ def _launch(grid, media9, misc, state, lanes, dim_base, ctrl, walk, *, backgroun
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            p(grid.bounds), p(grid.super_bounds), p(grid.run_rows),
+            p(grid.bounds), p(grid.super_bounds), groups, p(grid.run_rows),
             p(media9), p(misc), p(sob), 0 if dim_base is None else dim_base,
             None if ctrl is None else p(ctrl), p(state.org), p(state.dir), p(state.thr), p(state.rad),
             p(state.rng), p(state.depth), p(state.alive), p(state.aux),
-            lanes, C, S, grid.runs_per_cluster, grid.run_size, row_w,
+            lanes, C, S, n_groups, grid.runs_per_cluster, grid.run_size, row_w,
             media9.shape[0], grid.super_factor, grid.num_opaque_supers,
             int(background), int(max_depth), int(rr_depth), int(bool(tir_kill)),
             int(bool(analytic_direct)), int(bool(ld)), int(max_iters), group,

@@ -29,7 +29,8 @@ launches count, always, in a block of counters on each card
 launches (indices 0 and 1), and for each site its visits, the K1 launches
 that ran just before it, their live lanes and the lanes they covered, the
 walk counts those launches left (their lanes' bounces, the super boxes
-entered and the clusters tested: K1 adds them to the block's accumulator
+entered, the clusters tested and the group boxes entered: K1 adds them to
+the block's accumulator
 ``CNT_WALK`` and the site's control launch moves them to the site), and
 on the card the nanoseconds of the segments that end there (%globaltimer
 at each control launch's entry, less the last stamp). A captured call
@@ -71,16 +72,18 @@ SITE_COUNT = 32768  # count the launch at its site
 # The counter block of a device (int64; csrc/pass_control.cuh CNT_*, WALK_*, SITE_*).
 CNT_K1, CNT_CONTROL, CNT_LAST, CNT_CALLS, CNT_CALL_NS, CNT_CALIBRATE = 0, 1, 2, 3, 4, 5
 CNT_WALK = 8  # K1's walk accumulator: WALK_LEN counts that K1 launches add to
-WALK_BOUNCES, WALK_SUPERS, WALK_CLUSTERS = 0, 1, 2
-WALK_LEN = 3
+WALK_BOUNCES, WALK_SUPERS, WALK_CLUSTERS, WALK_GROUPS = 0, 1, 2, 3
+WALK_LEN = 4
 CNT_HEAD = 16
 CNT_RING = 128  # call intervals kept, (start, end) ns from CNT_HEAD
 CNT_SITES = CNT_HEAD + 2 * CNT_RING
 SITE_VISITS, SITE_K1, SITE_LIVE, SITE_LANES = 0, 1, 2, 3
-SITE_BOUNCES, SITE_SUPERS, SITE_CLUSTERS = 4, 5, 6  # the walk counts, in WALK_* order
-SITE_NS = 7
-SITE_FIELDS = 8
-SITE_KEYS = ("visits", "k1", "live", "lanes", "bounces", "supers", "clusters", "ns")  # by index
+# The walk counts, in WALK_* order.
+SITE_BOUNCES, SITE_SUPERS, SITE_CLUSTERS, SITE_GROUPS = 4, 5, 6, 7
+SITE_NS = 8
+SITE_FIELDS = 9
+SITE_KEYS = ("visits", "k1", "live", "lanes", "bounces", "supers", "clusters", "groups",
+             "ns")  # by index
 MAX_SITES = 512
 CNT_LEN = CNT_SITES + MAX_SITES * SITE_FIELDS
 STAMP_START, STAMP_END, STAMP_CALIBRATE = 0, 1, 2
@@ -172,9 +175,9 @@ def walk_counts(device) -> torch.Tensor:
 
 def site_counts(block) -> dict:
     """{label: [visits, K1 launches that ran, their live lanes, the lanes
-    they covered, their bounces, supers entered, clusters tested, ns]} of
-    the sites in ``block``, a counter block or a prefix of one, on the host
-    (a list, or a tensor read here)."""
+    they covered, their bounces, supers entered, clusters tested, groups
+    entered, ns]} of the sites in ``block``, a counter block or a prefix of
+    one, on the host (a list, or a tensor read here)."""
     block = block.tolist() if isinstance(block, torch.Tensor) else list(block)
     out = {}
     for i, label in enumerate(site_labels()):

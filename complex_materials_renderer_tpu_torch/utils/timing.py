@@ -22,8 +22,8 @@ SURVEY §5). The port records instead, always and in one place
   by name, and on each device it ran on a snapshot of that device's
   counter block (kernels/pass_control.py ``device_counts``: the K1 and
   control launches, each site's visits, K1 launches, live and covered
-  lanes, K1's walk counts (bounces, supers entered, clusters tested) and
-  device nanoseconds, the ring of call intervals). The snapshot
+  lanes, K1's walk counts (bounces, supers entered, clusters tested,
+  groups entered) and device nanoseconds, the ring of call intervals). The snapshot
   is a clone queued on the device's stream at the render's end, with no
   host synchronise; it is read to the host when the record is read.
 - one ``Calibration`` a card, measured at its first render: the offset of
@@ -256,7 +256,7 @@ class Recorder:
 
     def site_delta(self, first: Optional[RenderRecord], last: RenderRecord, device) -> dict:
         """{label: [visits, K1 launches, live lanes, covered lanes, bounces,
-        supers entered, clusters tested, ns]} on ``device`` between the
+        supers entered, clusters tested, groups entered, ns]} on ``device`` between the
         snapshots of ``first`` (None: from zero) and ``last``."""
         from ..kernels import pass_control as pc
 
@@ -268,7 +268,7 @@ class Recorder:
     def segments(self, first: Optional[RenderRecord], last: RenderRecord) -> dict:
         """{'k1' | 'sort' | 'other': {'visits', 'k1' (K1 launches that ran),
         'live' (their live lanes), 'lanes' (the lanes they covered),
-        'bounces', 'supers', 'clusters' (their walk counts), 'ns'}} summed
+        'bounces', 'supers', 'clusters', 'groups' (their walk counts), 'ns'}} summed
         over the cards between two snapshots."""
         from ..kernels import pass_control as pc
 
@@ -328,7 +328,7 @@ class Recorder:
         """Lines of ``rec``: its top-level spans, the cards' idle between its
         calls by host span, on each device its segments (K1 by width,
         sorts, the rest) and K1's lane occupancy, and K1's walk by site:
-        the super boxes entered and the clusters tested a bounce."""
+        the group and super boxes entered and the clusters tested a bounce."""
         from ..kernels import pass_control as pc
 
         root = rec.totals.get(ROOT, 0.0)
@@ -357,7 +357,8 @@ class Recorder:
                 site = info[label]
                 by_kind[site.kind] += ns
                 if f["bounces"]:
-                    walks.append(f"{label}: {f['supers'] / f['bounces']:.2f} supers, "
+                    walks.append(f"{label}: {f['groups'] / f['bounces']:.2f} groups, "
+                                 f"{f['supers'] / f['bounces']:.2f} supers, "
                                  f"{f['clusters'] / f['bounces']:.2f} clusters a bounce "
                                  f"({f['bounces']} bounces)")
                 if site.kind == "k1":

@@ -236,7 +236,7 @@ def test_kernel_matches_plain_at_group_size(cuda, force_group, G, nee):
     st = _state(1024, cuda, seed=G + nee)
     a = mk.MegaState(*(x.clone() for x in st))
     b = mk.MegaState(*(x.clone() for x in st))
-    wa = torch.zeros(3, dtype=torch.int64, device=cuda)
+    wa = torch.zeros(mk.WALK_LEN, dtype=torch.int64, device=cuda)
     wb = torch.zeros_like(wa)
     force_group(G)
     mk.trace_paths_mega(grid, media9, misc, a, max_depth=8, rr_depth=4, nee_max_media=nee,
@@ -889,7 +889,7 @@ def test_control_kernel_matches_plain(cuda, n):
             f = flags | site[0]
             ctrl = torch.tensor([3, 10, 1, 777, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
             counts = torch.zeros(pc.CNT_LEN, dtype=torch.int64, device=cuda)
-            counts[pc.CNT_WALK:pc.CNT_WALK + pc.WALK_LEN] = torch.tensor([5, 70, 900])
+            counts[pc.CNT_WALK:pc.CNT_WALK + pc.WALK_LEN] = torch.tensor([5, 70, 900, 11])
             ctrl_p, counts_p = ctrl.clone(), counts.clone()
             for _ in range(2):
                 pc.pass_control(alive, ctrl, counts, f, site=site[1], **kw)
@@ -898,7 +898,7 @@ def test_control_kernel_matches_plain(cuda, n):
             assert torch.equal(counts.masked_fill(clock, 0), counts_p.masked_fill(clock, 0)), f
             assert bool(counts[pc.CNT_SITES + 7 * pc.SITE_FIELDS]) == bool(site[0])
             walk = counts[pc.CNT_SITES + 7 * pc.SITE_FIELDS + pc.SITE_BOUNCES:][:pc.WALK_LEN]
-            assert walk.tolist() == ([5, 70, 900] if site[0] else [0, 0, 0])
+            assert walk.tolist() == ([5, 70, 900, 11] if site[0] else [0] * pc.WALK_LEN)
 
 
 def test_many_graphs_capture(cuda):

@@ -7,11 +7,13 @@
   clusters in 10 supers) the port's CPU path matches the benchmark's plain reference
   pixel for pixel;
 - the plain K1's walk counts (bounces, super boxes entered, clusters
-  tested) equal a hand count on a two-super scene, and a walk over the
-  boxes one cluster at a time on the 3 x 4 tiling; the CPU executor moves
-  them into the sites' fields;
+  tested, group boxes entered) equal a hand count on a two-super scene,
+  and a walk over the boxes one cluster at a time on the 3 x 4 tiling,
+  with the flat walk and with the two-level walk (the rule forced); the
+  CPU executor moves them into the sites' fields;
 - on the card, the CUDA counts equal the plain ones on the first
-  65,536-lane launch of the 16 x 16 tiling and of showcase.
+  65,536-lane launch of the 16 x 16 tiling and of showcase, and the flat
+  and two-level walks give the same states and enter the same boxes.
 """
 
 import dataclasses
@@ -119,12 +121,16 @@ def _no_media():
                       ior=np.zeros(0, np.float32))
 
 
-def test_plain_walk_counts_match_a_hand_count():
+@pytest.mark.parametrize("levels", [False, True])
+def test_plain_walk_counts_match_a_hand_count(monkeypatch, levels):
     """Two walls side by side facing +z, each a cluster of its own super.
     A lane aimed at a wall enters its super and tests its cluster, whatever
     the walk's order; a lane aimed between them or at the sky enters none.
     The shadow rays start on a wall's flat box and leave it toward a light
-    in front: they enter no box."""
+    in front: they enter no box. The flat walk (two supers: the rule's)
+    enters no group; the two-level walk, forced, enters the wall's group
+    (one super a group at two supers) with its super."""
+    monkeypatch.setattr(mk, "two_level_walk", lambda supers: levels)
     def wall(x0, x1):
         return [[[x0, 0, 0], [x1, 0, 0], [x1, 2, 0]], [[x0, 0, 0], [x1, 2, 0], [x0, 2, 0]]]
 
@@ -144,9 +150,10 @@ def test_plain_walk_counts_match_a_hand_count():
     n = len(aims)
     st = mk.from_jax_arrays(o, d, np.ones((n, 3)), np.zeros((n, 3)), np.arange(n), np.zeros(n),
                             np.ones(n, bool), np.zeros(n))
+    assert grid.group_bounds.shape == (2, 8)
     walk = torch.zeros(pc.WALK_LEN, dtype=torch.int64)
     mk.trace_paths_mega_plain(grid, media9, misc, st, max_iters=1, walk=walk)
-    assert walk.tolist() == [6, 4, 4]
+    assert walk.tolist() == [6, 4, 4, 4 if levels else 0]
 
 
 def _rays(r, n, seed):
@@ -175,16 +182,20 @@ def _rays(r, n, seed):
             tuple(t(db[:, i]) for i in range(3)), tmax_b)
 
 
-def _box_walk(grid, O, sets, K, med_ids):
+def _box_walk(grid, O, sets, K, med_ids, levels=False):
     """The linear walk of K1 over the boxes, one cluster at a time:
     ``sets`` holds (direction, payload, state) of each ray set; a box is
     entered when a set with a bound above T_MIN meets it under its bound as
     it stands, and an entered cluster's slots update every set's state.
-    Returns (supers entered, clusters tested)."""
+    With ``levels`` a super is tested only in a group box entered, each
+    group's box tested before its first super. Returns (supers entered,
+    clusters tested, groups entered)."""
     SF, W = grid.super_factor, grid.width
     n = O[0].shape[0]
     need = [ct.payload_bound(p, s, K) > T_MIN for _, p, s in sets]
-    supers = clusters = 0
+    ends = [int(e) for e in grid.group_bounds[:, 6]]
+    supers = clusters = groups = 0
+    in_group = torch.ones(n, dtype=torch.bool)
     for sp in range(grid.num_supers):
         def meets(box):
             hit = torch.zeros(n, dtype=torch.bool)
@@ -194,7 +205,10 @@ def _box_walk(grid, O, sets, K, med_ids):
                 hit |= m & mk._slab(box[None], O, inv, bound)[:, 0]
             return hit
 
-        s_hit = meets(grid.super_bounds[sp])
+        if levels and sp in [0] + ends[:-1]:
+            in_group = meets(grid.group_bounds[([0] + ends).index(sp)])
+            groups += int(in_group.sum())
+        s_hit = in_group & meets(grid.super_bounds[sp])
         supers += int(s_hit.sum())
         for c in range(sp * SF, min((sp + 1) * SF, grid.num_clusters)):
             c_hit = s_hit & meets(grid.bounds[c])
@@ -210,7 +224,7 @@ def _box_walk(grid, O, sets, K, med_ids):
                 for x, y in zip(s, got):
                     x[act] = y
                 sets[i] = (D, p, s)
-    return supers, clusters
+    return supers, clusters, groups
 
 
 @pytest.fixture(scope="module")
@@ -223,30 +237,41 @@ def tiled_3x4(tmp_path_factory):
     return scene, r, mk.plain_context(r.accel, media9, misc)
 
 
+@pytest.mark.parametrize("levels", [False, True])
 @pytest.mark.parametrize("nee_max_media", [1, 4])
-def test_plain_walk_counts_match_a_walk_over_the_boxes(tiled_3x4, nee_max_media):
+def test_plain_walk_counts_match_a_walk_over_the_boxes(tiled_3x4, nee_max_media, levels):
     """The plain 'full' and fused 'dnee' walks' counts (from the bound
     before each box) against the walk over the boxes cluster by cluster,
     on the partitioned 3 x 4 tiling; with a K-list of 4 keys (one medium
-    pair) and of 10, so that the K-th key bounds some walks."""
+    pair) and of 10, so that the K-th key bounds some walks. The tiling's
+    10 supers take the flat walk; with ``levels`` the two-level walk's
+    group count (groups of 4 supers, the opaque ones apart) is held too,
+    and the supers and clusters are the flat walk's."""
     _, r, cx = tiled_3x4
-    cx = cx._replace(K=ct.nee_list_len(nee_max_media), nee_max_media=nee_max_media)
     grid = r.accel
+    assert not mk._levels(grid, 0) and cx.group_bounds is None
+    cx = cx._replace(K=ct.nee_list_len(nee_max_media), nee_max_media=nee_max_media,
+                     group_bounds=grid.group_bounds if levels else None)
     O, DA, TMAX_A, DB, TMAX_B = _rays(r, 160, seed=3 + nee_max_media)
     walk = torch.zeros(pc.WALK_LEN, dtype=torch.int64)
     mk._trace_full(cx, O, DA, torch.full_like(TMAX_A, mk.T_MAX), walk=walk)
     inv = tuple(mk._safe_inv(x) for x in DA)
     t0 = mk._box_clamp(cx, O, inv, torch.full_like(TMAX_A, mk.T_MAX))
-    want = _box_walk(grid, O, [(DA, "dist", ct.payload_state0("dist", t0))], cx.K, cx.med_ids)
+    sets = [(DA, "dist", ct.payload_state0("dist", t0))]
+    want = _box_walk(grid, O, list(sets), cx.K, cx.med_ids, levels)
+    assert want[:2] == _box_walk(grid, O, list(sets), cx.K, cx.med_ids)[:2]
     assert walk[1:].tolist() == list(want) and want[1] > 160
+    assert (want[2] > 0) == levels and want[2] < 160 * grid.group_bounds.shape[0] / 2
 
     walk.zero_()
     mk._trace_dnee(cx, O, DA, TMAX_A, DB, TMAX_B, walk)
     ta = mk._box_clamp(cx, O, inv, TMAX_A)
-    want = _box_walk(grid, O, [(DA, "dist", ct.payload_state0("dist", ta)),
-                               (DB, "nee", ct.payload_state0("nee", TMAX_B, cx.K))],
-                     cx.K, cx.med_ids)
+    sets = [(DA, "dist", ct.payload_state0("dist", ta)),
+            (DB, "nee", ct.payload_state0("nee", TMAX_B, cx.K))]
+    want = _box_walk(grid, O, list(sets), cx.K, cx.med_ids, levels)
+    assert want[:2] == _box_walk(grid, O, list(sets), cx.K, cx.med_ids)[:2]
     assert walk[1:].tolist() == list(want) and want[1] > 160
+    assert (want[2] > 0) == levels
 
 
 def test_cpu_executor_fills_the_walk_fields(tiled_3x4):
@@ -265,7 +290,7 @@ def test_cpu_executor_fills_the_walk_fields(tiled_3x4):
     kinds = {s.label: s.kind for s in pc.sites()}
     k1 = [f for label, f in sites.items() if kinds[label] == "k1"]
     rest = [f for label, f in sites.items() if kinds[label] != "k1"]
-    assert all(f[pc.SITE_BOUNCES:pc.SITE_NS] == [0, 0, 0] for f in rest)
+    assert all(f[pc.SITE_BOUNCES:pc.SITE_NS] == [0] * pc.WALK_LEN for f in rest)
     assert all(sum(f[i] for f in k1) > 0 for i in (pc.SITE_BOUNCES, pc.SITE_SUPERS,
                                                    pc.SITE_CLUSTERS))
     # Every live lane of a launch runs a bounce at least.
@@ -279,8 +304,9 @@ def test_cpu_executor_fills_the_walk_fields(tiled_3x4):
 def test_cuda_walk_counts_equal_plain(tmp_path, monkeypatch, name, G):
     """On the card: the CUDA K1's walk counts equal the plain version's on
     the main path's first launch (65,536 lanes, one bounce) of the 16 x 16
-    tiling and of showcase, at the launch's own G and at G = 1 and 32; the
-    states bit-equal."""
+    tiling and of showcase, at the launch's own G and at G = 1 and 32, all
+    four counts (the tiling's 172 supers take the two-level walk, showcase's
+    one super the flat walk); the states bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card present")
     from complex_materials_renderer_tpu_torch.render.megarender import first_pass_state
@@ -315,3 +341,51 @@ def test_cuda_walk_counts_equal_plain(tmp_path, monkeypatch, name, G):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert wa.tolist() == wb.tolist()
     assert wa[0] == 65_536 and wa[1] > 0 and wa[2] > 0
+    assert (wa[3] > 0) == (name != "showcase")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [None, 1, 32])
+def test_cuda_flat_and_two_level_walks_agree(tmp_path, monkeypatch, G):
+    """On the card, on the 16 x 16 tiling run to the end (65,536 lanes of
+    the main path's first launch): the flat walk and the two-level walk,
+    each forced through the rule, give bit-equal states and enter the same
+    super and cluster boxes; the flat walk enters no group box, and each
+    walk's counts equal the plain version's of that walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card present")
+    from complex_materials_renderer_tpu_torch.render.megarender import first_pass_state
+
+    obj = build_tiled(str(tmp_path), (16, 16))
+    scene = load_scene(obj, RenderOptions(obj_path=obj))
+    r = Renderer(scene, dataclasses.replace(scene.options, width=512, height=512,
+                                            num_samples=16, rng="parity", device="cuda"))
+    assert mk._levels(r.accel, 0)
+    state, _ = first_pass_state(r.camera, (512, 128), 16, "parity", full_resolution=(512, 512))
+    media9 = mk.pack_media(r.scene_arrays.media, r.scene_arrays.scale, device=r.device)
+    misc = mk.pack_misc(r.lights, r.scene_arrays.world_lo, r.scene_arrays.world_hi,
+                        device=r.device)
+    opt = r.options
+    kw = dict(background=opt.background, max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+              nee_max_media=opt.nee_max_media)
+    if G is not None:
+        monkeypatch.setattr(mk, "group_size", lambda lanes: G)
+    out = {}
+    for levels in (False, True):
+        monkeypatch.setattr(mk, "two_level_walk", lambda supers, levels=levels: levels)
+        st = mk.MegaState(*(x.clone() for x in state))
+        w = torch.zeros(pc.WALK_LEN, dtype=torch.int64, device=r.device)
+        mk.trace_paths_mega(r.accel, media9, misc, st, walk=w, **kw)
+        torch.cuda.synchronize()
+        out[levels] = st, w.tolist()
+        if G is None:  # one plain bounce of each walk
+            a, b = (mk.MegaState(*(x.clone() for x in state)) for _ in range(2))
+            wa, wb = (torch.zeros(pc.WALK_LEN, dtype=torch.int64, device=r.device)
+                      for _ in range(2))
+            mk.trace_paths_mega(r.accel, media9, misc, a, walk=wa, max_iters=1, **kw)
+            mk.trace_paths_mega_plain(r.accel, media9, misc, b, walk=wb, max_iters=1, **kw)
+            assert wa.tolist() == wb.tolist() and (wa[3] > 0) == levels
+    (flat, wf), (two, wt) = out[False], out[True]
+    for f in mk.MegaState._fields:
+        assert torch.equal(getattr(flat, f), getattr(two, f)), f
+    assert wf[:3] == wt[:3] and wf[3] == 0 and 0 < wt[3] < wt[1] * 4
