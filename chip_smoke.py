@@ -319,6 +319,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from cmr_bench.hostinfo import cpu_model
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "complex_materials_renderer_tpu_torch"
 
@@ -1920,7 +1922,7 @@ def k1_step_calls(r, media9, misc, base):
 
     from complex_materials_renderer_tpu_torch.kernels import megakernel as mk
     from complex_materials_renderer_tpu_torch.render.megarender import (
-        _make_advance, _phase_schedule, _resolve_dynamic,
+        PassPlan, _phase_schedule, _resolve_dynamic,
     )
 
     opt = r.options
@@ -1936,8 +1938,8 @@ def k1_step_calls(r, media9, misc, base):
         mk.trace_paths_mega(r.accel, media9, misc, state, **base, **kw)
 
     kern.prepare = lambda device, lanes: None  # the library is built
-    plan = _make_advance(kern, dynamic, _phase_schedule(n, opt.max_depth), r.scene_arrays, "dir",
-                         opt.max_depth)
+    plan = PassPlan(kern, dynamic, _phase_schedule(n, opt.max_depth), r.scene_arrays, "dir",
+                    opt.max_depth)
     plan.prepare(st.org.device, n)
     lane = torch.arange(n, device=st.org.device)
     with uncounted():
@@ -2573,19 +2575,15 @@ def engine_graph_phase(profile):
                 lambda: mr.render_beauty_mega(*args, **kw), used)
         # One call under sync-debug 'error': the Renderer's band call, its
         # graph captured above.
-        fn = r._beauty_fn()
-        call = dict(max_depth=opt.max_depth, rr_depth=opt.rr_depth,
-                    nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
-                    full_resolution=(opt.width, opt.height), return_rng=True)
-        args = (r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, opt.height),
-                opt.num_samples)
+        fn = r._tile_call()
+        args = (0, opt.height, opt.num_samples, 0, None)  # the whole frame as one band
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            want, _ = fn(*args, **call)
+            want, _ = fn(*args)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                img, _ = fn(*args, **call)
+                img, _ = fn(*args)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         same = torch.equal(img, want)
@@ -2892,23 +2890,6 @@ CLI_SIZE = ("512", "512", "16")  # the main path's width, height and samples per
 # scenes (leaf_size 4), built with its committed native/cmr_native.so: the
 # port's C++ builder must give this tree on any host and compiler.
 JAX_NATIVE_TREES = {(TILES, TILES): "7bfa35dbc9acc5dc", (4, 4): "086c846bb94ec6e9"}
-
-
-def cpu_model() -> str:
-    """The host CPU's model from /proc/cpuinfo: its model name, or, where
-    the kernel reports that as unknown, vendor, family and model number."""
-    fields = {}
-    with open("/proc/cpuinfo") as f:
-        for ln in f:
-            if not ln.strip():
-                break  # the first processor's block
-            key, _, value = ln.partition(":")
-            fields[key.strip()] = value.strip()
-    name = fields.get("model name", "unknown")
-    if name != "unknown":
-        return name
-    return (f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model "
-            f"{fields.get('model', '?')} (model name unknown), {fields.get('cpu MHz', '?')} MHz")
 
 
 def file_bytes(path: str) -> bytes:
@@ -3267,7 +3248,7 @@ def row_blocks_check(r, rgbe):
     opt = r.options
     rows, chunk = _auto_row_chunk(opt.width), _auto_sample_chunk(opt.width, opt.height)
     starts = list(range(0, opt.height, rows))
-    beauty_fn = r._beauty_fn()
+    call = r._tile_call()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # this process's earlier tensors
     for row0 in (starts[0], starts[len(starts) // 2], starts[-1]):
@@ -3277,13 +3258,7 @@ def row_blocks_check(r, rgbe):
         t0 = time.perf_counter()
         while done < opt.num_samples:
             n = min(chunk, opt.num_samples - done)
-            img, rng_state = beauty_fn(
-                r.camera, r.scene_arrays, r.accel, r.lights, (opt.width, tile_h), n,
-                max_depth=opt.max_depth, rr_depth=opt.rr_depth,
-                nee_max_media=opt.nee_max_media, rng_mode=opt.rng, row_offset=row0,
-                full_resolution=(opt.width, opt.height), sample_offset=done,
-                rng_state=rng_state, return_rng=True,
-            )
+            img, rng_state = call(row0, tile_h, n, done, rng_state)
             acc += img.cpu().numpy() * np.float32(n / opt.num_samples)
             done += n
         dt = time.perf_counter() - t0
@@ -3829,7 +3804,7 @@ def sharded_blocks_check(opt, rgbe, blocks, n):
 
 def band_rows(width, height, n):
     """The sharded band loop's band height over ``n`` cards (renderer.py's
-    ``_render_sharded``)."""
+    ``_band_plan``)."""
     from complex_materials_renderer_tpu_torch import renderer
 
     return min(max(1, (renderer.LANES_PER_PASS * n) // width), height)

@@ -132,54 +132,65 @@ def _resolve_dynamic(schedule_mode: str, grid) -> str:
     return dynamic
 
 
-def _make_kern(grid, scene, lights, media9, misc, *, trace_engine, max_depth, rr_depth,
-               nee_max_media, tir, direct, rng_mode, binned_list, binned_cap, debug):
+@dataclasses.dataclass(frozen=True)
+class PassKnobs:
+    """The tile pass's knobs, each default stated here once. The entry
+    points take them as keywords (an unknown name raises ``TypeError``)
+    and the record is the knob part of each call shape's graph key.
+
+    ``schedule_mode``: auto | off | hybrid | all (``_resolve_dynamic``);
+    ``schedule``: the phase widths (``_phase_schedule``); ``sortkey``: dir |
+    pos; ``debug``: the megakernel's CMR_MEGA_DEBUG ablations
+    (``kernels.megakernel.ABLATIONS``), which the other engines ignore;
+    ``trace_engine`` swaps the per-pass kernel: mega | binned (with
+    ``binned_list`` and ``binned_cap``) | pair."""
+
+    max_depth: int = 32
+    rr_depth: int = 16
+    nee_max_media: int = 4
+    rng_mode: str = "parity"
+    tir: str = "reflect"
+    direct: str = "scatter"
+    schedule_mode: str = "auto"
+    schedule: str = ""
+    sortkey: str = "dir"
+    debug: str = ""
+    trace_engine: str = "mega"
+    binned_list: int = 8
+    binned_cap: int = 12
+
+
+def _make_kern(grid, scene, lights, media9, misc, k: PassKnobs):
     """The per-pass bounce kernel of the selected trace engine
     (megarender.py:166-210): the megakernel (its CMR_MEGA_DEBUG ablations
     ``debug``), or the wavefront bounce loop over the binned or the pair
     tracer, which ignore ``debug`` as in the JAX package. Each updates the
     state in place."""
-    ld = rng_mode == "ld"
-    if trace_engine == "binned":
+    ld = k.rng_mode == "ld"
+    if k.trace_engine == "binned":
         from .binnedrender import make_binned_kern
 
-        return make_binned_kern(grid, scene, lights, media9, max_depth=max_depth,
-                                rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
-                                list_len=binned_list, cap_iters=binned_cap, direct=direct, ld=ld)
-    if trace_engine == "pair":
+        return make_binned_kern(grid, scene, lights, media9, max_depth=k.max_depth,
+                                rr_depth=k.rr_depth, nee_max_media=k.nee_max_media, tir=k.tir,
+                                list_len=k.binned_list, cap_iters=k.binned_cap, direct=k.direct,
+                                ld=ld)
+    if k.trace_engine == "pair":
         from .pairrender import make_pair_kern
 
-        return make_pair_kern(grid, scene, lights, media9, max_depth=max_depth,
-                              rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
-                              direct=direct, ld=ld)
-    if trace_engine != "mega":
-        raise ValueError(f"trace engine must be mega|binned|pair, got {trace_engine!r}")
-    knobs = dict(background=scene.background, max_depth=max_depth, rr_depth=rr_depth,
-                 nee_max_media=nee_max_media, tir_kill=(tir == "kill"),
-                 analytic_direct=(direct == "analytic"), ld=ld, debug=debug)
+        return make_pair_kern(grid, scene, lights, media9, max_depth=k.max_depth,
+                              rr_depth=k.rr_depth, nee_max_media=k.nee_max_media, tir=k.tir,
+                              direct=k.direct, ld=ld)
+    if k.trace_engine != "mega":
+        raise ValueError(f"trace engine must be mega|binned|pair, got {k.trace_engine!r}")
+    kw = dict(background=scene.background, max_depth=k.max_depth, rr_depth=k.rr_depth,
+              nee_max_media=k.nee_max_media, tir_kill=(k.tir == "kill"),
+              analytic_direct=(k.direct == "analytic"), ld=ld, debug=k.debug)
     # The plain version's constants, read to the host once, not per call.
-    plain = plain_context(grid, media9, misc, **knobs) if grid.device.type == "cpu" else None
-    kern = partial(trace_paths_mega, grid, media9, misc, plain=plain, **knobs)
+    plain = plain_context(grid, media9, misc, **kw) if grid.device.type == "cpu" else None
+    kern = partial(trace_paths_mega, grid, media9, misc, plain=plain, **kw)
     kern.is_k1 = True  # its calls count as K1 launches
-    kern.prepare = partial(prepare_megakernel, nee_max_media=nee_max_media, debug=debug)
+    kern.prepare = partial(prepare_megakernel, nee_max_media=k.nee_max_media, debug=k.debug)
     return kern
-
-
-def _pass_advance(scene, grid, lights, step, *, max_depth, rr_depth, nee_max_media, rng_mode,
-                  tir, direct, schedule_mode, schedule, sortkey, debug, trace_engine,
-                  binned_list, binned_cap):
-    """The pass loop (``_make_advance``) of passes ``step`` lanes wide over
-    the selected engine's kernel, on the device of ``grid``; the media and
-    light rows come from the tables' ``PassCache``, uploaded once."""
-    cache = pass_cache(scene, grid, lights)
-    kern = _make_kern(
-        grid, cache.wave_scene, lights, cache.media9, cache.misc, trace_engine=trace_engine,
-        max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media, tir=tir,
-        direct=direct, rng_mode=rng_mode, binned_list=binned_list, binned_cap=binned_cap,
-        debug=debug,
-    )
-    return _make_advance(kern, _resolve_dynamic(schedule_mode, grid),
-                         _phase_schedule(step, max_depth, schedule), scene, sortkey, max_depth)
 
 
 class PassPlan:
@@ -324,10 +335,15 @@ class PassPlan:
         return state, lane
 
 
-def _make_advance(kern, dynamic, sched, scene, sortkey, max_depth):
-    """Build the wavefront advance: the ``PassPlan`` of ``kern`` under the
-    dynamic mode or the static phase schedule ``sched``."""
-    return PassPlan(kern, dynamic, sched, scene, sortkey, max_depth)
+def _pass_plan(scene, grid, lights, step, k: PassKnobs) -> PassPlan:
+    """The pass loop (the JAX ``_make_advance``) of passes ``step`` lanes
+    wide over the selected engine's kernel, on the device of ``grid``: the
+    dynamic mode or the static phase schedule of ``k``; the media and light
+    rows come from the tables' ``PassCache``, uploaded once."""
+    cache = pass_cache(scene, grid, lights)
+    kern = _make_kern(grid, cache.wave_scene, lights, cache.media9, cache.misc, k)
+    return PassPlan(kern, _resolve_dynamic(k.schedule_mode, grid),
+                    _phase_schedule(step, k.max_depth, k.schedule), scene, k.sortkey, k.max_depth)
 
 
 class PassCache:
@@ -686,26 +702,15 @@ def render_beauty_mega(
     lights: Lights,
     resolution,
     num_samples: int,
-    max_depth: int = 32,
-    rr_depth: int = 16,
-    nee_max_media: int = 4,
-    rng_mode: str = "parity",
+    *,
     pixel_offset=0,
     row_offset=0,
     full_resolution=None,
     sample_offset=0,
     rng_state=None,
     return_rng=False,
-    tir: str = "reflect",
-    schedule_mode: str = "auto",
-    schedule: str = "",
-    sortkey: str = "dir",
-    debug: str = "",
-    direct: str = "scatter",
-    trace_engine: str = "mega",
-    binned_list: int = 8,
-    binned_cap: int = 12,
     executor: str = "auto",
+    **knobs,
 ):
     """Render an (H, W, 3) tile of the beauty pass with the megakernel, on
     the device of ``grid`` (the tables and the camera must be there too).
@@ -714,17 +719,16 @@ def render_beauty_mega(
     the mean over this call's samples; ``pixel_offset``/``row_offset`` and
     ``full_resolution`` place the tile in the full frame; ``rng_state`` (u32
     words in int64, row-major) carries the parity stream across sample
-    chunks; ``sample_offset`` is an int or a tensor. ``schedule_mode``: auto
-    | off | hybrid | all. ``trace_engine`` swaps the per-pass kernel: mega |
-    binned (with ``binned_list`` and ``binned_cap``) | pair. ``debug``: the
-    megakernel's CMR_MEGA_DEBUG ablations (``kernels.megakernel.ABLATIONS``);
-    the other engines ignore it.
+    chunks; ``sample_offset`` is an int or a tensor. ``knobs``: the pass's
+    ``PassKnobs``.
 
     On the card every engine runs the call as one CUDA graph per call
     shape, as the JAX ``jit`` runs it as one program: no value goes to the
     host between its first launch and its last. ``executor='eager'`` runs
     the same steps from the host instead (the comparison for the graph).
     """
+    k = PassKnobs(**knobs)
+    rng_mode = k.rng_mode
     if rng_mode not in ("parity", "counter", "ld"):
         raise ValueError(f"rng mode must be parity|counter|ld, got {rng_mode!r}")
     dev = grid.device
@@ -733,11 +737,7 @@ def render_beauty_mega(
     pixel_xy_t, linear_t, inv = _tile_lanes(width, height, pixel_offset, row_offset, full[0], dev)
     r = linear_t.shape[0]
     step = _step_lanes(r, rng_mode)
-    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
-                 rng_mode=rng_mode, tir=tir, direct=direct, schedule_mode=schedule_mode,
-                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
-                 binned_list=binned_list, binned_cap=binned_cap)
-    advance = _pass_advance(scene, grid, lights, step, **knobs)
+    advance = _pass_plan(scene, grid, lights, step, k)
     if rng_mode != "parity":
         rng_t = torch.zeros((0,), dtype=torch.int64, device=dev)  # the streams are derived
     elif rng_state is not None:
@@ -747,7 +747,7 @@ def render_beauty_mega(
     inputs = (*camera, pixel_xy_t, linear_t, inv, rng_t, _sample_offset_on(sample_offset, dev))
     program = partial(_beauty_program, advance=advance, width=width, height=height,
                       num_samples=num_samples, rng_mode=rng_mode, step=step, full=full)
-    key = ("beauty", width, height, num_samples, full, tuple(sorted(knobs.items())))
+    key = ("beauty", width, height, num_samples, full, k)
     img, final_rng = _execute(scene, grid, lights, advance.prepare, key, program, inputs, executor,
                               step)
     if return_rng:
@@ -789,21 +789,11 @@ def render_samples_mega(
     sample_idx,
     valid,
     full_resolution,
-    max_depth: int = 32,
-    rr_depth: int = 16,
-    nee_max_media: int = 4,
+    *,
     rng_mode: str = "counter",
-    tir: str = "reflect",
-    schedule_mode: str = "auto",
-    schedule: str = "",
-    sortkey: str = "dir",
-    debug: str = "",
-    trace_engine: str = "mega",
-    binned_list: int = 8,
-    binned_cap: int = 12,
-    direct: str = "scatter",
     chunk_lanes: int = 1 << 16,
     executor: str = "auto",
+    **knobs,
 ):
     """One camera sample per lane at caller-chosen (pixel, sample index)
     pairs: the entry point of adaptive sampling (megarender.py:591 of the
@@ -817,7 +807,8 @@ def render_samples_mega(
     derived on its own), so a lane's radiance is the uniform path's for the
     same pair. Lanes run in waves of ``chunk_lanes``, each padded to whole
     1024-lane blocks, through the engine's pass loop; on the card as one
-    CUDA graph per L, as ``render_beauty_mega`` (``executor``).
+    CUDA graph per L, as ``render_beauty_mega`` (``executor``). ``knobs``:
+    the pass's other ``PassKnobs``.
     """
     if rng_mode not in ("counter", "ld"):
         raise ValueError(
@@ -838,14 +829,11 @@ def render_samples_mega(
         pixel_xy = torch.cat([pixel_xy, pixel_xy.new_zeros((pad, 2))])
         sample_idx = torch.cat([sample_idx, sample_idx.new_zeros((pad,))])
         valid = torch.cat([valid, valid.new_zeros((pad,))])
-    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
-                 rng_mode=rng_mode, tir=tir, direct=direct, schedule_mode=schedule_mode,
-                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
-                 binned_list=binned_list, binned_cap=binned_cap)
-    advance = _pass_advance(scene, grid, lights, ch, **knobs)
+    k = PassKnobs(rng_mode=rng_mode, **knobs)
+    advance = _pass_plan(scene, grid, lights, ch, k)
     program = partial(_samples_program, advance=advance, ch=ch, n_steps=n_steps,
                       rng_mode=rng_mode, full=full)
-    key = ("samples", n_steps * ch, ch, full, tuple(sorted(knobs.items())))
+    key = ("samples", n_steps * ch, ch, full, k)
     (out,) = _execute(scene, grid, lights, advance.prepare, key, program,
                       (*camera, pixel_xy, sample_idx, valid), executor, ch)
     return out[:n]
@@ -867,21 +855,11 @@ def render_pixels_mega(
     pixel_xy,
     num_samples: int,
     full_resolution,
-    max_depth: int = 32,
-    rr_depth: int = 16,
-    nee_max_media: int = 4,
+    *,
     rng_state=None,
     return_rng=False,
-    tir: str = "reflect",
-    schedule_mode: str = "auto",
-    schedule: str = "",
-    sortkey: str = "dir",
-    debug: str = "",
-    trace_engine: str = "mega",
-    binned_list: int = 8,
-    binned_cap: int = 12,
-    direct: str = "scatter",
     executor: str = "auto",
+    **knobs,
 ):
     """``num_samples`` parity samples of each of caller-chosen pixels: the
     parity counterpart of ``render_samples_mega``, which the stateless
@@ -896,7 +874,7 @@ def render_pixels_mega(
     device of ``grid`` (and with ``return_rng`` the next RNG words), so a
     pixel's value is the one the uniform render of the frame gives it. On
     the card as one CUDA graph per L, as ``render_beauty_mega``
-    (``executor``).
+    (``executor``). ``knobs``: the pass's ``PassKnobs`` but the RNG mode.
     """
     dev = grid.device
     full = tuple(full_resolution)
@@ -907,14 +885,11 @@ def render_pixels_mega(
         if rng_state is not None
         else rng_ops.seed_from_pixel(pixel_xy[:, 1] * full[0] + pixel_xy[:, 0])
     )
-    knobs = dict(max_depth=max_depth, rr_depth=rr_depth, nee_max_media=nee_max_media,
-                 rng_mode="parity", tir=tir, direct=direct, schedule_mode=schedule_mode,
-                 schedule=schedule, sortkey=sortkey, debug=debug, trace_engine=trace_engine,
-                 binned_list=binned_list, binned_cap=binned_cap)
+    k = PassKnobs(rng_mode="parity", **knobs)
     rp = -(-n // BLOCK) * BLOCK
-    advance = _pass_advance(scene, grid, lights, rp, **knobs)
+    advance = _pass_plan(scene, grid, lights, rp, k)
     program = partial(_pixels_program, advance=advance, num_samples=num_samples, full=full)
-    key = ("pixels", n, num_samples, full, tuple(sorted(knobs.items())))
+    key = ("pixels", n, num_samples, full, k)
     acc, next_rng = _execute(scene, grid, lights, advance.prepare, key, program,
                              (*camera, pixel_xy, rng_t), executor, rp)
     img = acc / float(num_samples)

@@ -53,28 +53,27 @@ LANES_PER_PASS = int(os.environ.get("CMR_LANES_PER_PASS", 1 << 16))
 PATHS_PER_PASS = int(os.environ.get("CMR_PATHS_PER_PASS", 1 << 20))
 
 
-def _mega_env_knobs() -> dict:
-    """The megakernel tuning knobs, read once per render: CMR_MEGA_DYN
-    (schedule mode), CMR_MEGA_SCHED (phase widths), CMR_MEGA_SORTKEY
-    (dir | pos) and CMR_MEGA_DEBUG (the megakernel's ablations, a
-    comma-separated set of ``kernels.megakernel.ABLATIONS`` tokens)."""
-    return dict(
-        schedule_mode=os.environ.get("CMR_MEGA_DYN", "auto"),
-        schedule=os.environ.get("CMR_MEGA_SCHED", ""),
-        sortkey=os.environ.get("CMR_MEGA_SORTKEY", "dir"),
-        debug=os.environ.get("CMR_MEGA_DEBUG", ""),
-    )
-
-
 def _engine_knobs(engine: str) -> dict:
-    """Keyword arguments of the megarender pass loop for a mega-family
-    engine: the tuning knobs and the trace engine, with the binned
-    engine's list length and serving cap (CMR_BINNED_LIST, CMR_BINNED_CAP)."""
-    knobs = _mega_env_knobs()
-    knobs["trace_engine"] = engine
+    """The pass knobs (``megarender.PassKnobs``) of a mega-family engine
+    that the environment sets, as keywords, read once per render as the
+    JAX package reads them (renderer.py:43-54, :306-314): CMR_MEGA_DYN
+    (schedule mode), CMR_MEGA_SCHED (phase widths), CMR_MEGA_SORTKEY (dir |
+    pos), CMR_MEGA_DEBUG (the megakernel's ablations, a comma-separated set
+    of ``kernels.megakernel.ABLATIONS`` tokens), the trace engine, and the
+    binned engine's list length and serving cap (CMR_BINNED_LIST,
+    CMR_BINNED_CAP)."""
+    from .render.megarender import PassKnobs as K
+
+    knobs = dict(
+        schedule_mode=os.environ.get("CMR_MEGA_DYN", K.schedule_mode),
+        schedule=os.environ.get("CMR_MEGA_SCHED", K.schedule),
+        sortkey=os.environ.get("CMR_MEGA_SORTKEY", K.sortkey),
+        debug=os.environ.get("CMR_MEGA_DEBUG", K.debug),
+        trace_engine=engine,
+    )
     if engine == "binned":
-        knobs["binned_list"] = int(os.environ.get("CMR_BINNED_LIST", 8))
-        knobs["binned_cap"] = int(os.environ.get("CMR_BINNED_CAP", 12))
+        knobs["binned_list"] = int(os.environ.get("CMR_BINNED_LIST", K.binned_list))
+        knobs["binned_cap"] = int(os.environ.get("CMR_BINNED_CAP", K.binned_cap))
     return knobs
 
 
@@ -97,6 +96,29 @@ def _auto_sample_chunk(width: int, height: int) -> int:
 
 def _auto_row_chunk(width: int) -> int:
     return max(1, LANES_PER_PASS // width)
+
+
+def _band_plan(opt: RenderOptions, n_tile: int) -> tuple:
+    """(rows a band, samples a call) over ``n_tile`` tile shards, as the JAX
+    package sizes its loops. One card (renderer.py:334-336): LANES_PER_PASS
+    lanes a band, not clamped to the frame (a checkpoint records it), and
+    every RNG mode chunked by PATHS_PER_PASS over the frame's lanes, parity
+    carrying its stream across chunks. Several (:246-258): LANES_PER_PASS
+    lanes a shard, clamped to the frame; counter and ld chunked by
+    PATHS_PER_PASS over a band's lanes, and all of parity's samples in one
+    call so that each pixel's stream stays sequential. ``sample_chunk``
+    replaces the PATHS_PER_PASS rule."""
+    width, spp = opt.width, opt.num_samples
+    if n_tile == 1:
+        band = _auto_row_chunk(width)
+        chunk = opt.sample_chunk or _auto_sample_chunk(width, opt.height)
+    else:
+        band = min(max(1, LANES_PER_PASS * n_tile // width), opt.height)
+        chunk = spp
+        if opt.rng in ("counter", "ld"):
+            chunk = opt.sample_chunk or max(
+                1, PATHS_PER_PASS // min(LANES_PER_PASS, band * width))
+    return band, max(1, min(chunk, spp))
 
 
 class _BandRead:
@@ -247,7 +269,8 @@ class Renderer:
         ``checkpoint_path``: optional .npz path; the framebuffer and the
         per-row-block RNG state are saved after every pass, and an
         interrupted render resumes from it to the same image (the file is
-        removed on completion).
+        removed on completion). A render sharded over several cards writes
+        none, as the JAX package's does not.
 
         Each call is a root span of the port's recorder (utils/timing.py),
         with a span for each band and sample chunk's tile call (or, over
@@ -256,8 +279,9 @@ class Renderer:
         """
         opt = self.options
         devices = self._shard_devices()
-        sharded = opt.shard == "auto" and len(devices) > 1
-        with self.timer.render(devices if sharded else [self.device]):
+        if opt.shard != "auto" or len(devices) < 2:
+            devices = None
+        with self.timer.render(devices or [self.device]):
             return self._render(checkpoint_path, devices)
 
     def _render(self, checkpoint_path, devices) -> np.ndarray:
@@ -275,14 +299,21 @@ class Renderer:
                     "drop one of the two flags"
                 )
             return self.render_adaptive()
-        if opt.shard == "auto" and len(devices) > 1:
-            return self._render_sharded(devices)
+        if devices:
+            call, n_tile = self._shard_call(devices)
+            checkpoint_path = None
+        else:
+            call, n_tile = self._tile_call(), 1
+        return self._band_loop(call, *_band_plan(opt, n_tile), checkpoint_path)
 
-        beauty_fn = self._beauty_fn()
-        chunk = opt.sample_chunk or _auto_sample_chunk(opt.width, opt.height)
-        chunk = max(1, min(chunk, opt.num_samples))
-        rows = _auto_row_chunk(opt.width)
-
+    def _band_loop(self, call, rows: int, chunk: int, checkpoint_path) -> np.ndarray:
+        """The beauty pass in bands of ``rows`` rows, calls of at most
+        ``chunk`` samples: ``call(row0, band_h, n, done, rng_state)`` gives
+        the band's image of ``n`` samples from sample ``done`` and the RNG
+        words its next call takes; the host reads the image behind the call
+        and adds it by its share of the samples, saving the framebuffer and
+        each band's words to ``checkpoint_path`` after every call."""
+        opt = self.options
         acc = np.zeros((opt.height, opt.width, 3), np.float32)
         rng_rows: dict = {}
         done_rows: dict = {}
@@ -309,7 +340,7 @@ class Renderer:
 
         timer = self.timer
         for row0 in range(0, opt.height, rows):
-            tile_h = min(rows, opt.height - row0)
+            band_h = min(rows, opt.height - row0)
             rng_state = (
                 torch.from_numpy(np.asarray(rng_rows[row0], np.int64)).to(self.device)
                 if row0 in rng_rows else None
@@ -317,22 +348,14 @@ class Renderer:
             done = done_rows.get(row0, 0)
             while done < opt.num_samples:
                 n = min(chunk, opt.num_samples - done)
-                with timer.phase("tile_call"):
-                    img, rng_state = beauty_fn(
-                        self.camera, self.scene_arrays, self.accel, self.lights,
-                        (opt.width, tile_h), n,
-                        max_depth=opt.max_depth, rr_depth=opt.rr_depth,
-                        nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
-                        row_offset=row0, full_resolution=resolution,
-                        sample_offset=done, rng_state=rng_state, return_rng=True,
-                    )
+                img, rng_state = call(row0, band_h, n, done, rng_state)
                 with timer.phase("band_wait"):
                     read = _BandRead(img)
                     read.wait()
                 with timer.phase("band_read"):
                     band = read.read()
                 with timer.phase("band_accumulate"):
-                    acc[row0 : row0 + tile_h] += band * np.float32(n / opt.num_samples)
+                    acc[row0 : row0 + band_h] += band * np.float32(n / opt.num_samples)
                     done += n
                     if checkpoint_path:
                         rng_rows[row0] = rng_state.cpu().numpy().astype(np.uint32)
@@ -345,102 +368,88 @@ class Renderer:
             os.remove(checkpoint_path)
         return acc
 
-    def _keep_passes(self) -> None:
-        """Hold the pass loop's cache of this renderer's tables (the media
-        and light rows, and on the card the CUDA graph of each call shape),
-        so that row blocks and later renders reuse it."""
+    def _keep_passes(self, devices=None) -> Optional[dict]:
+        """Hold the pass loop's caches of this renderer's tables (the media
+        and light rows, and on the card each call shape's CUDA graph) for
+        the bands and later renders: ``_passes`` on one card; over
+        ``devices`` the tables' copies (``replicate``: the same at every
+        call), returned, and ``_shard_passes``, a cache a device."""
+        from .parallel.sharding import replicate
         from .render.megarender import pass_cache
 
-        self._passes = pass_cache(self.scene_arrays, self.accel, self.lights)
+        if devices is None:
+            self._passes = pass_cache(self.scene_arrays, self.accel, self.lights)
+            return None
+        tables = replicate((self.camera, self.scene_arrays, self.accel, self.lights), devices)
+        self._shard_passes = {d: pass_cache(*t[1:]) for d, t in tables.items()}
+        return tables
 
-    def _beauty_fn(self):
-        """The tile renderer the single-device loop calls each pass: the
-        megarender pass loop with the engine's knobs, or the wavefront loop
-        (on the card each a CUDA graph per call shape)."""
+    def _tile_call(self):
+        """The band call on one card: the engine's tile renderer, looked up
+        once a render (the megarender pass loop with the engine's knobs, or
+        the wavefront loop; on the card each a CUDA graph per call shape),
+        carrying the parity words from call to call."""
         from .render.integrator import render_beauty
         from .render.megarender import render_beauty_mega
 
         opt = self.options
         engine = self._resolve_engine()
         self._keep_passes()
-        if engine not in ("mega", "binned", "pair"):
-            return partial(render_beauty, tir=opt.tir, direct=opt.direct)
-        knobs = _engine_knobs(engine)
-        if (knobs["schedule_mode"] == "auto"
-                and opt.width * opt.height * opt.num_samples < (1 << 18)):
-            # Preview-sized jobs take the dynamic mode, as in the JAX
-            # package (renderer.py:317-327).
-            knobs["schedule_mode"] = "all"
-        return partial(render_beauty_mega, tir=opt.tir, direct=opt.direct, **knobs)
+        tile = render_beauty
+        if engine in ("mega", "binned", "pair"):
+            knobs = _engine_knobs(engine)
+            if (knobs["schedule_mode"] == "auto"
+                    and opt.width * opt.height * opt.num_samples < (1 << 18)):
+                # Preview-sized jobs take the dynamic mode, as in the JAX
+                # package (renderer.py:317-327).
+                knobs["schedule_mode"] = "all"
+            tile = partial(render_beauty_mega, **knobs)
+        resolution = (opt.width, opt.height)
 
-    def _keep_shard_passes(self, devices) -> dict:
-        """This renderer's tables on each of ``devices`` (``replicate``: the
-        same copies at every call) with their pass loop caches held, as
-        ``_keep_passes`` holds one card's, so that every band and later
-        render replays each card's graphs."""
-        from .parallel.sharding import replicate
-        from .render.megarender import pass_cache
+        def call(row0, band_h, n, done, rng_state):
+            with self.timer.phase("tile_call"):
+                return tile(
+                    self.camera, self.scene_arrays, self.accel, self.lights,
+                    (opt.width, band_h), n,
+                    max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                    nee_max_media=opt.nee_max_media, rng_mode=opt.rng, tir=opt.tir,
+                    direct=opt.direct, row_offset=row0, full_resolution=resolution,
+                    sample_offset=done, rng_state=rng_state, return_rng=True,
+                )
 
-        tables = replicate((self.camera, self.scene_arrays, self.accel, self.lights), devices)
-        self._shard_passes = {d: pass_cache(*objs[1:]) for d, objs in tables.items()}
-        return tables
+        return call
 
-    def _render_sharded(self, devices) -> np.ndarray:
-        """The beauty pass in bands tile-sharded over ``devices``
-        (renderer.py:240-288): each band is at most LANES_PER_PASS lanes a
-        tile shard; the counter and ld modes also chunk the samples by
-        PATHS_PER_PASS, parity keeps every sample of a band in one call so
-        that each pixel's stream stays sequential. A band's calls are all
-        queued (``dispatch_cells``) before its one host read, of the
-        combined image."""
-        from .parallel.sharding import (
-            combine_cells,
-            dispatch_cells,
-            make_render_mesh,
-            mesh_cells,
-        )
+    def _shard_call(self, devices):
+        """(band call, tile shards) of a render tile-sharded over
+        ``devices`` (renderer.py:240-288): ``dispatch_cells`` queues every
+        card's call of the band before ``combine_cells`` stacks the tiles
+        on the first card, both looked up at each call. The call carries no
+        RNG words. As in the JAX package the shards get no ``tir`` (ROADMAP
+        R6) and ``pair`` renders through the wavefront loop (R5)."""
+        from .parallel import sharding
 
         opt = self.options
         resolution = (opt.width, opt.height)
         engine = self._resolve_engine()
-        mesh = make_render_mesh(devices)
-        n_tile = mesh.shape["tile"]
-        band = min(max(1, (LANES_PER_PASS * n_tile) // opt.width), opt.height)
-        if opt.rng in ("counter", "ld"):
-            chunk = opt.sample_chunk or max(
-                1, PATHS_PER_PASS // (min(LANES_PER_PASS, band * opt.width)))
-            chunk = max(1, min(chunk, opt.num_samples))
-        else:
-            chunk = opt.num_samples
-        acc = np.zeros((opt.height, opt.width, 3), np.float32)
-        cells = mesh_cells(mesh)
-        tables = self._keep_shard_passes([mesh.devices[s][t] for s, t in cells])
-        timer = self.timer
-        for row0 in range(0, opt.height, band):
-            band_h = min(band, opt.height - row0)
-            done = 0
-            while done < opt.num_samples:
-                n = min(chunk, opt.num_samples - done)
-                with timer.phase("dispatch"):
-                    images = dispatch_cells(
-                        cells, tables, (opt.width, band_h), n, mesh,
-                        max_depth=opt.max_depth, rr_depth=opt.rr_depth,
-                        nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
-                        row_offset=row0, full_resolution=resolution, sample_offset=done,
-                        engine=engine, direct=opt.direct,
-                    )
-                with timer.phase("combine"):
-                    img = combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
-                                        band_h, mesh.devices[0][0])
-                with timer.phase("band_wait"):
-                    read = _BandRead(img)
-                    read.wait()
-                with timer.phase("band_read"):
-                    out = read.read()
-                with timer.phase("band_accumulate"):
-                    acc[row0:row0 + band_h] += out * (n / opt.num_samples)
-                    done += n
-        return acc
+        mesh = sharding.make_render_mesh(devices)
+        cells = sharding.mesh_cells(mesh)
+        tables = self._keep_passes([mesh.devices[s][t] for s, t in cells])
+
+        def call(row0, band_h, n, done, rng_state):
+            with self.timer.phase("dispatch"):
+                images = sharding.dispatch_cells(
+                    cells, tables, (opt.width, band_h), n, mesh,
+                    max_depth=opt.max_depth, rr_depth=opt.rr_depth,
+                    nee_max_media=opt.nee_max_media, rng_mode=opt.rng,
+                    row_offset=row0, full_resolution=resolution, sample_offset=done,
+                    engine=engine, direct=opt.direct,
+                )
+            with self.timer.phase("combine"):
+                img = sharding.combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
+                                             band_h, mesh.devices[0][0])
+            return img, None
+
+        return call, mesh.shape["tile"]
 
     def render_adaptive(self, snapshot_cb=None, sample_base: int = 0) -> np.ndarray:
         """Adaptive per-pixel sample allocation at the uniform budget

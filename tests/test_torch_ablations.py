@@ -148,9 +148,9 @@ def test_binned_and_pair_ignore_debug(engine):
 
 def test_renderer_reads_cmr_mega_debug(monkeypatch):
     monkeypatch.setenv("CMR_MEGA_DEBUG", "nonee,nodist")
-    assert trenderer._mega_env_knobs()["debug"] == "nonee,nodist"
+    assert trenderer._engine_knobs("mega")["debug"] == "nonee,nodist"
     monkeypatch.delenv("CMR_MEGA_DEBUG")
-    assert trenderer._mega_env_knobs()["debug"] == ""
+    assert trenderer._engine_knobs("mega")["debug"] == ""
 
 
 def test_ablation_mask():

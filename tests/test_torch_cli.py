@@ -305,11 +305,12 @@ from complex_materials_renderer_tpu_torch.config import RenderOptions
 from complex_materials_renderer_tpu_torch.render import megarender
 from complex_materials_renderer_tpu_torch.scene import load_scene
 shapes = []
-real = megarender._make_advance
-def spy(kern, dynamic, sched, *a):
-    shapes.append(sched[0][0])
-    return real(kern, dynamic, sched, *a)
-megarender._make_advance = spy
+real = megarender._pass_plan
+def spy(*a):
+    plan = real(*a)
+    shapes.append(plan.sched[0][0])
+    return plan
+megarender._pass_plan = spy
 kw = dict(width=48, height=48, num_samples=2, rng="counter", shard="none", device="cpu",
           backend="cluster", engine="mega")
 scene = load_scene("scenes/isobox.obj", RenderOptions(obj_path="scenes/isobox.obj", **kw))

@@ -132,9 +132,9 @@ def _advances(jmr, mode, schedule, ld, lanes):
     assert sched == jmr._phase_schedule(lanes, KW["max_depth"], schedule)
     jkern = jmr._make_kern(jgrid, jscene, fixture_lights(), jmedia9, jmisc, **knobs)
     tkern = tmr._make_kern(tgrid, tscene, port_lights(), torch.from_numpy(np.array(jmedia9)),
-                           torch.from_numpy(np.array(jmisc)), **knobs)
+                           torch.from_numpy(np.array(jmisc)), tmr.PassKnobs(**knobs))
     jadv = jmr._make_advance(jkern, mode, sched, jscene, "dir", KW["max_depth"])
-    tadv = tmr._make_advance(tkern, mode, sched, tscene, "dir", KW["max_depth"])
+    tadv = tmr.PassPlan(tkern, mode, sched, tscene, "dir", KW["max_depth"])
     return jadv, tadv, fields
 
 

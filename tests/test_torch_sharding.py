@@ -394,16 +394,17 @@ def test_sharded_chunked_renderer_matches_single(monkeypatch, rng, lanes):
     monkeypatch.setattr(trenderer, "LANES_PER_PASS", lanes)
     monkeypatch.setattr(trenderer, "PATHS_PER_PASS", lanes)
     seen = []
-    real = trenderer.Renderer._render_sharded
+    real = sharding.dispatch_cells
 
-    def spy(self, devices):
-        seen.append(len(devices))
-        return real(self, devices)
+    def spy(cells, *a, **kw):
+        seen.append(len(cells))
+        return real(cells, *a, **kw)
 
-    monkeypatch.setattr(Renderer, "_render_sharded", spy)
+    monkeypatch.setattr(sharding, "dispatch_cells", spy)
     copies = _spy_replicate(monkeypatch)
     sharded = Renderer(base, dataclasses.replace(opt, shard="auto")).render()
-    assert seen == [8]
+    # One band of every sample (parity); two 16-row bands of four 1-sample calls (counter).
+    assert seen == [8] * {"parity": 1, "counter": 8}[rng]
     assert [list(c) for c in copies] == [[torch.device("cpu")]]  # once, not once a band
     np.testing.assert_allclose(sharded, single, atol=1e-6)
 
@@ -422,10 +423,43 @@ def test_shard_auto_on_one_device_renders_alone(monkeypatch):
     """With one device ``--shard auto`` takes the single-device path, as
     the JAX package does with one device."""
     base, opt = _helpers_scene(rng="counter")
-    monkeypatch.setattr(Renderer, "_render_sharded", lambda *a: pytest.fail("sharded"))
+    monkeypatch.setattr(sharding, "dispatch_cells", lambda *a, **kw: pytest.fail("sharded"))
     r = Renderer(base, dataclasses.replace(opt, shard="auto"))
     assert r._shard_devices() == [torch.device("cpu")]
     assert r.render().shape == (24, 16, 3)
+
+
+@pytest.mark.parametrize("width,height,spp,n_tile,rng,sample_chunk,band,chunk", [
+    (128, 128, 256, 1, "parity", 0, 512, 64),
+    (128, 128, 256, 1, "counter", 0, 512, 64),
+    (128, 128, 256, 4, "parity", 0, 128, 256),
+    (128, 128, 256, 4, "counter", 0, 128, 64),
+    (1920, 1080, 256, 1, "parity", 0, 34, 16),
+    (1920, 1080, 256, 1, "counter", 0, 34, 16),
+    (1920, 1080, 256, 4, "parity", 0, 136, 256),
+    (1920, 1080, 256, 4, "counter", 0, 136, 16),
+    (10000, 4, 256, 1, "parity", 0, 6, 26),
+    (10000, 4, 256, 1, "counter", 0, 6, 26),
+    (10000, 4, 256, 4, "parity", 0, 4, 256),
+    (10000, 4, 256, 4, "counter", 0, 4, 26),
+    (1920, 1080, 256, 1, "parity", 3, 34, 3),
+    (1920, 1080, 256, 4, "counter", 3, 136, 3),
+    (1920, 1080, 256, 4, "parity", 3, 136, 256),
+    (1920, 1080, 256, 1, "counter", 1000, 34, 256),
+    (1920, 1080, 256, 4, "ld", 1000, 136, 256),
+    (128, 128, 8, 4, "counter", 0, 128, 8),
+])
+def test_band_plan(monkeypatch, width, height, spp, n_tile, rng, sample_chunk, band, chunk):
+    """The band loop's rows and samples a call at the default pass shape,
+    written out from the JAX package's two loops (renderer.py:246-258 and
+    :334-336): one card's band unclamped and its samples chunked over the
+    frame's lanes; four tiles' band clamped to the frame, counter and ld
+    chunked over the band's lanes, parity's samples all in one call."""
+    monkeypatch.setattr(trenderer, "LANES_PER_PASS", 1 << 16)
+    monkeypatch.setattr(trenderer, "PATHS_PER_PASS", 1 << 20)
+    opt = RenderOptions(width=width, height=height, num_samples=spp, rng=rng,
+                        sample_chunk=sample_chunk)
+    assert trenderer._band_plan(opt, n_tile) == (band, chunk)
 
 
 def test_multihost_single_process(setup):

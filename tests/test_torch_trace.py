@@ -29,6 +29,7 @@ from complex_materials_renderer_tpu_torch.utils import timing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANDS = ("tile_call", "band_wait", "band_read", "band_accumulate")
+CPU8 = [torch.device("cpu")] * 8  # eight shards of the one CPU
 
 
 def _isobox(device="cpu", **kw):
@@ -71,27 +72,37 @@ def test_recorder_nesting_render_ids_and_bound():
     assert not rec.rendering
 
 
-def test_render_records_a_span_set_per_band_and_chunk(monkeypatch):
-    """Two bands of two 1-sample chunks: one tile_call, band_wait,
-    band_read and band_accumulate each, under the render's root span, and
-    the render's snapshot of the CPU's counters holds its K1 launches."""
+@pytest.mark.parametrize("sharded", [False, True], ids=["one-card", "sharded"])
+def test_render_records_a_span_set_per_band_and_chunk(monkeypatch, sharded):
+    """Two bands of two 1-sample chunks: one tile_call (sharded over 8
+    shards of the CPU, in counter mode: one dispatch and one combine),
+    band_wait, band_read and band_accumulate each, in that order, under the
+    render's root span, and the render's snapshot of the CPU's counters
+    holds its K1 launches."""
     import complex_materials_renderer_tpu_torch.renderer as rd
 
-    monkeypatch.setattr(rd, "_auto_row_chunk", lambda width: 8)
-    r = _isobox(sample_chunk=1)
+    if sharded:
+        monkeypatch.setattr(Renderer, "_shard_devices", lambda self: CPU8)
+        monkeypatch.setattr(rd, "LANES_PER_PASS", 32)  # 8-row bands: 8 tiles of a row
+        r = _isobox(sample_chunk=1, shard="auto", rng="counter")
+        spans, steps = ("dispatch", "combine", *BANDS[1:]), 4 * len(CPU8)
+    else:
+        monkeypatch.setattr(rd, "_auto_row_chunk", lambda width: 8)
+        r = _isobox(sample_chunk=1)
+        spans, steps = BANDS, 4
     before = pc.device_counts("cpu").tolist()
     r.render()
     rec = timing.recorder.renders()[-1]
     delta = [b - a for a, b in zip(before, rec.block("cpu"))]  # the snapshot at the render's end
     ran = delta[pc.CNT_K1]
-    assert rec.counts == {"render": 1, **{name: 4 for name in BANDS}}
+    assert rec.counts == {"render": 1, **{name: 4 for name in spans}}
     names = [s.name for s in rec.spans if s.parent == 0]
-    assert names == list(BANDS) * 4
+    assert names == list(spans) * 4
     assert all(s.parent == -1 for s in rec.spans[:1])
-    assert dict(r.timer.items()).keys() >= {"render", *BANDS, "accel_build"}
+    assert dict(r.timer.items()).keys() >= {"render", *spans, "accel_build"}
     sites = pc.site_counts(delta)
     assert ran > 0 and sum(f[pc.SITE_K1] for f in sites.values()) == ran
-    assert sites["pass head"][pc.SITE_VISITS] == 4  # a sample step a chunk
+    assert sites["pass head"][pc.SITE_VISITS] == steps  # a sample step a chunk and shard
     assert all(f[pc.SITE_NS] == 0 for f in sites.values())  # no card clock on the CPU
     report = r.timer.report()
     assert f"render {rec.id}:" in report and "K1 lane occupancy" in report
