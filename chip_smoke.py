@@ -2579,14 +2579,14 @@ def engine_graph_phase(profile):
         args = (0, opt.height, opt.num_samples, 0, None)  # the whole frame as one band
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            want, _ = fn(*args)
+            want = fn(*args)[0].read()
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                img, _ = fn(*args)
+                read, _ = fn(*args)  # the call and its band's copy to the host, queued
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        same = torch.equal(img, want)
+        same = bool(np.array_equal(read.read(), want))
         print(f"   {label}: torch.cuda.set_sync_debug_mode('error') around one call of the "
               f"Renderer's tile function: no synchronising operation; the image its replay's "
               f"{same}", flush=True)
@@ -3258,8 +3258,8 @@ def row_blocks_check(r, rgbe):
         t0 = time.perf_counter()
         while done < opt.num_samples:
             n = min(chunk, opt.num_samples - done)
-            img, rng_state = call(row0, tile_h, n, done, rng_state)
-            acc += img.cpu().numpy() * np.float32(n / opt.num_samples)
+            read, rng_state = call(row0, tile_h, n, done, rng_state)
+            acc += read.read() * np.float32(n / opt.num_samples)
             done += n
         dt = time.perf_counter() - t0
         same = bool(np.array_equal(float_to_rgbe(acc), rgbe[row0:row0 + tile_h]))

@@ -43,6 +43,7 @@ from .sharding import (
     dispatch_cells,
     make_render_mesh,
     mesh_device,
+    on_current,
     render_beauty_sharded,
     replicate,
     visible_devices,
@@ -143,7 +144,7 @@ def render_multihost(camera, scene, accel, lights, resolution, num_samples: int,
     dist.all_gather(parts, mine)
     every = torch.cat(parts)
     cells = {divmod(g, n_tile): every[g] for g in range(n)}
-    out = combine_cells(cells, sample_parallel, n_tile, height, comm).cpu().numpy()
+    out = on_current(combine_cells(cells, sample_parallel, n_tile, height, comm)).cpu().numpy()
     if out.shape != (height, width, 3):
         raise RuntimeError(
             f"the gathered image has shape {out.shape}, expected {(height, width, 3)}; "

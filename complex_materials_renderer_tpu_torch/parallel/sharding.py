@@ -26,8 +26,11 @@ on the card a call is a graph replay with its input copies and output
 clones and reads nothing back, so each card works while the next is given
 its calls. ``combine_cells`` then takes the mean over 'sample' and stacks
 the tiles on the mesh's first device, the images moving from card to
-card by peer copies. The caller's one host read, of the combined image,
-is the JAX package's ``block_until_ready``. A device may appear in the
+card by peer copies on side streams (``side_stream``), each behind its
+shard's call: no card's stream waits on another card's, so each card
+goes on to its next call while the band is gathered. The caller's one
+host read, of the combined image, is the JAX package's
+``block_until_ready``. A device may appear in the
 mesh more than once: each appearance is a shard of its own, queued in
 mesh order on its device's one stream, where it shares the device's
 counters and graphs (the tests build 8 shards on the one CPU this way).
@@ -261,16 +264,61 @@ def dispatch_cells(cells, tables: dict, resolution, num_samples: int, mesh: Rend
     return images
 
 
+_SIDE: dict = {}  # {card index: its side stream}
+
+
+def side_stream(device):
+    """The side stream of the card ``device``, made at its first use, on
+    which ``combine_cells`` moves and stacks the shards' images; None off
+    the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _SIDE:
+        _SIDE[index] = torch.cuda.Stream(index)
+    return _SIDE[index]
+
+
 def combine_cells(images: dict, n_sample: int, n_tile: int, height: int,
                   device) -> torch.Tensor:
     """The (height, W, 3) image on ``device`` from every shard's image:
     the mean over 'sample' of each tile, the tiles stacked, the pad rows
-    cropped. Images on other cards come over by peer copies, queued behind
-    their shards' calls; nothing is read back."""
-    tiles = []
-    for t in range(n_tile):
-        parts = torch.stack([images[(s, t)].to(device) for s in range(n_sample)])
-        tiles.append(parts.mean(dim=0))
+    cropped; nothing is read back. On cards the image is made on
+    ``device``'s side stream (``side_stream``), and each image comes over
+    on its own card's side stream, which waits only for the image's call:
+    no card's current stream waits on another card's. ``on_current``
+    makes the image complete on ``device``'s current stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _stack({c: img.to(device) for c, img in images.items()}, n_sample, n_tile, height)
+    # The streams the shards' calls ran on, read before a side stream is
+    # made current on ``device``.
+    made = {img.device: torch.cuda.current_stream(img.device) for img in images.values()}
+    moved = {}
+    with torch.cuda.stream(side_stream(device)):
+        for cell, img in images.items():
+            side = side_stream(img.device)
+            side.wait_stream(made[img.device])
+            img.record_stream(side)
+            with torch.cuda.stream(side):
+                moved[cell] = img.to(device)
+        return _stack(moved, n_sample, n_tile, height)
+
+
+def on_current(img: torch.Tensor) -> torch.Tensor:
+    """``img`` from ``combine_cells``, with its card's current stream made
+    to wait for the side stream that made it."""
+    if img.is_cuda:
+        current = torch.cuda.current_stream(img.device)
+        current.wait_stream(side_stream(img.device))
+        img.record_stream(current)
+    return img
+
+
+def _stack(images: dict, n_sample: int, n_tile: int, height: int) -> torch.Tensor:
+    tiles = [torch.stack([images[(s, t)] for s in range(n_sample)]).mean(dim=0)
+             for t in range(n_tile)]
     return torch.cat(tiles)[:height]
 
 
@@ -296,5 +344,5 @@ def render_beauty_sharded(camera, scene, accel, lights, resolution, num_samples:
         rng_mode=rng_mode, row_offset=row_offset, full_resolution=full_resolution,
         sample_offset=sample_offset, engine=engine, direct=direct,
     )
-    return combine_cells(images, mesh.shape["sample"], mesh.shape["tile"], resolution[1],
-                         mesh.devices[0][0])
+    return on_current(combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
+                                    resolution[1], mesh.devices[0][0]))

@@ -21,10 +21,13 @@ stateless RNG only). ``--shard auto`` with more than one visible card
 renders bands tile-sharded over all of them as one program over the
 cards (parallel/sharding.py): every card's call of a band is queued
 before the band's one host read, and each card replays its own graphs.
+On one card and several, the band loop runs ahead: the next call is
+queued before the host waits on the last (``CALLS_IN_FLIGHT``).
 """
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import os
 import warnings
@@ -44,13 +47,18 @@ from .render.aov import render_aov
 from .render.hitinfo import make_lights, make_scene_arrays
 from .scene import Scene
 from .utils.device import resolve_device
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, recorder
 
 # Pass shaping, read once at import from the environment with the JAX
 # package's defaults (renderer.py:39-40): LANES_PER_PASS bounds the
 # wavefront width, PATHS_PER_PASS the lanes x samples of one pass.
 LANES_PER_PASS = int(os.environ.get("CMR_LANES_PER_PASS", 1 << 16))
 PATHS_PER_PASS = int(os.environ.get("CMR_PATHS_PER_PASS", 1 << 20))
+# The band loop's calls queued and not yet read, at most: the host queues
+# call k + 1 before it waits on call k, so each card has its next call
+# before the host reads the last. Three ran no faster than two on four
+# cards (PERF.md §6).
+CALLS_IN_FLIGHT = 2
 
 
 def _engine_knobs(engine: str) -> dict:
@@ -122,20 +130,23 @@ def _band_plan(opt: RenderOptions, n_tile: int) -> tuple:
 
 
 class _BandRead:
-    """A band's copy to the host, queued on its card's current stream right
-    behind the work that makes it, into page-locked memory, so that the card
-    goes on from the call to the copy with no round trip through the host:
-    ``wait()`` is the host's wait for the call, ``read()`` its wait for the
-    copy, which gives the band as an array. On the CPU neither waits."""
+    """A band's copy to the host, queued on ``stream`` (default: its card's
+    current stream) right behind the work that makes it there, into
+    page-locked memory, so that the card goes on from the call to the copy
+    with no round trip through the host: ``wait()`` is the host's wait for
+    the call, ``read()`` its wait for the copy, which gives the band as an
+    array. Work queued after it waits for neither. On the CPU neither
+    waits."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t: torch.Tensor, stream=None):
         self.host, self.made, self.copied = t, None, None
         if t.is_cuda:
-            stream = torch.cuda.current_stream(t.device)
-            self.made = stream.record_event()
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.copied = stream.record_event()
+            stream = stream or torch.cuda.current_stream(t.device)
+            with torch.cuda.stream(stream):
+                self.made = stream.record_event()
+                self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self.host.copy_(t, non_blocking=True)
+                self.copied = stream.record_event()
 
     def wait(self) -> None:
         if self.made is not None:
@@ -308,11 +319,14 @@ class Renderer:
 
     def _band_loop(self, call, rows: int, chunk: int, checkpoint_path) -> np.ndarray:
         """The beauty pass in bands of ``rows`` rows, calls of at most
-        ``chunk`` samples: ``call(row0, band_h, n, done, rng_state)`` gives
-        the band's image of ``n`` samples from sample ``done`` and the RNG
-        words its next call takes; the host reads the image behind the call
-        and adds it by its share of the samples, saving the framebuffer and
-        each band's words to ``checkpoint_path`` after every call."""
+        ``chunk`` samples: ``call(row0, band_h, n, done, rng_state)`` queues
+        the band's image of ``n`` samples from sample ``done`` with its read
+        (``_BandRead``) and gives the read and the RNG words its next call
+        takes. The calls run ahead of the reads: call k + 1 is queued before
+        the host waits on call k, at most ``CALLS_IN_FLIGHT`` unread. The host
+        reads each call's image in call order and adds it by its share of the
+        samples, saving the framebuffer and each band's words (read behind
+        their call) to ``checkpoint_path`` after every read."""
         opt = self.options
         acc = np.zeros((opt.height, opt.width, 3), np.float32)
         rng_rows: dict = {}
@@ -339,6 +353,23 @@ class Renderer:
                     rng_rows[row0] = state["rng"][i]
 
         timer = self.timer
+        unread = collections.deque()  # (row0, band_h, n, done after, read, words read)
+
+        def read_oldest():
+            row0, band_h, n, done, read, words = unread.popleft()
+            with timer.phase("band_wait"):
+                read.wait()
+            with timer.phase("band_read"):
+                band = read.read()
+            with timer.phase("band_accumulate"):
+                acc[row0 : row0 + band_h] += band * np.float32(n / opt.num_samples)
+                if words is not None:
+                    rng_rows[row0] = words.read().astype(np.uint32)
+                    done_rows[row0] = done
+                    self._save_checkpoint(
+                        checkpoint_path, acc, rows, chunk, done_rows, rng_rows, fingerprint,
+                    )
+
         for row0 in range(0, opt.height, rows):
             band_h = min(rows, opt.height - row0)
             rng_state = (
@@ -348,22 +379,16 @@ class Renderer:
             done = done_rows.get(row0, 0)
             while done < opt.num_samples:
                 n = min(chunk, opt.num_samples - done)
-                img, rng_state = call(row0, band_h, n, done, rng_state)
-                with timer.phase("band_wait"):
-                    read = _BandRead(img)
-                    read.wait()
-                with timer.phase("band_read"):
-                    band = read.read()
-                with timer.phase("band_accumulate"):
-                    acc[row0 : row0 + band_h] += band * np.float32(n / opt.num_samples)
-                    done += n
-                    if checkpoint_path:
-                        rng_rows[row0] = rng_state.cpu().numpy().astype(np.uint32)
-                        done_rows[row0] = done
-                        self._save_checkpoint(
-                            checkpoint_path, acc, rows, chunk, done_rows,
-                            rng_rows, fingerprint,
-                        )
+                if unread:
+                    recorder.count("calls_ahead")
+                read, rng_state = call(row0, band_h, n, done, rng_state)
+                done += n
+                words = _BandRead(rng_state) if checkpoint_path else None
+                unread.append((row0, band_h, n, done, read, words))
+                if len(unread) >= CALLS_IN_FLIGHT:
+                    read_oldest()
+        while unread:
+            read_oldest()
         if checkpoint_path and os.path.exists(checkpoint_path):
             os.remove(checkpoint_path)
         return acc
@@ -408,7 +433,7 @@ class Renderer:
 
         def call(row0, band_h, n, done, rng_state):
             with self.timer.phase("tile_call"):
-                return tile(
+                img, rng_state = tile(
                     self.camera, self.scene_arrays, self.accel, self.lights,
                     (opt.width, band_h), n,
                     max_depth=opt.max_depth, rr_depth=opt.rr_depth,
@@ -416,6 +441,7 @@ class Renderer:
                     direct=opt.direct, row_offset=row0, full_resolution=resolution,
                     sample_offset=done, rng_state=rng_state, return_rng=True,
                 )
+            return _BandRead(img), rng_state
 
         return call
 
@@ -423,9 +449,13 @@ class Renderer:
         """(band call, tile shards) of a render tile-sharded over
         ``devices`` (renderer.py:240-288): ``dispatch_cells`` queues every
         card's call of the band before ``combine_cells`` stacks the tiles
-        on the first card, both looked up at each call. The call carries no
-        RNG words. As in the JAX package the shards get no ``tir`` (ROADMAP
-        R6) and ``pair`` renders through the wavefront loop (R5)."""
+        on the first card, both looked up at each call. The stack and the
+        band's read run on the first card's side stream
+        (``sharding.side_stream``), so no card's stream waits on another's:
+        each card's next call runs while the band is gathered and read. The
+        call carries no RNG words. As in the JAX package the shards get no
+        ``tir`` (ROADMAP R6) and ``pair`` renders through the wavefront loop
+        (R5)."""
         from .parallel import sharding
 
         opt = self.options
@@ -434,6 +464,8 @@ class Renderer:
         mesh = sharding.make_render_mesh(devices)
         cells = sharding.mesh_cells(mesh)
         tables = self._keep_passes([mesh.devices[s][t] for s, t in cells])
+        first = mesh.devices[0][0]
+        side = sharding.side_stream(first)
 
         def call(row0, band_h, n, done, rng_state):
             with self.timer.phase("dispatch"):
@@ -446,8 +478,8 @@ class Renderer:
                 )
             with self.timer.phase("combine"):
                 img = sharding.combine_cells(images, mesh.shape["sample"], mesh.shape["tile"],
-                                             band_h, mesh.devices[0][0])
-            return img, None
+                                             band_h, first)
+            return _BandRead(img, side), None
 
         return call, mesh.shape["tile"]
 

@@ -17,7 +17,11 @@ SURVEY §5). The port records instead, always and in one place
   end with no round trip through the host) and a
   "band_accumulate" (the scale-and-add, and the checkpoint's save); a
   render over several cards has "dispatch" and "combine" in place of
-  "tile_call". The spans of the latest ``SPAN_RENDERS`` renders are kept.
+  "tile_call". The band loop runs ahead (renderer.py ``CALLS_IN_FLIGHT``),
+  so a call's span comes before the wait, read and accumulation of the
+  call before it; each call queued while an earlier call of its render was
+  unread adds one to the render's count "calls_ahead" (``Recorder.count``).
+  The spans of the latest ``SPAN_RENDERS`` renders are kept.
 - one ``RenderRecord`` a render (the latest ``RENDERS``): its span totals
   by name, and on each device it ran on a snapshot of that device's
   counter block (kernels/pass_control.py ``device_counts``: the K1 and
@@ -97,7 +101,7 @@ class RenderRecord:
         self.id = rid
         self.spans: Optional[list] = []  # None once older than the latest SPAN_RENDERS
         self.totals: Dict[str, float] = {}  # seconds of its spans by name
-        self.counts: Dict[str, int] = {}  # its spans by name
+        self.counts: Dict[str, int] = {}  # its spans by name, and its "calls_ahead"
         self._blocks: dict = {}  # device -> counter block snapshot (a tensor until read)
 
     @property
@@ -212,6 +216,13 @@ class Recorder:
         there is one (a span outside a render is timed, not kept); its
         seconds are also added to ``totals[name]`` when given."""
         return _Open(self, name, totals)
+
+    def count(self, name: str) -> None:
+        """Add one to the render under way's count of ``name``, a count
+        with no span (nothing outside a render)."""
+        rec = self._current
+        if rec is not None:
+            rec.counts[name] = rec.counts.get(name, 0) + 1
 
     def render(self, devices=(), totals: Optional[dict] = None,
                ids: Optional[list] = None) -> "_Render":
@@ -334,7 +345,9 @@ class Recorder:
         root = rec.totals.get(ROOT, 0.0)
         spans = ", ".join(f"{name} {rec.counts[name]} x {1e3 * t / rec.counts[name]:.3f} ms"
                           for name, t in rec.totals.items() if name != ROOT)
-        lines = [f"render {rec.id}: {1e3 * root:.1f} ms; host spans: {spans or 'none'}"]
+        ahead = rec.counts.get("calls_ahead", 0)
+        lines = [f"render {rec.id}: {1e3 * root:.1f} ms; host spans: {spans or 'none'}; "
+                 f"calls queued ahead of an unread call: {ahead}"]
         idle = self.idle_by_span([rec])
         if idle:
             by_span = sorted(idle.items(), key=lambda x: -x[1])

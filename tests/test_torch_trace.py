@@ -2,14 +2,16 @@
 (kernels/pass_control.py).
 
 On the CPU: the recorder's nesting, render ids and bounds; one render's
-band spans; the CPU executor's per-site counts against a recount of the
-alive lanes; the clock conversion and the idle split against a fake
-clock. The ``gpu`` tests, on a card: a graph replay's per-site counts
-against the eager executor's and against the CPU executor's control (the
-plain version) on the card's tensors, a call's segments against its
-interval, and the host's wait for a band against the call's end stamp on
-the shared clock. Neither JAX nor the test helpers are imported, so the card runs
-this file with ``--noconftest``:
+band spans in their run-ahead order; the CPU executor's per-site counts
+against a recount of the alive lanes; the clock conversion and the idle
+split against a fake clock. The ``gpu`` tests, on a card: a graph
+replay's per-site counts against the eager executor's and against the CPU
+executor's control (the plain version) on the card's tensors, a call's
+segments against its interval, the host's wait for a band against the
+call's end stamp on the shared clock, and the band loop's run-ahead: one
+card's calls back to back, and no card held back by another's strip.
+Neither JAX nor the test helpers are imported, so the card runs this file
+with ``--noconftest``:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_trace.py
 """
@@ -17,6 +19,7 @@ this file with ``--noconftest``:
 import dataclasses
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,6 +39,15 @@ def _isobox(device="cpu", **kw):
     obj = os.path.join(REPO, "scenes", "isobox.obj")
     base = dict(width=32, height=16, num_samples=2, shard="none", device=device,
                 backend="cluster", engine="mega", max_depth=4, rr_depth=2)
+    base.update(kw)
+    scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
+    return Renderer(scene, dataclasses.replace(scene.options, **base))
+
+
+def _showcase(device, **kw):
+    """Showcase at its own settings (depth 32, parity) on the card."""
+    obj = os.path.join(REPO, "scenes", "showcase.obj")
+    base = dict(shard="none", device=device)
     base.update(kw)
     scene = load_scene(obj, RenderOptions(obj_path=obj, **base))
     return Renderer(scene, dataclasses.replace(scene.options, **base))
@@ -76,9 +88,11 @@ def test_recorder_nesting_render_ids_and_bound():
 def test_render_records_a_span_set_per_band_and_chunk(monkeypatch, sharded):
     """Two bands of two 1-sample chunks: one tile_call (sharded over 8
     shards of the CPU, in counter mode: one dispatch and one combine),
-    band_wait, band_read and band_accumulate each, in that order, under the
-    render's root span, and the render's snapshot of the CPU's counters
-    holds its K1 launches."""
+    band_wait, band_read and band_accumulate each under the render's root
+    span, the calls running ahead: each call's wait, read and accumulation
+    come after the next call; every call but the first counted in
+    "calls_ahead"; and the render's snapshot of the CPU's counters holds
+    its K1 launches."""
     import complex_materials_renderer_tpu_torch.renderer as rd
 
     if sharded:
@@ -95,9 +109,15 @@ def test_render_records_a_span_set_per_band_and_chunk(monkeypatch, sharded):
     rec = timing.recorder.renders()[-1]
     delta = [b - a for a, b in zip(before, rec.block("cpu"))]  # the snapshot at the render's end
     ran = delta[pc.CNT_K1]
-    assert rec.counts == {"render": 1, **{name: 4 for name in spans}}
+    assert rec.counts == {"render": 1, **{name: 4 for name in spans}, "calls_ahead": 3}
     names = [s.name for s in rec.spans if s.parent == 0]
-    assert names == list(spans) * 4
+    call, reads = list(spans[:-3]), list(BANDS[1:])
+    ahead = rd.CALLS_IN_FLIGHT - 1
+    assert ahead >= 1
+    assert names == call * (1 + ahead) + (reads + call) * (3 - ahead) + reads * (1 + ahead)
+    starts = [i for i, name in enumerate(names) if name == call[0]]
+    waits = [i for i, name in enumerate(names) if name == "band_wait"]
+    assert all(w > c for w, c in zip(waits, starts[1:]))  # each wait after the next call
     assert all(s.parent == -1 for s in rec.spans[:1])
     assert dict(r.timer.items()).keys() >= {"render", *spans, "accel_build"}
     sites = pc.site_counts(delta)
@@ -343,3 +363,72 @@ def test_band_wait_ends_after_the_call_on_one_clock(cuda, monkeypatch):
         assert wait.end >= end - cal.error_s, (wait.end, end, cal.error_s)
     split = timing.recorder.idle_by_span([rec])
     assert set(split) <= {*BANDS, "no span"}
+
+
+@pytest.mark.gpu
+def test_one_card_runs_from_call_to_call(cuda, monkeypatch):
+    """Run-ahead on one card: showcase 512x256 at 8 spp in two 128-row
+    bands of two 4-spp calls (65,536 lanes, ~16 ms a call on an H100). The
+    card goes from each call of a render to the next with less than 0.2 ms
+    between them on its ring (the band's copy to the host and the next
+    call's small set-up kernels lie between them); the image is bit-equal
+    to that of the loop that reads each call before the next. The gap is a
+    time: the test needs the card to itself (run it in one pytest process,
+    with no other process on the card)."""
+    import complex_materials_renderer_tpu_torch.renderer as rd
+
+    r = _showcase(cuda, width=512, height=256, num_samples=8, sample_chunk=4)
+    r.render()  # captures
+    img = r.render()
+    rec = timing.recorder.renders()[-1]
+    calls = timing.recorder.calls(rec, str(cuda))
+    assert len(calls) == 4 and rec.counts["calls_ahead"] == 3
+    gaps = [s1 - e0 for (_, e0), (s1, _) in zip(calls, calls[1:])]
+    assert max(gaps) < 0.2e-3, gaps
+    monkeypatch.setattr(rd, "CALLS_IN_FLIGHT", 1)
+    np.testing.assert_array_equal(r.render(), img)
+
+
+@pytest.mark.gpu
+def test_no_card_waits_on_another_inside_a_render(cuda, monkeypatch):
+    """Over every card (two or more): a device sleep of ~0.1 s queued before
+    card 1's band-0 strip holds back no other card: card 0 starts its
+    band-1 call before card 1 ends its band-0 call (each card's ring on the
+    host clock). Showcase 512 wide in two bands of 32 rows a card, parity,
+    one call a band; the image is bit-equal to that of the loop that reads
+    each band before the next, with no sleep."""
+    import complex_materials_renderer_tpu_torch.renderer as rd
+    from complex_materials_renderer_tpu_torch.parallel import sharding
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    monkeypatch.setattr(rd, "LANES_PER_PASS", 512 * 32)  # a band: 32 rows a card
+    r = _showcase("cuda", width=512, height=64 * n, num_samples=4, shard="auto")
+    r.render()  # captures each card's graph
+    ref = r.render()
+    real = sharding._beauty_fn
+    slept = []
+
+    def beauty_fn(engine):
+        fn = real(engine)
+
+        def call(*args, **kw):
+            if not slept and torch.cuda.current_device() == 1:
+                slept.append(1)
+                torch.cuda._sleep(200_000_000)  # cycles: ~0.1 s at the H100's clock
+            return fn(*args, **kw)
+
+        return call
+
+    monkeypatch.setattr(sharding, "_beauty_fn", beauty_fn)
+    img = r.render()
+    rec = timing.recorder.renders()[-1]
+    card0 = timing.recorder.calls(rec, "cuda:0")
+    card1 = timing.recorder.calls(rec, "cuda:1")
+    assert slept and len(card0) == len(card1) == 2
+    assert card0[1][0] < card1[0][1], (card0, card1)
+    np.testing.assert_array_equal(img, ref)
+    monkeypatch.setattr(sharding, "_beauty_fn", real)
+    monkeypatch.setattr(rd, "CALLS_IN_FLIGHT", 1)
+    np.testing.assert_array_equal(r.render(), ref)
