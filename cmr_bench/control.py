@@ -8,7 +8,14 @@ correct.
     python3 -m cmr_bench.control --workload <name> --seeds <a,b,c> [--dtype bfloat16]
 
 Each seed draws the camera and the checked pixels as a run with that seed
-does (``check.draws``), at the cell's own frame and sample count. One JSON
+does (``check.draws``), at the cell's own frame and sample count, and both
+sides render the configuration's stream and direct-light estimator. Under
+``spp_mode: adaptive`` both sides render each checked pixel at a count of
+its own (``control_counts``): ``check.MIN_SAMPLES`` each, and the rest of
+K x samples (K checked pixels) spread over them by one multinomial draw
+with weights exp(N(0, 1)), a heavy tail as a noise-driven allocation has,
+all from the seed's stream 2 (``numpy.random.default_rng([seed, 2])``):
+the counts' mean is the budget's, ``samples`` a pixel. One JSON
 line a seed: the numbers, and ``correct`` as the cell's limits judge them.
 It runs on the first card, or with ``--device cpu`` on the CPU. The
 benchmark's own runs never run it.
@@ -20,15 +27,27 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from . import check, spec
 
 
+def control_counts(seed: int, k: int, samples: int) -> np.ndarray:
+    """(k,) per-pixel sample counts of mean ``samples``, at least
+    ``check.MIN_SAMPLES`` each (the module's docstring says how)."""
+    rng = np.random.default_rng([seed, 2])
+    w = np.exp(rng.standard_normal(k))
+    extra = rng.multinomial(k * max(samples - check.MIN_SAMPLES, 0), w / w.sum())
+    return check.MIN_SAMPLES + extra
+
+
 def control_numbers(cfg: dict, traffic: dict, seed: int, device, dtype) -> dict:
     azimuth, pixels = check.draws(seed, traffic)
-    ref = check.reference(cfg, traffic, azimuth, pixels, device)
-    low = check.reference(cfg, traffic, azimuth, pixels, device, dtype=dtype)
+    counts = (control_counts(seed, len(pixels), traffic["samples"]) if check.adaptive(cfg)
+              else None)
+    ref = check.reference(cfg, traffic, azimuth, pixels, device, counts=counts)
+    low = check.reference(cfg, traffic, azimuth, pixels, device, dtype=dtype, counts=counts)
     return check.compare(low, ref)
 
 

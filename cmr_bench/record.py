@@ -14,10 +14,11 @@ from typing import List, Optional
 
 @dataclasses.dataclass
 class Span:
-    """One tile call into the port's tile renderer, on one card."""
+    """One call into the port's tile renderer, or into adaptive sampling's
+    samples call, on one card."""
 
     card: int
-    shape: tuple  # (width, rows, samples) of the call
+    shape: tuple  # (width, rows, samples) of a tile call, (lanes,) of a samples call
     band: int  # the dispatch_cells call it belongs to, -1 on one card
     render: int  # the window's render it belongs to
     host_s: float  # host clock inside the call (it returns before the card finishes)

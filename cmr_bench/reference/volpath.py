@@ -5,12 +5,15 @@ reference, a lower type for the control).
 
 It follows ``tests/oracle_volpath.py`` of this repository (a scalar NumPy
 transcription of the reference renderer's ``volpath.comp.glsl``), taken as
-that file stood when the benchmark was added, written over lanes: one lane
-a pixel, each pixel's samples in turn on one PCG32 stream seeded with the
-pixel's linear index, as the shader's thread runs them. README.md beside
-this file lists where it departs from that source. It imports nothing of
-the program and takes nothing the program made: every table below is
-derived here from ``scene.read_scene``.
+that file stood when the benchmark was added, written over lanes. With the
+shader's stream (``parity``) a lane is a pixel, its samples in turn on one
+PCG32 stream seeded with the pixel's linear index, as the shader's thread
+runs them; with a stateless stream (``counter``, ``ld``) a lane is a
+(pixel, sample) pair, and a pixel may have a sample count of its own.
+README.md beside this file lists where it departs from that source and
+where each stream and the analytic direct term are defined. It imports
+nothing of the program and takes nothing the program made: every table
+below is derived here from ``scene.read_scene``.
 
 Each bounce runs on the live lanes only (gathered, then written back), and
 every hit query is a brute-force closest hit over all triangles: the
@@ -41,6 +44,13 @@ BARY_SLACK = 1e-6  # shared edges do not let a ray through
 DET_EPS = 1e-12
 ISO_EPS = 1e-4
 LANE_BLOCK = 4096  # lanes a hit query takes at once
+LN_1E4 = math.log(1e4)  # the depth at which a medium's transmittance falls to 1e-4
+GOLD = 0x9E3779B9
+SAMPLE_MUL = 0x85EBCA6B
+CAMERA_DIMS = 2  # ld dimensions of the camera ray's jitter
+SITES = 8  # draw sites of a bounce, each an ld dimension
+SOBOL_DIMS = 1024
+SOBOL_BITS = 30
 
 
 class Settings(NamedTuple):
@@ -51,6 +61,8 @@ class Settings(NamedTuple):
     nee_max_media: int = 4
     tir: str = "reflect"  # reflect | kill
     background: int = 1  # 0 grey, 1 checkerboard, 2 Cornell colours
+    rng: str = "parity"  # parity | counter | ld
+    direct: str = "scatter"  # scatter | analytic
 
 
 def _dot(a, b):
@@ -67,17 +79,104 @@ def _normalize(v):
     return v / torch.clamp(torch.sqrt(_dot(v, v)), min=1e-20)[..., None]
 
 
+def _step(x):
+    """The PCG32 LCG step (volpath:233-236) on int64 words."""
+    return (x * 747796405 + 1) & MASK32
+
+
+def _out(x):
+    """The RXS-M-XS output permutation (volpath:239-246)."""
+    word = (((x >> ((x >> 28) + 4)) ^ x) * 277803737) & MASK32
+    return (word >> 22) ^ word
+
+
+def _to_unit(word):
+    """The shader's float(word) / 4294967295.0f: the word rounded to
+    float32 over 2^32."""
+    return word.to(torch.float32) / 4294967296.0
+
+
 def _rng(state, mask=None):
-    """PCG32 step and RXS-M-XS output (volpath:233-246) on int64 words;
-    the float is the shader's float(word) / 4294967295.0f, that is the word
-    rounded to float32 over 2^32. Lanes outside ``mask`` keep their state."""
-    new = (state * 747796405 + 1) & MASK32
-    word = (((new >> ((new >> 28) + 4)) ^ new) * 277803737) & MASK32
-    word = (word >> 22) ^ word
-    value = word.to(torch.float32) / 4294967296.0
+    """PCG32 step and RXS-M-XS output (volpath:233-246); lanes outside
+    ``mask`` keep their state."""
+    new = _step(state)
+    value = _to_unit(_out(new))
     if mask is not None:
         new = torch.where(mask, new, state)
     return new, value
+
+
+def _mul(x, c: int):
+    """(x * c) mod 2^32 for words ``x`` and a 32-bit constant ``c``, in
+    16-bit halves of ``c`` so that no int64 product overflows."""
+    return ((((x * (c >> 16)) & 0xFFFF) << 16) + x * (c & 0xFFFF)) & MASK32
+
+
+def _reverse(x):
+    """The 32 bits of each word in reverse order."""
+    for shift, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
+        x = ((x & m) << shift) | ((x >> shift) & m)
+    return ((x & 0xFFFF) << 16) | (x >> 16)
+
+
+def _owen(x, key):
+    """Nested uniform (Owen) scramble of the words ``x`` keyed by ``key``:
+    the Laine-Karras permutation (Burley, JCGT 2020, section 3.3) applied
+    in the bit-reversed domain."""
+    x = _reverse(x)
+    x = x ^ ((x * 0x3D20ADEA) & MASK32)
+    x = (x + key) & MASK32
+    x = (x * ((key >> 16) | 1)) & MASK32
+    x = x ^ ((x * 0x05526C56) & MASK32)
+    x = x ^ ((x * 0x53A22864) & MASK32)
+    return _reverse(x)
+
+
+def seed_counter(linear, sample):
+    """The counter stream's first state of each (pixel, sample) lane: two
+    PCG output rounds over pixel * 0x9E3779B9 + sample * 0x85EBCA6B + 1."""
+    x = (_mul(linear, GOLD) + _mul(sample, SAMPLE_MUL) + 1) & MASK32
+    return _out(_step(_out(_step(x))))
+
+
+def seed_ld(linear, sample):
+    """The ld stream's lane state ``[index, pixel key]``: the sample index
+    Owen-shuffled by a key of its pixel, and the pixel's key of the
+    per-dimension scrambles."""
+    key = _out(_step((_mul(linear, GOLD) + 1) & MASK32))
+    shuffle = _out(_step((_mul(linear, SAMPLE_MUL) + 2) & MASK32))
+    return torch.stack([_owen(sample, shuffle), key], dim=-1)
+
+
+def sobol_rows(device) -> torch.Tensor:
+    """(SOBOL_DIMS, 32) Sobol direction numbers, top-aligned to 32 bits:
+    torch's Joe-Kuo table (30 bits) shifted left by 2, two zero columns
+    after them."""
+    rows = torch.quasirandom.SobolEngine(dimension=SOBOL_DIMS).sobolstate.to(torch.int64) << 2
+    return torch.nn.functional.pad(rows, (0, 32 - SOBOL_BITS)).to(device)
+
+
+class Draws:
+    """The stream of a render: ``draw(state, mask, dim)`` -> (state, float32
+    values). The PCG streams (``parity``, ``counter``) step each lane in
+    ``mask`` and keep the others. The ld stream draws Sobol dimension
+    ``dim`` of each lane's shuffled index, Owen-scrambled by a key of
+    (pixel, dim); its state never changes, and the dimension is the draw
+    site's whether or not a lane draws there (lockstep)."""
+
+    def __init__(self, kind: str, device):
+        self.kind = kind
+        if kind == "ld":
+            self.rows, self.bits = sobol_rows(device), torch.arange(32, device=device)
+
+    def draw(self, state, mask, dim: int):
+        if self.kind != "ld":
+            return _rng(state, mask)
+        index, key = state[:, 0], state[:, 1]
+        x = ((index[:, None] >> self.bits) & 1) * self.rows[dim]
+        while x.shape[1] > 1:  # the XOR of the rows the index's bits pick
+            x = x[:, : x.shape[1] // 2] ^ x[:, x.shape[1] // 2:]
+        return state, _to_unit(_owen(x[:, 0], _out(_step(key ^ ((dim * GOLD) & MASK32)))))
 
 
 class Tables:
@@ -301,9 +400,10 @@ def _disk(r1, r2):
     return r * torch.cos(phi), r * torch.sin(phi)
 
 
-def _bounce(tb: Tables, o, d, thr, rad, st, depth):
-    """One bounce of live lanes (volpath:606-798); returns the new state
-    and each lane's liveness."""
+def _bounce(tb: Tables, o, d, thr, rad, st, depth, rng: Draws, dim: int):
+    """One bounce of live lanes (volpath:606-798), its draw sites at ld
+    dimensions ``dim`` .. ``dim + SITES - 1``; returns the new state and
+    each lane's liveness."""
     cfg, dt = tb.settings, tb.dtype
     k = o.shape[0]
     z3 = torch.zeros_like(thr)
@@ -317,7 +417,7 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
     ior = torch.where(has_med, tb.ior[prim], torch.ones_like(tb.ior[prim]))
 
     refl1, trans1, r1, tir1 = _boundary(d, nrm, ior)
-    st, rf = _rng(st, has_med)
+    st, rf = rng.draw(st, has_med, dim)
     do_reflect = has_med & (rf.to(dt) < r1)
     transmitted = has_med & ~do_reflect
     dir_after = torch.where(do_reflect[:, None], refl1,
@@ -332,7 +432,7 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
                                         torch.full((tr_idx.numel(),), T_MAX, dtype=dt,
                                                    device=o.device))
         seg[tr_idx] = torch.where(hit, t, torch.full_like(t, T_MAX))
-    st, rd = _rng(st, transmitted)
+    st, rd = rng.draw(st, transmitted, dim + 1)
     success, ms_t, p_fail, p_success, trans = _free_flight(rd.to(dt), ss, sa, seg)
     scatter = transmitted & success
     if cfg.tir == "kill":
@@ -342,11 +442,26 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
     diffuse = got & ~has_med
     shade = diffuse & ~(_dot(d, nrm) > 0)
 
+    # The analytic direct term (README.md): the scatter branch's direct
+    # light in expectation over the free flight, on every transmitted lane
+    # of a medium that scatters, in place of the NEE at scatter events.
+    analytic = cfg.direct == "analytic"
+    if analytic:
+        ext = ss + sa
+        density = ext.amin(dim=-1)
+        gate = transmitted & (density > 0)
+        if cfg.tir == "kill":
+            gate = gate & ~tir1
+        t_cap = torch.minimum(seg, LN_1E4 / torch.where(gate, density, torch.ones_like(density)))
+        a = torch.where(gate[:, None], ss * (1.0 - torch.exp(-ext * t_cap[:, None]))
+                        / torch.where(gate[:, None], ext, torch.ones_like(ext)), z3)
     light = z3.clone()
-    nee = (scatter | shade).nonzero()[:, 0]
+    nee = ((gate if analytic else scatter) | shade).nonzero()[:, 0]
     if nee.numel():
         light[nee] = tb.direct(pos[nee])
     phase0 = INV_FOURPI * (1.0 - g * g) / ((1.0 + g * g) * torch.sqrt(1.0 + g * g))
+    if analytic:
+        rad = rad + torch.where(gate[:, None], thr * a * light * phase0[:, None], z3)
 
     # Scatter (volpath:693-710): the NEE from the boundary point, the
     # phase at outDir = 0, the new origin along the new direction.
@@ -354,9 +469,10 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
                         ss * trans / torch.where(p_success > 0, p_success,
                                                  torch.ones_like(p_success))[:, None], z3)
     thr = torch.where(scatter[:, None], thr * scale, thr)
-    rad = rad + torch.where(scatter[:, None], thr * light * phase0[:, None], z3)
-    st, ph1 = _rng(st, scatter)
-    st, ph2 = _rng(st, scatter)
+    if not analytic:
+        rad = rad + torch.where(scatter[:, None], thr * light * phase0[:, None], z3)
+    st, ph1 = rng.draw(st, scatter, dim + 2)
+    st, ph2 = rng.draw(st, scatter, dim + 3)
     hg = _phase_sample(dir_after, g, ph1.to(dt), ph2.to(dt))
     o = torch.where(scatter[:, None], pos + hg * ms_t[:, None], o)
     new_dir = torch.where(scatter[:, None], hg, dir_after)
@@ -368,15 +484,15 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
                          z3)
     thr = torch.where(pass_med[:, None], thr * pscale, thr)
     refl2, trans2, r2, tir2 = _boundary(dir_after, nrm, ior)
-    st, rf2 = _rng(st, pass_med)
+    st, rf2 = rng.draw(st, pass_med, dim + 4)
     pass_dir = torch.where((rf2.to(dt) < r2)[:, None], refl2, trans2)
     o = torch.where(pass_med[:, None], pos + dir_after * ms_t[:, None], o)
     new_dir = torch.where(pass_med[:, None], pass_dir, new_dir)
 
     # Diffuse (volpath:758-779): the local disk direction used as a world
     # direction, the eval's frame mix.
-    st, q1 = _rng(st, shade)
-    st, q2 = _rng(st, shade)
+    st, q1 = rng.draw(st, shade, dim + 5)
+    st, q2 = rng.draw(st, shade, dim + 6)
     dx, dy = _disk(q1.to(dt), q2.to(dt))
     temp = 1.0 - dx * dx - dy * dy
     wo = torch.stack([dx, dy, torch.where(temp <= 0, torch.full_like(temp, 1e-10),
@@ -394,7 +510,7 @@ def _bounce(tb: Tables, o, d, thr, rad, st, depth):
     enders = scatter | shade
     depth = depth + (enders | pass_med).to(depth.dtype)
     rr = enders & (depth > cfg.rr_depth)
-    st, rq = _rng(st, rr)
+    st, rq = rng.draw(st, rr, dim + 7)
     q = torch.clamp(thr.amax(dim=-1), max=0.95)
     survive = rq.to(dt) <= q
     thr = torch.where((rr & survive)[:, None], thr / torch.clamp(q, min=1e-20)[:, None], thr)
@@ -423,31 +539,68 @@ def make_camera(position, look_at, fov_deg, device, dtype) -> Camera:
     return Camera(put(pos), put(forward), put(right), put(up), TWOPI - math.radians(fov_deg))
 
 
-def render_pixels(tb: Tables, camera: Camera, pixels, width: int, height: int,
-                  samples: int) -> torch.Tensor:
-    """(K, 3) mean radiance of the pixels ``pixels`` ((K, 2) x, y) of a
-    width x height frame over ``samples`` samples, in ``tb.dtype``."""
+def _paths(tb: Tables, camera: Camera, pix, width: int, height: int, state, rng: Draws):
+    """(radiance (k, 3), final state) of one camera sample of each lane,
+    lane i at pixel ``pix[i]`` with stream state ``state[i]``."""
     dev, dt = tb.device, tb.dtype
+    k = pix.shape[0]
+    state, j1 = rng.draw(state, None, 0)
+    state, j2 = rng.draw(state, None, 1)
+    u = (2.0 * (pix[:, 0].to(dt) + j1.to(dt)) - width) / height
+    v = -(2.0 * (pix[:, 1].to(dt) + j2.to(dt)) - height) / height
+    d = _normalize(u[:, None] * camera.right + v[:, None] * camera.up
+                   + camera.fov_scale * camera.forward)
+    o = camera.origin.expand(k, 3).clone()
+    thr = torch.ones((k, 3), dtype=dt, device=dev)
+    rad = torch.zeros((k, 3), dtype=dt, device=dev)
+    depth = torch.zeros((k,), dtype=torch.int64, device=dev)
+    live = torch.arange(k, device=dev)
+    dim = CAMERA_DIMS
+    while live.numel():
+        out = _bounce(tb, o[live], d[live], thr[live], rad[live], state[live], depth[live], rng,
+                      dim)
+        for dst, src in zip((o, d, thr, rad, state, depth), out[:6]):
+            dst[live] = src
+        live = live[out[6]]
+        dim += SITES
+    return rad, state
+
+
+def render_pixels(tb: Tables, camera: Camera, pixels, width: int, height: int,
+                  samples: int, counts=None) -> torch.Tensor:
+    """(K, 3) mean radiance of the pixels ``pixels`` ((K, 2) x, y) of a
+    width x height frame, in ``tb.dtype``: pixel k's mean over its samples
+    0 .. counts[k] - 1, or over ``samples`` samples without ``counts``.
+
+    The parity stream runs one lane a pixel, its samples in turn on the
+    pixel's stream, and takes no counts. A stateless stream runs the
+    (pixel, sample) pairs as lanes, at most K at a time, so that its
+    memory is parity's at the same K."""
+    dev, dt = tb.device, tb.dtype
+    rng = Draws(tb.settings.rng, dev)
     pix = torch.as_tensor(np.asarray(pixels), dtype=torch.int64, device=dev)
     k = pix.shape[0]
-    state = (pix[:, 1] * width + pix[:, 0]) & MASK32
+    if rng.kind == "parity":
+        if counts is not None:
+            raise ValueError("the parity stream is sequential in a pixel: it renders every "
+                             "pixel at one sample count")
+        state = (pix[:, 1] * width + pix[:, 0]) & MASK32
+        acc = torch.zeros((k, 3), dtype=dt, device=dev)
+        for _ in range(samples):
+            rad, state = _paths(tb, camera, pix, width, height, state, rng)
+            acc += rad
+        return acc / samples
+    n = (torch.full((k,), samples, dtype=torch.int64) if counts is None
+         else torch.as_tensor(np.asarray(counts), dtype=torch.int64)).to(dev)
+    owner = torch.repeat_interleave(torch.arange(k, device=dev), n)
+    sample = torch.arange(owner.numel(), device=dev) - (torch.cumsum(n, 0) - n)[owner]
+    seed = seed_ld if rng.kind == "ld" else seed_counter
     acc = torch.zeros((k, 3), dtype=dt, device=dev)
-    for _ in range(samples):
-        state, j1 = _rng(state)
-        state, j2 = _rng(state)
-        u = (2.0 * (pix[:, 0].to(dt) + j1.to(dt)) - width) / height
-        v = -(2.0 * (pix[:, 1].to(dt) + j2.to(dt)) - height) / height
-        d = _normalize(u[:, None] * camera.right + v[:, None] * camera.up
-                       + camera.fov_scale * camera.forward)
-        o = camera.origin.expand(k, 3).clone()
-        thr = torch.ones((k, 3), dtype=dt, device=dev)
-        rad = torch.zeros((k, 3), dtype=dt, device=dev)
-        depth = torch.zeros((k,), dtype=torch.int64, device=dev)
-        live = torch.arange(k, device=dev)
-        while live.numel():
-            out = _bounce(tb, o[live], d[live], thr[live], rad[live], state[live], depth[live])
-            for dst, src in zip((o, d, thr, rad, state, depth), out[:6]):
-                dst[live] = src
-            live = live[out[6]]
-        acc += rad
-    return acc / samples
+    for i in range(0, owner.numel(), k):
+        lanes = owner[i:i + k]
+        lane_pix = pix[lanes]
+        linear = (lane_pix[:, 1] * width + lane_pix[:, 0]) & MASK32
+        rad, _ = _paths(tb, camera, lane_pix, width, height,
+                        seed(linear, sample[i:i + k] & MASK32), rng)
+        acc.index_add_(0, lanes, rad)
+    return acc / n.clamp(min=1).to(dt)[:, None]

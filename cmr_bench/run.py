@@ -12,7 +12,9 @@ The window is a closed loop of one client: renders start until
 ``--seconds`` have passed, each when the last returned its image, and it
 ends when the last one returns. Then the memory peak is read, the
 program's state let go, and the last image judged against the plain
-reference at pixels drawn from the seed (``check.py``).
+reference at pixels drawn from the seed (``check.py``); an adaptive
+render's per-pixel sample counts are read before the program's state
+goes, and judged with it.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
@@ -83,22 +85,35 @@ def _k1_launches() -> int:
     return n
 
 
+def _call_kind(shape) -> str:
+    return "samples" if len(shape) == 1 else "tile"
+
+
+def _call_name(shape) -> str:
+    if len(shape) == 1:
+        return f"megarender samples call of {shape[0]} lanes"
+    return f"megarender tile call {shape[0]}x{shape[1]} at {shape[2]} spp"
+
+
 def _breakdown(rec) -> dict:
-    """The card's time by tile-call shape and its idle gaps by what the
-    host was doing, each a mean over the cards, at most 10 of each."""
+    """The card's time by call shape and its idle gaps by what the host
+    was doing, each a mean over the cards, at most 10 of each."""
     n = max(1, len(rec.cards))
     ops: dict = {}
     for s in (s for s in rec.spans if math.isfinite(s.device_s)):
-        name = f"megarender tile call {s.shape[0]}x{s.shape[1]} at {s.shape[2]} spp"
+        name = _call_name(s.shape)
         ops[name] = ops.get(name, 0.0) + s.device_s / n
     gaps: dict = {}
     longest = (0.0, "")
     for card in rec.cards:
         own = sorted((s for s in rec.spans if s.card == card), key=lambda s: s.start_s)
-        t, last_render = 0.0, None
+        t, last_render, last_kind = 0.0, None, "tile"
         for s in own:
             if last_render is None:
-                kind = "window start to the first tile call"
+                kind = f"window start to the first {_call_kind(s.shape)} call"
+            elif s.render == last_render and len(s.shape) == 1:
+                kind = ("between samples calls of a render (renderer.py render_adaptive: "
+                        "read, allocation)")
             elif s.render == last_render:
                 kind = "between tile calls of a render (renderer.py: band read, accumulation)"
             else:
@@ -106,8 +121,8 @@ def _breakdown(rec) -> dict:
             gap = max(0.0, s.start_s - t)
             gaps[kind] = gaps.get(kind, 0.0) + gap / n
             longest = max(longest, (gap, f"longest single gap, cuda:{card}: {kind}"))
-            t, last_render = s.start_s + s.device_s, s.render
-        kind = "the last tile call to the window's end"
+            t, last_render, last_kind = s.start_s + s.device_s, s.render, _call_kind(s.shape)
+        kind = f"the last {last_kind} call to the window's end"
         gaps[kind] = gaps.get(kind, 0.0) + max(0.0, rec.window_s - t) / n
     top = lambda d: sorted(([k, v] for k, v in d.items()), key=lambda kv: -kv[1])[:10]  # noqa: E731
     idle = top(gaps)[:9] + ([[longest[1], longest[0]]] if longest[1] else [])
@@ -203,6 +218,7 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, *, seed: int, seconds: floa
 
     # The program's state goes before the reference runs on the first card.
     last = np.asarray(image)
+    counts = np.array(renderer.sample_counts) if check.adaptive(cfg) else None
     for cache in [getattr(renderer, "_passes", None),
                   *getattr(renderer, "_shard_passes", {}).values()]:
         if cache is not None:
@@ -212,8 +228,9 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, *, seed: int, seconds: floa
     if on_card:
         torch.cuda.empty_cache()
     numbers = check.check_image(last, cfg, traffic, azimuth, pixels,
-                                "cuda:0" if on_card else "cpu", log)
-    out["correct"], out["checks"] = check.judge(numbers, limits)
+                                "cuda:0" if on_card else "cpu", log, counts)
+    out["correct"], out["checks"] = check.judge(
+        numbers, limits, None if counts is None else check.budget(counts, traffic))
     return out
 
 

@@ -26,16 +26,17 @@ def card():
     return "cuda:0"
 
 
-def tiny_cell(cell_name: str, width=16, height=16, samples=2, check_pixels=None):
+def tiny_cell(cell_name: str, width=16, height=16, samples=2, check_pixels=None, options=None):
     """(config, traffic, limits, end-to-end, per-layer) of ``cell_name``
     at a tiny frame, its config on the port's CPU path of the card's
-    engine (the cluster grid and the megakernel's plain version)."""
+    engine (the cluster grid and the megakernel's plain version), with
+    ``options`` over the configuration's."""
     from cmr_bench import spec
 
     bench = spec.load_benchmark()
     cell = spec.cell(bench, cell_name)
     cfg = spec.config(cell["config"])
-    cfg["options"].update(backend="cluster", engine="mega")
+    cfg["options"].update(backend="cluster", engine="mega", **(options or {}))
     traffic = dict(spec.traffic(cell["traffic"]), width=width, height=height, samples=samples,
                    check_pixels=check_pixels or width * height)
     return (cfg, traffic, spec.limits(cell_name), spec.metrics_of(bench, "end_to_end", cell_name),

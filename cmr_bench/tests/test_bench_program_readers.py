@@ -17,13 +17,15 @@ KINDS = {K1: ("k1", 65536), SORT: ("sort", None)}
 
 def _block(pc, sites: dict) -> list:
     """A counter block prefix with ``sites`` {label: [visits, K1, live,
-    lanes, ns]}."""
+    lanes, ns]}, each value at its field of the site's ``SITE_FIELDS``."""
     idx = {label: pc.site_index(pc.Site(label, *KINDS.get(label, ("other", None))))
            for label in sites}
     block = [0] * (pc.CNT_SITES + (max(idx.values()) + 1) * pc.SITE_FIELDS)
+    at = (pc.SITE_VISITS, pc.SITE_K1, pc.SITE_LIVE, pc.SITE_LANES, pc.SITE_NS)
     for label, fields in sites.items():
         base = pc.CNT_SITES + idx[label] * pc.SITE_FIELDS
-        block[base:base + pc.SITE_FIELDS] = fields
+        for field, value in zip(at, fields):
+            block[base + field] = value
     return block
 
 

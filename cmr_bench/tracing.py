@@ -1,17 +1,21 @@
 """Wrappers the harness installs on the port's module attributes for a
 block, and takes off after it: nothing inside the program changes.
 
-Both callers of a tile render look the tile function up at call time
-(``Renderer._beauty_fn`` in renderer.py, ``_beauty_fn`` in
-parallel/sharding.py), and the sharded render looks up
-``dispatch_cells`` and ``combine_cells`` at call time too, so a wrapper on
-the module attribute sees every call on every card.
+Three functions of the port make a render's device calls, and each is
+wrapped (``CALLS``): the tile renders ``render.megarender.render_beauty_mega``
+and ``render.integrator.render_beauty``, and adaptive sampling's
+``render.megarender.render_samples_mega``. Their callers look them up at
+call time (``Renderer._tile_call`` and ``Renderer.render_adaptive`` in
+renderer.py, ``_beauty_fn`` in parallel/sharding.py), and the sharded
+render looks up ``dispatch_cells`` and ``combine_cells`` at call time too,
+so a wrapper on the module attribute sees every call on every card.
 
-- ``WarmShapes``: the first tile call of each (card, call shape) runs,
-  which captures its graph and replays it; later calls of a shape return
-  zeros at once. One render under it warms every shape the render uses.
-- ``Spans``: each tile call's host time, with a CUDA event on its card
-  before and after it; each ``dispatch_cells`` call (a band) and each
+- ``WarmShapes``: the first call of each (card, call shape) runs, which
+  captures its graph and replays it; later calls of a shape return zeros
+  at once. A tile call's shape is (width, rows, samples), a samples
+  call's (lanes,). One render under it warms every shape the render uses.
+- ``Spans``: each call's host time, with a CUDA event on its card before
+  and after it; each ``dispatch_cells`` call (a band) and each
   ``combine_cells`` call's host time.
 """
 
@@ -26,7 +30,36 @@ import torch
 from .record import Span
 
 PORT = "complex_materials_renderer_tpu_torch"
-TILE_FUNCS = (("render.megarender", "render_beauty_mega"), ("render.integrator", "render_beauty"))
+
+
+def _tile_shape(args) -> tuple:
+    """(card, (width, rows, samples)) of a tile call's positional
+    arguments (camera, scene, accel, lights, resolution, num_samples)."""
+    w, h = args[4]
+    return args[2].device, (int(w), int(h), int(args[5]))
+
+
+def _tile_zeros(shape, dev, kw):
+    img = torch.zeros((shape[1], shape[0], 3), dtype=torch.float32, device=dev)
+    if kw.get("return_rng"):
+        return img, torch.zeros((shape[0] * shape[1],), dtype=torch.int64, device=dev)
+    return img
+
+
+def _samples_shape(args) -> tuple:
+    """(card, (lanes,)) of a samples call's positional arguments (camera,
+    scene, grid, lights, pixel_xy, ...)."""
+    return args[2].device, (int(args[4].shape[0]),)
+
+
+def _samples_zeros(shape, dev, kw):
+    return torch.zeros((shape[0], 3), dtype=torch.float32, device=dev)
+
+
+# (module, function, its call's card and shape, the zeros a repeated shape returns)
+CALLS = (("render.megarender", "render_beauty_mega", _tile_shape, _tile_zeros),
+         ("render.integrator", "render_beauty", _tile_shape, _tile_zeros),
+         ("render.megarender", "render_samples_mega", _samples_shape, _samples_zeros))
 
 
 class _Patched:
@@ -48,38 +81,29 @@ class _Patched:
         return False
 
 
-def _shape(args) -> tuple:
-    """(card, (width, rows, samples)) of a tile call's positional
-    arguments (camera, scene, accel, lights, resolution, num_samples)."""
-    dev = args[2].device
-    w, h = args[4]
-    return dev, (int(w), int(h), int(args[5]))
-
-
 class WarmShapes(_Patched):
     def __enter__(self):
         seen = set()
 
-        def make(real):
-            def call(*args, **kw):
-                dev, shape = _shape(args)
-                if (str(dev), shape) not in seen:
-                    seen.add((str(dev), shape))
-                    return real(*args, **kw)
-                img = torch.zeros((shape[1], shape[0], 3), dtype=torch.float32, device=dev)
-                if kw.get("return_rng"):
-                    return img, torch.zeros((shape[0] * shape[1],), dtype=torch.int64, device=dev)
-                return img
-            return call
+        def warm(shape_of, zeros):
+            def make(real):
+                def call(*args, **kw):
+                    dev, shape = shape_of(args)
+                    if (str(dev), shape) not in seen:
+                        seen.add((str(dev), shape))
+                        return real(*args, **kw)
+                    return zeros(shape, dev, kw)
+                return call
+            return make
 
-        for module, attr in TILE_FUNCS:
-            self.patch(module, attr, make)
+        for module, attr, shape_of, zeros in CALLS:
+            self.patch(module, attr, warm(shape_of, zeros))
         self.shapes = seen
         return self
 
 
 class Spans(_Patched):
-    """Spans of the window's tile calls, bands and combines."""
+    """Spans of the window's tile and samples calls, bands and combines."""
 
     def __init__(self, cards):
         super().__init__()
@@ -101,20 +125,22 @@ class Spans(_Patched):
                 with torch.cuda.device(c):
                     self.origin[c] = self._event()
 
-        def tile(real):
-            def call(*args, **kw):
-                dev, shape = _shape(args)
-                on_card = self.cuda and dev.type == "cuda"
-                with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
-                    start = self._event() if on_card else None
-                    t0 = time.perf_counter()
-                    out = real(*args, **kw)
-                    host = time.perf_counter() - t0
-                    end = self._event() if on_card else None
-                self.raw.append((dev.index if on_card else -1, shape, self.band, self.render, host,
-                                 start, end))
-                return out
-            return call
+        def timed(shape_of):
+            def make(real):
+                def call(*args, **kw):
+                    dev, shape = shape_of(args)
+                    on_card = self.cuda and dev.type == "cuda"
+                    with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
+                        start = self._event() if on_card else None
+                        t0 = time.perf_counter()
+                        out = real(*args, **kw)
+                        host = time.perf_counter() - t0
+                        end = self._event() if on_card else None
+                    self.raw.append((dev.index if on_card else -1, shape, self.band, self.render,
+                                     host, start, end))
+                    return out
+                return call
+            return make
 
         def dispatch(real):
             def call(*args, **kw):
@@ -133,14 +159,14 @@ class Spans(_Patched):
                 return out
             return call
 
-        for module, attr in TILE_FUNCS:
-            self.patch(module, attr, tile)
+        for module, attr, shape_of, _zeros in CALLS:
+            self.patch(module, attr, timed(shape_of))
         self.patch("parallel.sharding", "dispatch_cells", dispatch)
         self.patch("parallel.sharding", "combine_cells", combine)
         return self
 
     def spans(self) -> list:
-        """The tile calls as ``Span``s, their card times read from the events
+        """The calls as ``Span``s, their card times read from the events
         (each card synchronised first)."""
         if self.cuda:
             for c in self.cards:
